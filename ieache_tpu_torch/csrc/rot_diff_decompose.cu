@@ -24,8 +24,9 @@
 // whole blocks and no ragged edge or batch padding exists.  All
 // wrapping arithmetic is uint32_t (signed overflow is undefined in C++).
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "cmux_common.cuh"
+
+using namespace ieache;
 
 namespace {
 
@@ -36,19 +37,11 @@ __global__ void rot_diff_decompose_kernel(
   const int b = blockIdx.x;
   const int u = blockIdx.z;
   const int j = blockIdx.y * blockDim.x + threadIdx.x;
-  const uint32_t* row = acc + ((int64_t)u * batch + b) * n;
-
-  // (j - a) mod 2N; N is a power of two
-  const uint32_t i = ((uint32_t)j - (uint32_t)bara[b]) & (uint32_t)(2 * n - 1);
-  const uint32_t rotated = i < (uint32_t)n ? row[i] : 0u - row[i - n];
-  const uint32_t v = (rotated - row[j]) + offset;
-
-  const uint32_t mask = (1u << bg_bit) - 1u;
-  const int half = 1 << (bg_bit - 1);
+  const uint32_t v = rot_diff<false>(acc + ((int64_t)u * batch + b) * n,
+                                     (uint32_t)bara[b], j, n, offset);
   for (int jl = 0; jl < l; ++jl) {
-    const int shift = 32 - (jl + 1) * bg_bit;
-    const int digit = (int)((v >> shift) & mask) - half;
-    out[((int64_t)(u * l + jl) * batch + b) * n + j] = (int8_t)digit;
+    out[((int64_t)(u * l + jl) * batch + b) * n + j] =
+        gadget_digit(v, jl, bg_bit);
   }
 }
 

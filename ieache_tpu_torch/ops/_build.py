@@ -1,12 +1,15 @@
 """Build and load the CUDA kernels of ``ieache_tpu_torch/csrc``.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface,
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for
+Hopper (``sm_90a``), all started together, and the objects are linked
+into one shared library with a plain C interface,
 ``ieache_tpu_torch/build/libieache_kernels.so``, loaded with
 ``ctypes``.  The library is built on first use and rebuilt when a
-source is newer than it; ``nvcc``'s resource report (``-Xptxas -v``:
-registers, shared memory, spills per kernel) is kept beside it in
-``build/ptxas.log``.  Nothing here runs at import time.
+source or a shared header (``csrc/*.cuh``) is newer than it; ``nvcc``'s
+resource report (``-Xptxas -v``: registers, shared memory, spills per
+kernel) is kept beside it in ``build/ptxas.log``, after a line naming
+the sources and headers it was built from.  Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ PTXAS_LOG = os.path.join(BUILD_DIR, "ptxas.log")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 
@@ -44,27 +47,52 @@ def _nvcc() -> str:
     return path
 
 
+def _run(procs: list) -> str:
+    """Wait for every ``(name, Popen)``; raise on the first failure;
+    return their joined output."""
+    logs, failed = [], []
+    for name, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode})")
+    if failed:
+        raise RuntimeError("nvcc failed: " + ", ".join(failed) + "\n"
+                           + "\n".join(logs))
+    return "\n".join(logs)
+
+
 def build() -> str:
     """Compile the kernels unless the library is newer than every
-    source; returns the library's path."""
+    source and header; returns the library's path."""
     srcs = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
-    newest = max(os.path.getmtime(s) for s in srcs)
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    newest = max(os.path.getmtime(f) for f in srcs + headers)
     if os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH) >= newest:
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # build under a private name and rename: another process never
+    # build under private names and rename: another process never
     # loads a half-written library
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    objs = [os.path.join(BUILD_DIR, os.path.basename(s)[:-3] + f".{tag}.o")
+            for s in srcs]
+    log = _run([
+        (os.path.basename(src), subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src, obj in zip(srcs, objs)
+    ])
+    tmp = f"{LIB_PATH}.{tag}"
+    _run([("link", subprocess.Popen(
+        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+         "-o", tmp, *objs],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))])
+    for obj in objs:
+        os.remove(obj)
+    names = [os.path.basename(f) for f in srcs + headers]
     with open(PTXAS_LOG, "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write(f"built from: {' '.join(names)}\n{log}")
     os.replace(tmp, LIB_PATH)
     return LIB_PATH
 
@@ -82,6 +110,15 @@ def library() -> ctypes.CDLL:
         vp, vp, vp, vp, i32, i32, i32, i32, vp,
     ]
     lib.ieache_external_product.restype = i32
+    for fn in (lib.ieache_cmux_step, lib.ieache_cmux_step_overlap):
+        fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
+                       ctypes.c_uint32, vp]
+        fn.restype = i32
+    lib.ieache_blind_rotate_scan.argtypes = [
+        vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
+        ctypes.c_uint32, vp,
+    ]
+    lib.ieache_blind_rotate_scan.restype = i32
     lib.ieache_error_string.argtypes = [i32]
     lib.ieache_error_string.restype = ctypes.c_char_p
     return lib

@@ -5,18 +5,33 @@ LWE mask coefficient:
 
     acc <- acc + BK_i ⊡ (X^bara_i · acc - acc)
 
-:func:`blind_rotate` runs the n steps as a Python loop.  With the
-single-limb gadget (``digit_limbs == 1``) each step is two calls in
-the (k+1, B, N) layout — :func:`~ieache_tpu_torch.ops.kernels.rot_diff_decompose`
-then :func:`~ieache_tpu_torch.ops.kernels.external_product` with the
-accumulator fused — which launch the CUDA kernels for CUDA tensors and
-run their plain twins for CPU tensors.  ``plain=True`` runs instead
+With the single-limb gadget (``digit_limbs == 1``), :func:`blind_rotate`
+runs the n steps in the (k+1, B, N) layout through the kernels of the
+step mode that ``IEACHE_PALLAS_STEP`` names, read at each call as the
+JAX package reads it (:func:`step_mode`):
+
+* ``split`` (the default, also for ``auto`` or unset): per step,
+  :func:`~ieache_tpu_torch.ops.kernels.rot_diff_decompose` then
+  :func:`~ieache_tpu_torch.ops.kernels.external_product`;
+* ``fused2``: per step, :func:`~ieache_tpu_torch.ops.kernels.cmux_step`;
+* ``overlap`` and ``overlap2``: per step,
+  :func:`~ieache_tpu_torch.ops.kernels.cmux_step_overlap`;
+* ``scan``: all steps in one call of
+  :func:`~ieache_tpu_torch.ops.kernels.blind_rotate_scan`.
+
+The wrappers launch the CUDA kernels for CUDA tensors and run their
+plain twins for CPU tensors; every mode returns the same arrays, for
+any batch.  ``tr`` and ``ntt`` are not ported and raise.  The two-limb
+compat gadget has no kernel, as on the TPU: it takes
 :func:`external_product_step`, the plain form of the JAX package's XLA
-branch (Toeplitz operand + four int8 limb products), on any device:
-the reference the kernel path is compared with.
+branch (Toeplitz operand + int8 limb products), on any device, as does
+``plain=True`` whatever the mode: the reference the kernel paths are
+compared with.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -100,6 +115,31 @@ def external_product_step(
     return acc + out
 
 
+#: the step modes the port runs, each through its own kernels
+STEP_MODES = ("split", "fused2", "overlap", "overlap2", "scan")
+
+
+def step_mode() -> str:
+    """The step mode ``IEACHE_PALLAS_STEP`` selects: ``auto`` or unset
+    is ``split``; ``tr`` and ``ntt`` raise ``NotImplementedError``, any
+    other name outside :data:`STEP_MODES` ``ValueError``."""
+    mode = os.environ.get("IEACHE_PALLAS_STEP", "auto")
+    if mode == "auto":
+        return "split"
+    if mode == "tr":
+        raise NotImplementedError(
+            "IEACHE_PALLAS_STEP=tr: the (k+1, N, B) layout's kernels are "
+            "not ported yet (ROADMAP queue 2 item 5)")
+    if mode == "ntt":
+        raise NotImplementedError(
+            "IEACHE_PALLAS_STEP=ntt: the CRT-NTT step is not ported yet "
+            "(ROADMAP queue 1 item 10)")
+    if mode not in STEP_MODES:
+        raise ValueError(f"IEACHE_PALLAS_STEP={mode!r}: expected auto or "
+                         f"one of {', '.join(STEP_MODES)}")
+    return mode
+
+
 def blind_rotate(
     acc0: torch.Tensor, bara: torch.Tensor, bk: torch.Tensor,
     params: TFHEParams, plain: bool = False,
@@ -109,12 +149,8 @@ def blind_rotate(
     acc0: (B, k+1, N) int32 — rotated test-vector accumulator.
     bara: (B, n) int32 in [0, 2N) — mod-switched mask coefficients.
     bk:   (n, rows, k+1, N) int32 — bootstrapping key.
-
-    The two-limb compat gadget has no kernel: on the CPU it takes
-    :func:`external_product_step`, on a CUDA tensor the kernel wrappers
-    refuse it (``ValueError``) unless ``plain`` is set.
     """
-    if plain or (params.digit_limbs != 1 and not acc0.is_cuda):
+    if plain or params.digit_limbs != 1:
         acc = acc0
         for i in range(bk.shape[0]):
             acc = external_product_step(acc, bara[:, i], bk[i], params)
@@ -123,9 +159,21 @@ def blind_rotate(
     # kernels.py builds its plain twins from this module's functions
     from ieache_tpu_torch.ops import kernels
 
+    mode = step_mode()
     acc_t = acc0.transpose(0, 1).contiguous()              # (k+1, B, N)
+    if mode == "scan":
+        acc_t = kernels.blind_rotate_scan(acc_t, bara.contiguous(), bk,
+                                          params)
+        return acc_t.transpose(0, 1).contiguous()
+
     bara_t = bara.t().contiguous()                         # (n, B)
     for i in range(bk.shape[0]):
-        d_t = kernels.rot_diff_decompose(acc_t, bara_t[i], params)
-        acc_t = kernels.external_product(d_t, bk[i], params, acc=acc_t)
+        if mode == "split":
+            d_t = kernels.rot_diff_decompose(acc_t, bara_t[i], params)
+            acc_t = kernels.external_product(d_t, bk[i], params, acc=acc_t)
+        elif mode == "fused2":
+            acc_t = kernels.cmux_step(acc_t, bara_t[i], bk[i], params)
+        else:
+            acc_t = kernels.cmux_step_overlap(acc_t, bara_t[i], bk[i],
+                                              params)
     return acc_t.transpose(0, 1).contiguous()

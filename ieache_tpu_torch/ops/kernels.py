@@ -1,12 +1,22 @@
-"""The blind rotation's two CUDA kernels: wrappers, plain twins, counts.
+"""The blind rotation's CUDA kernels: wrappers, plain twins, counts.
 
-Each CMux step of :func:`ieache_tpu_torch.ops.blind_rotate.blind_rotate`
-calls both, in the (k+1, B, N) accumulator layout:
+:func:`ieache_tpu_torch.ops.blind_rotate.blind_rotate` runs its CMux
+steps, in the (k+1, B, N) accumulator layout, through the kernels of
+the step mode ``IEACHE_PALLAS_STEP`` selects:
 
-* :func:`rot_diff_decompose` (``csrc/rot_diff_decompose.cu``) replaces
-  ``rot_diff_decompose_pallas``: digits of X^bara·acc - acc;
-* :func:`external_product` (``csrc/external_product.cu``) replaces
-  ``external_product_pallas_t`` with the accumulator fused.
+* ``split``: :func:`rot_diff_decompose` (``csrc/rot_diff_decompose.cu``,
+  replaces ``rot_diff_decompose_pallas``), the digits of
+  X^bara·acc - acc, then :func:`external_product`
+  (``csrc/external_product.cu``, replaces ``external_product_pallas_t``)
+  with the accumulator fused;
+* ``fused2``: :func:`cmux_step` (``csrc/cmux_step.cu``, replaces
+  ``cmux_step_pallas``), the whole step in one kernel;
+* ``overlap``/``overlap2``: :func:`cmux_step_overlap`
+  (``csrc/cmux_step_overlap.cu``, replaces ``cmux_step_overlap_pallas``
+  and ``cmux_step_overlap2_pallas``), the step with the next tile's
+  decomposition overlapped;
+* ``scan``: :func:`blind_rotate_scan` (``csrc/blind_rotate_scan.cu``,
+  replaces ``blind_rotate_scan_pallas``), all n steps in one launch.
 
 A wrapper checks device, dtype, shape, contiguity and alignment, then
 launches its kernel when the tensors lie on a CUDA device, or runs its
@@ -153,3 +163,119 @@ def external_product(d: torch.Tensor, bk_i: torch.Tensor, params: TFHEParams,
 
 
 external_product.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the whole CMux step: fused2 and overlap
+# ---------------------------------------------------------------------------
+
+def cmux_step_plain(acc: torch.Tensor, bara: torch.Tensor,
+                    bk_i: torch.Tensor, params: TFHEParams) -> torch.Tensor:
+    """Plain twin of both step kernels: :func:`rot_diff_decompose_plain`
+    then :func:`external_product_plain` with the accumulator fused."""
+    d = rot_diff_decompose_plain(acc, bara, params)
+    return external_product_plain(d, bk_i, params, acc)
+
+
+def _cmux_step_launch(wrapper, entry: str, acc: torch.Tensor,
+                      bara: torch.Tensor, bk_i: torch.Tensor,
+                      params: TFHEParams) -> torch.Tensor:
+    """Both step kernels' wrapper body: the new accumulator from the C
+    entry point ``entry`` on CUDA tensors, counted on ``wrapper``, or
+    from the plain twin on CPU tensors."""
+    _require_single_limb(params)
+    rows, kp1, b, n = params.trgsw_rows, params.k + 1, bara.numel(), params.N
+    _check(acc, "acc", torch.int32, (kp1, b, n), acc.device, align=16)
+    _check(bara, "bara", torch.int32, (b,), acc.device)
+    _check(bk_i, "bk_i", torch.int32, (rows, kp1, n), acc.device)
+    if not acc.is_cuda:
+        return cmux_step_plain(acc, bara, bk_i, params)
+
+    if n % 8:
+        raise ValueError(f"the CMux step kernels need N % 8 == 0, got N={n}")
+    out = torch.empty_like(acc)
+    if b == 0:
+        return out
+    lib, stream = _launch_context(acc)
+    code = getattr(lib, entry)(
+        acc.data_ptr(), bara.data_ptr(), bk_i.data_ptr(), out.data_ptr(),
+        rows, kp1, b, n, params.bg_bit, params.l,
+        _offset(params.bg_bit, params.l), stream,
+    )
+    _build.check(lib, code, entry)
+    wrapper.launches += 1
+    return out
+
+
+def cmux_step(acc: torch.Tensor, bara: torch.Tensor, bk_i: torch.Tensor,
+              params: TFHEParams) -> torch.Tensor:
+    """One CMux step, acc + BK_i ⊡ (X^bara·acc - acc), as one kernel
+    (``fused2``): acc (k+1, B, N) int32, bara (B,) int32 in [0, 2N),
+    bk_i (rows, k+1, N) int32 -> (k+1, B, N) int32, exact mod 2^32."""
+    return _cmux_step_launch(cmux_step, "ieache_cmux_step", acc, bara,
+                             bk_i, params)
+
+
+cmux_step.launches = 0
+
+
+def cmux_step_overlap(acc: torch.Tensor, bara: torch.Tensor,
+                      bk_i: torch.Tensor, params: TFHEParams) -> torch.Tensor:
+    """:func:`cmux_step` with the next tile's rotate + decompose
+    overlapped with this tile's product (``overlap``/``overlap2``);
+    same arguments and result, bit for bit."""
+    return _cmux_step_launch(cmux_step_overlap, "ieache_cmux_step_overlap",
+                             acc, bara, bk_i, params)
+
+
+cmux_step_overlap.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the whole blind rotation: scan
+# ---------------------------------------------------------------------------
+
+def blind_rotate_scan_plain(acc: torch.Tensor, bara: torch.Tensor,
+                            bk: torch.Tensor,
+                            params: TFHEParams) -> torch.Tensor:
+    """Plain twin: :func:`cmux_step_plain` looped over the n steps."""
+    for i in range(bk.shape[0]):
+        acc = cmux_step_plain(acc, bara[:, i].contiguous(), bk[i], params)
+    return acc
+
+
+def blind_rotate_scan(acc: torch.Tensor, bara: torch.Tensor, bk: torch.Tensor,
+                      params: TFHEParams) -> torch.Tensor:
+    """All n CMux steps in one launch: acc (k+1, B, N) int32, bara
+    (B, n) int32 in [0, 2N), bk (n, rows, k+1, N) int32 -> the rotated
+    (k+1, B, N) int32 accumulator, exact mod 2^32; the kernel on CUDA
+    tensors, the plain twin on CPU."""
+    _require_single_limb(params)
+    rows, kp1, n = params.trgsw_rows, params.k + 1, params.N
+    b = acc.shape[1] if acc.dim() == 3 else -1
+    steps = bk.shape[0] if bk.dim() == 4 else -1
+    _check(acc, "acc", torch.int32, (kp1, b, n), acc.device, align=16)
+    _check(bara, "bara", torch.int32, (b, steps), acc.device)
+    _check(bk, "bk", torch.int32, (steps, rows, kp1, n), acc.device)
+    if not acc.is_cuda:
+        return blind_rotate_scan_plain(acc, bara, bk, params)
+
+    if n % 8:
+        raise ValueError(f"the scan kernel needs N % 8 == 0, got N={n}")
+    if b == 0 or steps == 0:
+        return acc.clone()
+    out = torch.empty_like(acc)
+    scratch = torch.empty_like(acc)
+    digits = torch.empty((rows, b, n), dtype=torch.int8, device=acc.device)
+    lib, stream = _launch_context(acc)
+    code = lib.ieache_blind_rotate_scan(
+        acc.data_ptr(), bara.data_ptr(), bk.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), digits.data_ptr(), rows, kp1, b, n, steps,
+        params.bg_bit, params.l, _offset(params.bg_bit, params.l), stream,
+    )
+    _build.check(lib, code, "blind_rotate_scan")
+    blind_rotate_scan.launches += 1
+    return out
+
+
+blind_rotate_scan.launches = 0

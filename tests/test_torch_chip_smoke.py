@@ -6,6 +6,7 @@ control flow, shapes and checks run here on the kernels' plain twins;
 only the build, the kernels themselves and the timing need the card.
 """
 
+import dataclasses
 import importlib.util
 import os
 import subprocess
@@ -44,7 +45,7 @@ def test_phases_pass_on_cpu_twins():
     dev = torch.device("cpu")
     p = P.TEST_TINY
     assert cs.check_kernels(p, dev, [1, 5, 8]) == {
-        "rot_diff_decompose": 0, "external_product": 0}
+        name: 0 for name, _, _ in cs.KERNELS}
 
     ks = keygen.generate_secret_keyset(p)
     key = bootstrap.pack_cloud_key(ks.cloud, dev)
@@ -55,6 +56,27 @@ def test_phases_pass_on_cpu_twins():
     got, want, _ = cs.run_expression(
         ks, key, cs.expression_inputs(ks, 8, 4, dev), dev)
     assert got == want
+
+
+def test_step_mode_phases_pass_on_cpu_twins():
+    """Phases 4-6 under every step mode, and the compat rotation."""
+    cs = _chip_smoke()
+    dev = torch.device("cpu")
+    p = P.TEST_TINY
+    saved = os.environ.get("IEACHE_PALLAS_STEP")
+    cs.compat_vs_plain(
+        dataclasses.replace(p, bg_bit=10, name="tiny_compat"), dev, 3)
+    ks = keygen.generate_secret_keyset(p)
+    key = bootstrap.pack_cloud_key(ks.cloud, dev)
+    nand_in = cs.nand_inputs(ks, 16, dev)
+    expr_in = cs.expression_inputs(ks, 8, 4, dev)
+    for mode in cs.MODES:
+        errors, _, expr_s, launches = cs.run_mode(ks, key, mode, nand_in,
+                                                  expr_in, dev)
+        assert errors == 0
+        assert (expr_s is not None) == (mode in cs.EXPRESSION_MODES)
+        assert not any(launches.values())
+    assert os.environ.get("IEACHE_PALLAS_STEP") == saved
 
 
 def test_refuses_without_cuda():

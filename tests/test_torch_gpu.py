@@ -10,7 +10,9 @@ runs on a machine that has none:
 arithmetic is exact mod 2^32: kernel and twin must be equal.
 """
 
+import contextlib
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -26,6 +28,32 @@ from ieache_tpu_torch.ops import kernels
 pytestmark = pytest.mark.gpu
 
 PARAMS = [P.TEST_TINY, P.TEST_SMALL_NOISY, P.IEACHE_110_FAST]
+
+WRAPPERS = {name: getattr(kernels, name) for name in (
+    "rot_diff_decompose", "external_product", "cmux_step",
+    "cmux_step_overlap", "blind_rotate_scan")}
+
+#: the kernels each step mode launches
+MODES = {
+    "split": ("rot_diff_decompose", "external_product"),
+    "fused2": ("cmux_step",),
+    "overlap": ("cmux_step_overlap",),
+    "overlap2": ("cmux_step_overlap",),
+    "scan": ("blind_rotate_scan",),
+}
+
+
+@contextlib.contextmanager
+def _step_mode(mode):
+    saved = os.environ.get("IEACHE_PALLAS_STEP")
+    os.environ["IEACHE_PALLAS_STEP"] = mode
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("IEACHE_PALLAS_STEP", None)
+        else:
+            os.environ["IEACHE_PALLAS_STEP"] = saved
 
 
 @pytest.fixture
@@ -74,30 +102,90 @@ def test_external_product_kernel_matches_plain(cuda, p, b, with_acc):
     assert torch.equal(got, want)
 
 
-def test_bootstrap_kernel_path_matches_plain_path(cuda):
+@pytest.mark.parametrize("mode", list(MODES))
+def test_bootstrap_kernel_path_matches_plain_path(cuda, mode):
+    """The bootstrap under each step mode equals the plain path, and
+    launched the mode's kernels and no other."""
     p = P.TEST_SMALL_NOISY
     ks = keygen.generate_secret_keyset(p)
     key = bootstrap.pack_cloud_key(ks.cloud, cuda)
     bits = prng.uniform_bits01(prng.key_from_seed_words([3]), 37)
     ct = encrypt.encrypt_bits(ks, bits, prng.key_from_seed_words([4]), cuda)
-    got = bootstrap.bootstrap(ct, key)
     want = bootstrap.bootstrap(ct, key, plain=True)
+    counts = [w.launches for w in WRAPPERS.values()]
+    with _step_mode(mode):
+        got = bootstrap.bootstrap(ct, key)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     np.testing.assert_array_equal(encrypt.decrypt_bits(ks, got), bits)
+    launched = {name for (name, w), c in zip(WRAPPERS.items(), counts)
+                if w.launches != c}
+    assert launched == set(MODES[mode])
 
 
 def test_compat_gadget_refused_on_cuda(cuda):
+    """The kernel wrappers refuse the two-limb compat gadget; the
+    blind rotation takes the plain step for it on the card, as the JAX
+    package takes its XLA step on any device, and equals plain=True."""
     p = dataclasses.replace(P.TEST_TINY, bg_bit=10, name="tiny_compat")
-    acc = torch.zeros((p.k + 1, 3, p.N), dtype=torch.int32, device=cuda)
-    bara = torch.zeros((3,), dtype=torch.int32, device=cuda)
+    rng = np.random.RandomState(5)
+    acc = _rand(rng, (p.k + 1, 3, p.N), -2**31, 2**31, np.int32, cuda)
+    bara = _rand(rng, (3,), 0, 2 * p.N, np.int32, cuda)
+    bk_i = _rand(rng, (p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31, np.int32,
+                 cuda)
     with pytest.raises(ValueError, match="single-limb"):
         kernels.rot_diff_decompose(acc, bara, p)
+    for step in (kernels.cmux_step, kernels.cmux_step_overlap):
+        with pytest.raises(ValueError, match="single-limb"):
+            step(acc, bara, bk_i, p)
     from ieache_tpu_torch.ops.blind_rotate import blind_rotate
 
-    bk = torch.zeros((p.n, p.trgsw_rows, p.k + 1, p.N), dtype=torch.int32,
-                     device=cuda)
-    with pytest.raises(ValueError, match="single-limb"):
-        blind_rotate(acc.transpose(0, 1).contiguous(),
-                     torch.zeros((3, p.n), dtype=torch.int32, device=cuda),
-                     bk, p)
+    bk = _rand(rng, (p.n, p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
+               np.int32, cuda)
+    bara_n = _rand(rng, (3, p.n), 0, 2 * p.N, np.int32, cuda)
+    acc0 = acc.transpose(0, 1).contiguous()
+    want = blind_rotate(acc0, bara_n, bk, p, plain=True)
+    for mode in MODES:
+        with _step_mode(mode):
+            got = blind_rotate(acc0, bara_n, bk, p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), mode
+
+
+@pytest.mark.parametrize("p", PARAMS, ids=lambda p: p.name)
+@pytest.mark.parametrize("b", [1, 5, 64, 1056])
+@pytest.mark.parametrize("step", ["cmux_step", "cmux_step_overlap"])
+def test_cmux_step_kernels_match_plain(cuda, p, b, step):
+    kern = getattr(kernels, step)
+    rng = np.random.RandomState(200 + b)
+    acc = _rand(rng, (p.k + 1, b, p.N), -2**31, 2**31, np.int32, cuda)
+    bk_i = _rand(rng, (p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
+                 np.int32, cuda)
+    for bara in (_rand(rng, (b,), 0, 2 * p.N, np.int32, cuda),
+                 *(torch.full((b,), a, dtype=torch.int32, device=cuda)
+                   for a in (0, p.N, 2 * p.N - 1))):
+        before = kern.launches
+        got = kern(acc, bara, bk_i, p)
+        assert kern.launches == before + 1
+        want = kernels.cmux_step_plain(acc, bara, bk_i, p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("p", PARAMS, ids=lambda p: p.name)
+@pytest.mark.parametrize("b", [1, 5, 64, 1056])
+def test_blind_rotate_scan_kernel_matches_plain(cuda, p, b):
+    """All n steps of ``p``, edge amounts in the first three."""
+    rng = np.random.RandomState(300 + b)
+    acc = _rand(rng, (p.k + 1, b, p.N), -2**31, 2**31, np.int32, cuda)
+    bara = _rand(rng, (b, p.n), 0, 2 * p.N, np.int32, cuda)
+    bara[:, :3] = torch.tensor([0, p.N, 2 * p.N - 1], dtype=torch.int32,
+                               device=cuda)
+    bk = _rand(rng, (p.n, p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
+               np.int32, cuda)
+    before = kernels.blind_rotate_scan.launches
+    got = kernels.blind_rotate_scan(acc, bara, bk, p)
+    assert kernels.blind_rotate_scan.launches == before + 1
+    want = kernels.blind_rotate_scan_plain(acc, bara, bk, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

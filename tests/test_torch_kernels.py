@@ -212,9 +212,10 @@ def test_wrappers_reject_bad_inputs():
 
 @pytest.mark.parametrize("p", [P.TEST_TINY, TINY_COMPAT],
                          ids=lambda p: p.name)
-def test_blind_rotate_matches_jax(p):
-    """Kernel-layout loop (plain twins on CPU) and the plain step loop
-    both equal JAX's blind_rotate."""
+def test_blind_rotate_matches_jax(p, monkeypatch):
+    """Every step mode's loop (plain twins on CPU) and the plain step
+    loop equal JAX's blind_rotate at a ragged batch; the compat gadget
+    takes the plain step in every mode, as JAX takes its XLA step."""
     rng = np.random.RandomState(8)
     b = 5
     acc0 = _rand_i32(rng, (b, p.k + 1, p.N))
@@ -222,6 +223,9 @@ def test_blind_rotate_matches_jax(p):
     bk = _rand_i32(rng, (p.n, p.trgsw_rows, p.k + 1, p.N))
     want = np.asarray(jbr.blind_rotate(jnp.asarray(acc0), jnp.asarray(bara),
                                        jnp.asarray(bk), p))
-    for plain in (False, True):
-        got = tbr.blind_rotate(_t(acc0), _t(bara), _t(bk), p, plain=plain)
-        np.testing.assert_array_equal(got.numpy(), want)
+    got = tbr.blind_rotate(_t(acc0), _t(bara), _t(bk), p, plain=True)
+    np.testing.assert_array_equal(got.numpy(), want)
+    for mode in tbr.STEP_MODES:
+        monkeypatch.setenv("IEACHE_PALLAS_STEP", mode)
+        got = tbr.blind_rotate(_t(acc0), _t(bara), _t(bk), p)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=mode)
