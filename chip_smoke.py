@@ -6,54 +6,68 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It needs a CUDA device and ``nvcc``, and refuses to run without them.
-The blind rotation has five step modes (``IEACHE_PALLAS_STEP``), each
-with its own kernels: ``split`` (rot_diff_decompose + external_product
-per step), ``fused2`` (cmux_step), ``overlap`` and ``overlap2``
-(cmux_step_overlap) and ``scan`` (blind_rotate_scan, all steps in one
-launch).  Phases, each printed on lines of its own; any failure raises,
-so the script exits nonzero and prints no result line:
+The blind rotation has seven step modes (``IEACHE_PALLAS_STEP``), six
+with their own kernels: ``split`` (rot_diff_decompose +
+external_product per step), ``fused2`` (cmux_step), ``overlap`` and
+``overlap2`` (cmux_step_overlap), ``scan`` (blind_rotate_scan, all
+steps in one launch), ``tr`` (rot_diff_decompose_tr +
+external_product_tr per step, in the transposed (k+1, N, B) layout);
+``ntt`` (the CRT-NTT step, plain PyTorch ops) launches no kernel.
+``IEACHE_PALLAS`` = 0 (the plain step), interpret (the mode's plain
+twins) or 1 (the kernels) reroutes the kernel modes.  Two more kernels,
+rotate_lane and rotate_sublane, are the rotation probe's
+(``python -m ieache_tpu_torch.tools.transposed_probe``).  Phases, each
+printed on lines of its own; any failure raises, so the script exits
+nonzero and prints no result line:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile the CUDA kernels of ``ieache_tpu_torch/csrc``, one
    ``nvcc`` per source, all started together;
-3. each of the five kernels against its plain PyTorch twin, exact
+3. each of the nine kernels against its plain PyTorch twin, exact
    equality, at IEACHE_110_FAST and the main path's batches (B=1024 for
    NAND, 8 and 16 for the rounds of ``A + B - C``), at ragged B in
    {1, 5, 1056} and at rotation amounts {0, N, 2N-1, random}; the scan
-   kernel over all n=500 steps;
+   kernel over all n=500 steps; the probe's kernels at its B=2048 and
+   at B=5;
 4. a whole B=1024 bootstrap under each step mode against the plain
-   path, and the compat gadget's blind rotation (no kernel; the plain
+   path; under ``IEACHE_PALLAS`` = 0 and interpret (no kernel may
+   launch) and 1 (the mode's kernels must launch), each under split
+   and tr; and the compat gadget's blind rotation (no kernel; the plain
    step on the card) at B=8 against ``plain=True``;
 5. main path, NAND under each step mode: keygen at IEACHE_110_FAST,
    NAND on 1024 random bit pairs, decrypt; ``decrypt_errors`` must be
    0.  Every launch count is reset just before a mode's run and read
-   just after it: the mode's kernels must have launched, and no other;
+   just after it: the mode's kernels must have launched, and no other
+   (under ntt, none);
 6. main path, ``A + B - C`` under ``split`` and ``scan`` (inside their
    mode's counted run): 16-bit signed words, 8 lanes, through
    ``ripple_add`` then ``ripple_sub``; every lane must decrypt to the
    Python result;
-7. timing, per mode: NAND bootstraps/s over 5 repeats and the latency
-   of ``A + B - C`` (host clock, ``torch.cuda.synchronize`` fences; one
-   repeat for a mode slower than 3 s); ms per CMux step of each step
-   kernel beside its twin (CUDA events around a CUDA-graph replay, and
-   around a plain Python loop), and ms per whole rotation of the scan
-   kernel and its twin at B=8 and B=1024 (CUDA events around the call).
+7. timing, per mode: NAND bootstraps/s over 5 repeats (one repeat for
+   a mode slower than 3 s a call) and, except under tr and ntt, the
+   latency of ``A + B - C`` (host clock, ``torch.cuda.synchronize``
+   fences; one repeat for a mode slower than 3 s); ms per call of each
+   per-step kernel beside its twin (CUDA events around a CUDA-graph
+   replay, and around a plain Python loop), and ms per whole rotation
+   of the scan kernel and its twin at B=8 and B=1024 (CUDA events
+   around the call); the rotation probe (``transposed_probe``, its
+   launch counts reset just before and read just after: the probe
+   kernels' own path) and ``step_bench`` over all seven modes, each
+   printing the tool's JSON line.
 
 The next-to-last line is a JSON object with one entry per kernel
-(route, source, the Pallas kernel it replaces, launches in the main
-path, max abs error against the twin, ms and plain ms per call at
-B=1024); the last line is ``{"ok": true, "device": {...}}``.  The
-secret keyset is cached in ``.keycache/`` (the JAX package's bench uses
-the same file).
+(route, source, the Pallas kernel it replaces, launches in its path,
+max abs error against the twin, ms and plain ms per call: at B=1024,
+B=2048 for the probe's kernels); the last line is
+``{"ok": true, "device": {...}}``.  The secret keyset is cached in
+``.keycache/`` (the JAX package's bench uses the same file).
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -66,7 +80,15 @@ from ieache_tpu_torch.boot import bootstrap, gates
 from ieache_tpu_torch.circuits import arith, words
 from ieache_tpu_torch.lwe import encrypt
 from ieache_tpu_torch.ops import _build, kernels
-from ieache_tpu_torch.ops.blind_rotate import blind_rotate
+from ieache_tpu_torch.ops.blind_rotate import STEP_MODES, blind_rotate
+from ieache_tpu_torch.tools import step_bench, transposed_probe
+from ieache_tpu_torch.tools._common import (
+    card_line,
+    environ,
+    events_ms,
+    graph_ms,
+    require_cuda,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -82,6 +104,14 @@ KERNELS = [
      "ieache_tpu/ops/pallas_kernels.py:600"),
     ("blind_rotate_scan", "ieache_tpu_torch/csrc/blind_rotate_scan.cu",
      "ieache_tpu/ops/pallas_kernels.py:420"),
+    ("rot_diff_decompose_tr", "ieache_tpu_torch/csrc/rot_diff_decompose_tr.cu",
+     "ieache_tpu/ops/pallas_kernels.py:1123"),
+    ("external_product_tr", "ieache_tpu_torch/csrc/external_product_tr.cu",
+     "ieache_tpu/ops/pallas_kernels.py:951"),
+    ("rotate_lane", "ieache_tpu_torch/csrc/rotate_probe.cu",
+     "tools/transposed_probe.py:62"),
+    ("rotate_sublane", "ieache_tpu_torch/csrc/rotate_probe.cu",
+     "tools/transposed_probe.py:96"),
 ]
 
 #: the kernels each step mode launches
@@ -91,28 +121,32 @@ MODES = {
     "overlap": ("cmux_step_overlap",),
     "overlap2": ("cmux_step_overlap",),
     "scan": ("blind_rotate_scan",),
+    "tr": ("rot_diff_decompose_tr", "external_product_tr"),
+    "ntt": (),
 }
 
 #: the modes that also run A + B - C in the counted main path
 EXPRESSION_MODES = ("split", "scan")
+
+#: the modes whose A + B - C latency phase 7 times: 96 rounds of B=8
+#: bootstraps under tr or ntt would take minutes
+TIMED_EXPRESSION_MODES = ("split", "fused2", "overlap", "overlap2", "scan")
+
+#: the IEACHE_PALLAS routes phase 4 runs, and the modes it runs them under
+ROUTES, ROUTE_MODES = ("0", "interpret", "1"), ("split", "tr")
+
+#: the rotation probe's batch, and the sizes step_bench runs at here
+PROBE_B = 2048
+STEP_BENCH = {"b": 1024, "steps": 32, "iters": 2}
 
 
 def log(*args):
     print(*args, flush=True)
 
 
-@contextlib.contextmanager
 def step_mode(mode):
-    """Run the block under ``IEACHE_PALLAS_STEP=mode``."""
-    saved = os.environ.get("IEACHE_PALLAS_STEP")
-    os.environ["IEACHE_PALLAS_STEP"] = mode
-    try:
-        yield
-    finally:
-        if saved is None:
-            os.environ.pop("IEACHE_PALLAS_STEP", None)
-        else:
-            os.environ["IEACHE_PALLAS_STEP"] = saved
+    """Run a block under ``IEACHE_PALLAS_STEP=mode``."""
+    return environ("IEACHE_PALLAS_STEP", mode)
 
 
 def reset_launches():
@@ -127,21 +161,6 @@ def read_launches():
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def _time_ms(fn, reps):
-    """Mean ms per call of ``fn`` over ``reps`` calls after one warm-up,
-    between two CUDA events (host cost per call included)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def _rand(rng, shape, lo, hi, dtype, device):
@@ -162,7 +181,7 @@ def _compare(name, got, want, errs, device, case):
                              f"max abs err {err}")
 
 
-def check_kernels(p, device, batches, seed=0):
+def check_kernels(p, device, batches, probe_batches=(PROBE_B, 5), seed=0):
     """Phase 3: each kernel against its plain twin; returns max abs
     error per kernel (0 when all equal)."""
     rng = np.random.RandomState(seed)
@@ -170,29 +189,46 @@ def check_kernels(p, device, batches, seed=0):
     def rand(shape, lo, hi, dtype):
         return _rand(rng, shape, lo, hi, dtype, device)
 
+    def amounts(b):
+        """(name, bara (B,)): random amounts, then 0, N and 2N-1."""
+        yield "random", rand((b,), 0, 2 * p.N, np.int32)
+        for a in (0, p.N, 2 * p.N - 1):
+            yield a, torch.full((b,), a, dtype=torch.int32, device=device)
+
     errs = {}
     for b in batches:
         acc = rand((p.k + 1, b, p.N), -2**31, 2**31, np.int32)
+        acc_tr = acc.transpose(1, 2).contiguous()          # (k+1, N, B)
         bk_i = rand((p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31, np.int32)
-        for amount in ("random", 0, p.N, 2 * p.N - 1):
-            bara = (rand((b,), 0, 2 * p.N, np.int32) if amount == "random"
-                    else torch.full((b,), amount, dtype=torch.int32,
-                                    device=device))
+        for amount, bara in amounts(b):
             case = f"B={b} bara={amount}"
             _compare("rot_diff_decompose",
                      kernels.rot_diff_decompose(acc, bara, p),
                      kernels.rot_diff_decompose_plain(acc, bara, p),
                      errs, device, case)
+            d_tr = kernels.rot_diff_decompose_tr(acc_tr, bara, p)
+            _compare("rot_diff_decompose_tr", d_tr,
+                     kernels.rot_diff_decompose_tr_plain(acc_tr, bara, p),
+                     errs, device, case)
             want = kernels.cmux_step_plain(acc, bara, bk_i, p)
             for name in ("cmux_step", "cmux_step_overlap"):
                 _compare(name, getattr(kernels, name)(acc, bara, bk_i, p),
                          want, errs, device, case)
+            # the whole tr step against the step's twin
+            _compare("external_product_tr",
+                     kernels.external_product_tr(d_tr, bk_i, p, acc=acc_tr),
+                     want.transpose(1, 2), errs, device, case + " (tr step)")
         d = rand((p.trgsw_rows, b, p.N), -128, 128, np.int8)
+        d_tr = d.transpose(1, 2).contiguous()
         for fused in (False, True):
-            a = acc if fused else None
+            a, a_tr = (acc, acc_tr) if fused else (None, None)
             _compare("external_product",
                      kernels.external_product(d, bk_i, p, acc=a),
                      kernels.external_product_plain(d, bk_i, p, a),
+                     errs, device, f"B={b} acc={fused}")
+            _compare("external_product_tr",
+                     kernels.external_product_tr(d_tr, bk_i, p, acc=a_tr),
+                     kernels.external_product_tr_plain(d_tr, bk_i, p, a_tr),
                      errs, device, f"B={b} acc={fused}")
         # the whole rotation; the edge amounts in the first three steps
         bara_n = rand((b, p.n), 0, 2 * p.N, np.int32)
@@ -205,8 +241,20 @@ def check_kernels(p, device, batches, seed=0):
                  kernels.blind_rotate_scan_plain(acc, bara_n, bk, p),
                  errs, device, f"B={b} steps={p.n}")
         log(f"phase 3 kernels: B={b} equal (rot amounts random/0/N/2N-1 "
-            f"for rotate, cmux_step and cmux_step_overlap; external "
-            f"product with and without acc; scan over {p.n} steps)")
+            f"for both rotations, cmux_step, cmux_step_overlap and the tr "
+            f"step; both external products with and without acc; scan "
+            f"over {p.n} steps)")
+    for b in probe_batches:
+        acc = rand((p.k + 1, b, p.N), -2**31, 2**31, np.int32)
+        acc_tr = acc.transpose(1, 2).contiguous()
+        for amount, bara in amounts(b):
+            case = f"B={b} bara={amount}"
+            _compare("rotate_lane", kernels.rotate_lane(acc, bara),
+                     kernels.rotate_lane_plain(acc, bara), errs, device, case)
+            _compare("rotate_sublane", kernels.rotate_sublane(acc_tr, bara),
+                     kernels.rotate_sublane_plain(acc_tr, bara), errs,
+                     device, case)
+        log(f"phase 3 probe kernels: B={b} equal (amounts random/0/N/2N-1)")
     return errs
 
 
@@ -235,7 +283,7 @@ def nand_inputs(ks, batch, device):
 
 def bootstrap_vs_plain(key, cx, device):
     """Phase 4: the whole bootstrap under each step mode against the
-    plain path."""
+    plain path; returns the plain path's result."""
     want = bootstrap.bootstrap(cx, key, plain=True)
     for mode in MODES:
         with step_mode(mode):
@@ -244,6 +292,34 @@ def bootstrap_vs_plain(key, cx, device):
         if not torch.equal(got, want):
             raise AssertionError(f"bootstrap under {mode} differs from the "
                                  f"plain path")
+    return want
+
+
+def routes_vs_plain(key, cx, want, device):
+    """Phase 4: the bootstrap under each ``IEACHE_PALLAS`` route and
+    each of :data:`ROUTE_MODES` against the plain path ``want``, launch
+    counts set to 0 just before each and read just after: 0 and
+    interpret launch nothing, 1 the mode's kernels and no other (on CPU
+    tensors 1 must raise)."""
+    for route in ROUTES:
+        for mode in ROUTE_MODES:
+            reset_launches()
+            with step_mode(mode), environ("IEACHE_PALLAS", route):
+                if route == "1" and device.type != "cuda":
+                    try:
+                        bootstrap.bootstrap(cx, key)
+                    except RuntimeError:
+                        continue
+                    raise AssertionError("IEACHE_PALLAS=1 ran on the CPU")
+                got = bootstrap.bootstrap(cx, key)
+            _sync(device)
+            launched = {k for k, n in read_launches().items() if n}
+            expected = set(MODES[mode]) if route == "1" else set()
+            if not torch.equal(got, want) or launched != expected:
+                raise AssertionError(
+                    f"IEACHE_PALLAS={route} under {mode}: equal to the plain "
+                    f"path {torch.equal(got, want)}, launched "
+                    f"{sorted(launched)}, expected {sorted(expected)}")
 
 
 def compat_vs_plain(p, device, batch, seed=3):
@@ -334,41 +410,23 @@ def run_mode(ks, key, mode, nand_in, expr_in, device):
     return errors, nand_s, expr_s, launches
 
 
-def _graph_ms(fn, reps):
-    """Device ms per call: ``reps`` calls captured in one CUDA graph and
-    replayed between two CUDA events, so the host's per-call cost (the
-    Python wrapper, the launch) is not counted."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def step_times(p, device, batch, reps):
-    """Phase 7: ms per CMux step of each step kernel and of its plain
-    twin at the main-path shapes, on a CUDA ``device``: ``ms``/``plain_ms``
-    on the device (CUDA graph replay), ``host_ms``/``plain_host_ms`` per
-    call of a Python loop (launch cost included)."""
+    """Phase 7: ms per call of each per-step kernel and of its plain
+    twin at the main-path shapes (B=``batch``; the probe's kernels at
+    B=PROBE_B), on a CUDA ``device``: ``ms``/``plain_ms`` on the device
+    (CUDA graph replay), ``host_ms``/``plain_host_ms`` per call of a
+    Python loop (launch cost included)."""
     rng = np.random.RandomState(1)
     acc = _rand(rng, (p.k + 1, batch, p.N), -2**31, 2**31, np.int32, device)
     bara = _rand(rng, (batch,), 0, 2 * p.N, np.int32, device)
     bk_i = _rand(rng, (p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31, np.int32,
                  device)
     d = kernels.rot_diff_decompose(acc, bara, p)
+    acc_tr, d_tr = (x.transpose(1, 2).contiguous() for x in (acc, d))
+    probe = _rand(rng, (p.k + 1, PROBE_B, p.N), -2**31, 2**31, np.int32,
+                  device)
+    probe_tr = probe.transpose(1, 2).contiguous()
+    probe_bara = _rand(rng, (PROBE_B,), 0, 2 * p.N, np.int32, device)
     calls = {
         "rot_diff_decompose": (
             lambda: kernels.rot_diff_decompose(acc, bara, p),
@@ -382,11 +440,24 @@ def step_times(p, device, batch, reps):
         "cmux_step_overlap": (
             lambda: kernels.cmux_step_overlap(acc, bara, bk_i, p),
             lambda: kernels.cmux_step_plain(acc, bara, bk_i, p)),
+        "rot_diff_decompose_tr": (
+            lambda: kernels.rot_diff_decompose_tr(acc_tr, bara, p),
+            lambda: kernels.rot_diff_decompose_tr_plain(acc_tr, bara, p)),
+        "external_product_tr": (
+            lambda: kernels.external_product_tr(d_tr, bk_i, p, acc=acc_tr),
+            lambda: kernels.external_product_tr_plain(d_tr, bk_i, p,
+                                                      acc_tr)),
+        "rotate_lane": (
+            lambda: kernels.rotate_lane(probe, probe_bara),
+            lambda: kernels.rotate_lane_plain(probe, probe_bara)),
+        "rotate_sublane": (
+            lambda: kernels.rotate_sublane(probe_tr, probe_bara),
+            lambda: kernels.rotate_sublane_plain(probe_tr, probe_bara)),
     }
-    return {name: {"host_ms": _time_ms(kern, reps),
-                   "plain_host_ms": _time_ms(plain, reps),
-                   "ms": _graph_ms(kern, reps),
-                   "plain_ms": _graph_ms(plain, reps)}
+    return {name: {"host_ms": events_ms(kern, reps),
+                   "plain_host_ms": events_ms(plain, reps),
+                   "ms": graph_ms(kern, reps),
+                   "plain_ms": graph_ms(plain, reps)}
             for name, (kern, plain) in calls.items()}
 
 
@@ -398,28 +469,59 @@ def scan_times(p, device, batch, reps):
     bara = _rand(rng, (batch, p.n), 0, 2 * p.N, np.int32, device)
     bk = _rand(rng, (p.n, p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
                np.int32, device)
-    return {"ms": _time_ms(
+    return {"ms": events_ms(
                 lambda: kernels.blind_rotate_scan(acc, bara, bk, p), reps),
-            "plain_ms": _time_ms(
+            "plain_ms": events_ms(
                 lambda: kernels.blind_rotate_scan_plain(acc, bara, bk, p),
                 reps)}
 
 
-def card_line() -> str:
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return proc.stdout.strip().splitlines()[0]
+def nand_rates(ks, key, mode, nand_in, device, repeats=5):
+    """Phase 7: NAND bootstraps/s under ``mode``, ``repeats`` times, or
+    once when a call takes more than 3 s."""
+    rates = []
+    with step_mode(mode):
+        while len(rates) < repeats and (not rates or
+                                        len(nand_in[0]) / rates[0] < 3.0):
+            e, dt = run_nand(ks, key, nand_in, device)
+            if e:
+                raise AssertionError(f"NAND decrypt_errors={e} under {mode} "
+                                     f"in a timed repeat")
+            rates.append(len(nand_in[0]) / dt)
+    return rates
+
+
+def expression_latency(ks, key, mode, expr_in, device):
+    """Phase 7: A + B - C seconds under ``mode``, 3 times, or once when
+    a call takes more than 3 s."""
+    lat = []
+    with step_mode(mode):
+        while len(lat) < 3 and (not lat or lat[0] < 3.0):
+            g, w, dt = run_expression(ks, key, expr_in, device)
+            if g != w:
+                raise AssertionError(f"A + B - C under {mode} decrypted "
+                                     f"wrong in a timed repeat")
+            lat.append(dt)
+    return lat
+
+
+def run_probe(device, b=PROBE_B, steps=200, iters=8):
+    """Phase 7: the rotation probe, its own path: launch counts set to 0
+    just before and read just after; both probe kernels must have
+    launched, and no other.  Returns (the probe's record, launches)."""
+    reset_launches()
+    rec = transposed_probe.run(b, steps, iters, device)
+    launches = read_launches()
+    probe = ("rotate_lane", "rotate_sublane")
+    if (not rec["checksums_match"] or not all(launches[k] for k in probe)
+            or any(n for k, n in launches.items() if k not in probe)):
+        raise AssertionError(f"transposed_probe: {rec}, launches {launches}")
+    return rec, launches
 
 
 def main() -> int:
     # phase 1: device
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device; this smoke run needs "
-                         "one and does not fall back to the CPU")
-    device = torch.device("cuda", torch.cuda.current_device())
+    device = require_cuda("chip_smoke")
     kind = torch.cuda.get_device_name(device)
     card = card_line()
     log(f"phase 1 device: {kind}; torch {torch.__version__}, "
@@ -455,15 +557,22 @@ def main() -> int:
     nand_in = nand_inputs(ks, batch, device)
     expr_in = expression_inputs(ks, 16, 8, device)
 
-    # phase 4: whole bootstrap under each mode against the plain path;
-    # the compat gadget's rotation (no kernel) against plain=True
+    # phase 4: whole bootstrap under each mode and each IEACHE_PALLAS
+    # route against the plain path; the compat gadget's rotation (no
+    # kernel) against plain=True
     reset_launches()
-    bootstrap_vs_plain(key, nand_in[2], device)
-    if not all(read_launches().values()):
-        raise AssertionError(f"phase 4 left a kernel unlaunched: "
-                             f"{read_launches()}")
+    t0 = time.perf_counter()
+    want = bootstrap_vs_plain(key, nand_in[2], device)
+    unlaunched = [k for m in MODES for k in MODES[m]
+                  if not read_launches()[k]]
+    if unlaunched:
+        raise AssertionError(f"phase 4 left kernels unlaunched: {unlaunched}")
     log(f"phase 4 bootstrap B={batch}: {', '.join(MODES)} each equal to "
-        f"the plain path")
+        f"the plain path ({time.perf_counter() - t0:.1f} s)")
+    routes_vs_plain(key, nand_in[2], want, device)
+    log(f"phase 4 IEACHE_PALLAS={'/'.join(ROUTES)} under "
+        f"{'/'.join(ROUTE_MODES)} B={batch}: each equal to the plain path; "
+        f"0 and interpret launched nothing, 1 the mode's kernels")
     compat_vs_plain(P.IEACHE_110_TFHE_COMPAT, device, 8)
     log(f"phase 4 {P.IEACHE_110_TFHE_COMPAT.name} blind rotation B=8: "
         f"runs, equal to plain=True")
@@ -485,31 +594,21 @@ def main() -> int:
 
     # phase 7: timing
     for mode in MODES:
-        with step_mode(mode):
-            rates = []
-            for _ in range(5):
-                e, dt = run_nand(ks, key, nand_in, device)
-                if e:
-                    raise AssertionError(f"NAND decrypt_errors={e} under "
-                                         f"{mode} in a timed repeat")
-                rates.append(batch / dt)
-            lat = []
-            while len(lat) < 3 and (not lat or lat[0] < 3.0):
-                g, w, dt = run_expression(ks, key, expr_in, device)
-                if g != w:
-                    raise AssertionError(f"A + B - C under {mode} decrypted "
-                                         f"wrong in a timed repeat")
-                lat.append(dt)
-        log(f"phase 7 {mode}: NAND B={batch} bootstraps/s median "
-            f"{statistics.median(rates):.1f} min {min(rates):.1f} max "
-            f"{max(rates):.1f} (5 repeats; host clock around the NAND "
-            f"call, decryption excluded); A+B-C width 16 B=8 latency "
-            f"median {statistics.median(lat):.3f} s ({len(lat)} "
-            f"repeat{'s' if len(lat) > 1 else ''})")
+        rates = nand_rates(ks, key, mode, nand_in, device)
+        line = (f"phase 7 {mode}: NAND B={batch} bootstraps/s median "
+                f"{statistics.median(rates):.1f} min {min(rates):.1f} max "
+                f"{max(rates):.1f} ({len(rates)} repeats; host clock around "
+                f"the NAND call, decryption excluded)")
+        if mode in TIMED_EXPRESSION_MODES:
+            lat = expression_latency(ks, key, mode, expr_in, device)
+            line += (f"; A+B-C width 16 B=8 latency median "
+                     f"{statistics.median(lat):.3f} s ({len(lat)} repeats)")
+        log(line)
     steps = step_times(p, device, batch, reps=20)
     for name, t in steps.items():
-        log(f"phase 7 {name} B={batch}: kernel {t['ms']:.4f} ms/step, "
-            f"plain twin {t['plain_ms']:.4f} ms/step on the device (graph "
+        b = PROBE_B if name.startswith("rotate_") else batch
+        log(f"phase 7 {name} B={b}: kernel {t['ms']:.4f} ms/call, "
+            f"plain twin {t['plain_ms']:.4f} ms/call on the device (graph "
             f"replay); from a Python loop {t['host_ms']:.4f} and "
             f"{t['plain_host_ms']:.4f} ms/call")
     for b in (8, batch):
@@ -518,6 +617,18 @@ def main() -> int:
             f"plain twin {t['plain_ms']:.3f} ms per rotation of {p.n} "
             f"steps (CUDA events around the call)")
     steps["blind_rotate_scan"] = t
+    probe, probe_launches = run_probe(device)
+    log("phase 7 transposed_probe: " + json.dumps(probe))
+    for k in ("rotate_lane", "rotate_sublane"):
+        launches[k] = probe_launches[k]
+    records = step_bench.run(
+        STEP_MODES, p, STEP_BENCH["b"], STEP_BENCH["steps"],
+        STEP_BENCH["iters"], device,
+        emit=lambda r: log("phase 7 step_bench: " + json.dumps(r)))
+    summ = step_bench.summary(records)
+    log("phase 7 step_bench: " + json.dumps(summ))
+    if not summ["checksums_match"]:
+        raise AssertionError("step_bench: the modes' checksums differ")
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

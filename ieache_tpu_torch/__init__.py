@@ -8,10 +8,13 @@ arithmetic is exact mod 2^32).
 
 * public layouts are the JAX package's: LWE batches ``(B, n+1)``,
   accumulators ``(B, k+1, N)``, bootstrapping key ``(n, rows, k+1, N)``;
-* the blind-rotation hot loop runs two CUDA kernels per CMux step
-  (``csrc/``, built with ``nvcc`` on first use by
-  :mod:`ieache_tpu_torch.ops._build`) for tensors on a CUDA device,
-  and their plain PyTorch twins for tensors on the CPU;
+* the blind-rotation hot loop runs the CUDA kernels of the step mode
+  ``IEACHE_PALLAS_STEP`` selects (``csrc/``, built with ``nvcc`` on
+  first use by :mod:`ieache_tpu_torch.ops._build`) for tensors on a
+  CUDA device, and their plain PyTorch twins for tensors on the CPU
+  (:mod:`ieache_tpu_torch.ops.blind_rotate`);
+* :mod:`ieache_tpu_torch.tools` holds the measurement tools, each run
+  with ``python -m``;
 * the jax-free host modules of the JAX package are reused as they are,
   and re-exported here so that a caller of the port names one package:
   :mod:`ieache_tpu.params`, :mod:`ieache_tpu.utils.prng`,

@@ -1,8 +1,8 @@
 """The blind rotation's CUDA kernels: wrappers, plain twins, counts.
 
 :func:`ieache_tpu_torch.ops.blind_rotate.blind_rotate` runs its CMux
-steps, in the (k+1, B, N) accumulator layout, through the kernels of
-the step mode ``IEACHE_PALLAS_STEP`` selects:
+steps, in the (k+1, B, N) accumulator layout (``tr``: (k+1, N, B)),
+through the kernels of the step mode ``IEACHE_PALLAS_STEP`` selects:
 
 * ``split``: :func:`rot_diff_decompose` (``csrc/rot_diff_decompose.cu``,
   replaces ``rot_diff_decompose_pallas``), the digits of
@@ -16,7 +16,18 @@ the step mode ``IEACHE_PALLAS_STEP`` selects:
   and ``cmux_step_overlap2_pallas``), the step with the next tile's
   decomposition overlapped;
 * ``scan``: :func:`blind_rotate_scan` (``csrc/blind_rotate_scan.cu``,
-  replaces ``blind_rotate_scan_pallas``), all n steps in one launch.
+  replaces ``blind_rotate_scan_pallas``), all n steps in one launch;
+* ``tr``: :func:`rot_diff_decompose_tr`
+  (``csrc/rot_diff_decompose_tr.cu``, replaces
+  ``rot_diff_decompose_pallas_tr``) then :func:`external_product_tr`
+  (``csrc/external_product_tr.cu``, replaces
+  ``external_product_pallas_tr``), the split pair in the transposed
+  layout.
+
+:func:`rotate_lane` and :func:`rotate_sublane` (``csrc/rotate_probe.cu``,
+replacing the two inline kernels of ``tools/transposed_probe.py``) are
+one negacyclic rotation in each layout, timed by
+:mod:`ieache_tpu_torch.tools.transposed_probe`.
 
 A wrapper checks device, dtype, shape, contiguity and alignment, then
 launches its kernel when the tensors lie on a CUDA device, or runs its
@@ -80,29 +91,44 @@ def rot_diff_decompose_plain(acc: torch.Tensor, bara: torch.Tensor,
     return d.transpose(0, 1).to(torch.int8).contiguous()
 
 
-def rot_diff_decompose(acc: torch.Tensor, bara: torch.Tensor,
-                       params: TFHEParams) -> torch.Tensor:
-    """acc (k+1, B, N) int32, bara (B,) int32 in [0, 2N) -> (rows, B, N)
-    int8 digits; the kernel on CUDA tensors, the plain twin on CPU."""
+def _rot_diff_decompose_launch(wrapper, entry: str, plain,
+                               acc: torch.Tensor, bara: torch.Tensor,
+                               params: TFHEParams, tr: bool) -> torch.Tensor:
+    """Both rotation wrappers' body: the digits, (rows, N, B) when ``tr``
+    else (rows, B, N), from the C entry point ``entry`` on CUDA tensors,
+    counted on ``wrapper``, or from ``plain`` on CPU tensors."""
     _require_single_limb(params)
     kp1, b, n = params.k + 1, bara.numel(), params.N
-    _check(acc, "acc", torch.int32, (kp1, b, n), acc.device)
+    _check(acc, "acc", torch.int32, (kp1, n, b) if tr else (kp1, b, n),
+           acc.device)
     _check(bara, "bara", torch.int32, (b,), acc.device)
     if not acc.is_cuda:
-        return rot_diff_decompose_plain(acc, bara, params)
+        return plain(acc, bara, params)
 
-    out = torch.empty((params.trgsw_rows, b, n), dtype=torch.int8,
+    if n % 8:
+        raise ValueError(f"the rotation kernels need N % 8 == 0, got N={n}")
+    rows = params.trgsw_rows
+    out = torch.empty((rows, n, b) if tr else (rows, b, n), dtype=torch.int8,
                       device=acc.device)
     if b == 0:
         return out
     lib, stream = _launch_context(acc)
-    code = lib.ieache_rot_diff_decompose(
+    code = getattr(lib, entry)(
         acc.data_ptr(), bara.data_ptr(), out.data_ptr(), kp1, b, n,
         params.bg_bit, params.l, _offset(params.bg_bit, params.l), stream,
     )
-    _build.check(lib, code, "rot_diff_decompose")
-    rot_diff_decompose.launches += 1
+    _build.check(lib, code, entry)
+    wrapper.launches += 1
     return out
+
+
+def rot_diff_decompose(acc: torch.Tensor, bara: torch.Tensor,
+                       params: TFHEParams) -> torch.Tensor:
+    """acc (k+1, B, N) int32, bara (B,) int32 in [0, 2N) -> (rows, B, N)
+    int8 digits; the kernel on CUDA tensors, the plain twin on CPU."""
+    return _rot_diff_decompose_launch(
+        rot_diff_decompose, "ieache_rot_diff_decompose",
+        rot_diff_decompose_plain, acc, bara, params, tr=False)
 
 
 rot_diff_decompose.launches = 0
@@ -129,37 +155,52 @@ def external_product_plain(d: torch.Tensor, bk_i: torch.Tensor,
     return (out if acc is None else acc + out).contiguous()
 
 
+def _external_product_launch(wrapper, entry: str, plain, d: torch.Tensor,
+                             bk_i: torch.Tensor, params: TFHEParams,
+                             acc: torch.Tensor | None,
+                             tr: bool) -> torch.Tensor:
+    """Both external-product wrappers' body, in the (k+1, N, B) layout
+    when ``tr`` else (k+1, B, N): the C entry point ``entry`` on CUDA
+    tensors, counted on ``wrapper``, or ``plain`` on CPU tensors."""
+    _require_single_limb(params)
+    rows, kp1, n = params.trgsw_rows, params.k + 1, params.N
+    b = d.shape[2 if tr else 1] if d.dim() == 3 else -1
+    shape = (n, b) if tr else (b, n)
+    # tr's staging reads 16-byte digit columns
+    _check(d, "d", torch.int8, (rows, *shape), d.device,
+           align=16 if tr else 4)
+    _check(bk_i, "bk_i", torch.int32, (rows, kp1, n), d.device)
+    if acc is not None:
+        _check(acc, "acc", torch.int32, (kp1, *shape), d.device, align=16)
+    if not d.is_cuda:
+        return plain(d, bk_i, params, acc)
+
+    if n % 8:
+        raise ValueError(f"the external-product kernels need N % 8 == 0, "
+                         f"got N={n}")
+    out = torch.empty((kp1, *shape), dtype=torch.int32, device=d.device)
+    if b == 0:
+        return out
+    lib, stream = _launch_context(d)
+    code = getattr(lib, entry)(
+        d.data_ptr(), bk_i.data_ptr(),
+        None if acc is None else acc.data_ptr(), out.data_ptr(),
+        rows, kp1, b, n, stream,
+    )
+    _build.check(lib, code, entry)
+    wrapper.launches += 1
+    return out
+
+
 def external_product(d: torch.Tensor, bk_i: torch.Tensor, params: TFHEParams,
                      acc: torch.Tensor | None = None) -> torch.Tensor:
     """acc + sum_p d[p] ⊛ bk_i[p, o], negacyclic, exact mod 2^32:
     d (rows, B, N) int8, bk_i (rows, k+1, N) int32, acc (k+1, B, N)
     int32 or None -> (k+1, B, N) int32; the kernel on CUDA tensors, the
     plain twin on CPU."""
-    _require_single_limb(params)
-    rows, kp1, n = params.trgsw_rows, params.k + 1, params.N
-    b = d.shape[1] if d.dim() == 3 else -1
-    _check(d, "d", torch.int8, (rows, b, n), d.device)
-    _check(bk_i, "bk_i", torch.int32, (rows, kp1, n), d.device)
-    if acc is not None:
-        _check(acc, "acc", torch.int32, (kp1, b, n), d.device, align=16)
-    if not d.is_cuda:
-        return external_product_plain(d, bk_i, params, acc)
-
-    if n % 8:
-        raise ValueError(f"the external-product kernel needs N % 8 == 0, "
-                         f"got N={n}")
-    out = torch.empty((kp1, b, n), dtype=torch.int32, device=d.device)
-    if b == 0:
-        return out
-    lib, stream = _launch_context(d)
-    code = lib.ieache_external_product(
-        d.data_ptr(), bk_i.data_ptr(),
-        None if acc is None else acc.data_ptr(), out.data_ptr(),
-        rows, kp1, b, n, stream,
-    )
-    _build.check(lib, code, "external_product")
-    external_product.launches += 1
-    return out
+    return _external_product_launch(
+        external_product, "ieache_external_product", external_product_plain,
+        d, bk_i, params, acc, tr=False)
 
 
 external_product.launches = 0
@@ -230,6 +271,9 @@ def cmux_step_overlap(acc: torch.Tensor, bara: torch.Tensor,
 
 cmux_step_overlap.launches = 0
 
+#: the overlap kernel computes what cmux_step does, so shares its twin
+cmux_step_overlap_plain = cmux_step_plain
+
 
 # ---------------------------------------------------------------------------
 # the whole blind rotation: scan
@@ -279,3 +323,120 @@ def blind_rotate_scan(acc: torch.Tensor, bara: torch.Tensor, bk: torch.Tensor,
 
 
 blind_rotate_scan.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# tr: the split pair in the transposed (k+1, N, B) layout
+# ---------------------------------------------------------------------------
+
+def rot_diff_decompose_tr_plain(acc: torch.Tensor, bara: torch.Tensor,
+                                params: TFHEParams) -> torch.Tensor:
+    """Plain twin: :func:`rot_diff_decompose_plain` with its operands
+    transposed; acc (k+1, N, B) int32, bara (B,) int32 -> (rows, N, B)
+    int8."""
+    d = rot_diff_decompose_plain(acc.transpose(1, 2), bara, params)
+    return d.transpose(1, 2).contiguous()
+
+
+def rot_diff_decompose_tr(acc: torch.Tensor, bara: torch.Tensor,
+                          params: TFHEParams) -> torch.Tensor:
+    """acc (k+1, N, B) int32, bara (B,) int32 in [0, 2N) -> (rows, N, B)
+    int8 digits of X^bara·acc - acc; the kernel on CUDA tensors, the
+    plain twin on CPU."""
+    return _rot_diff_decompose_launch(
+        rot_diff_decompose_tr, "ieache_rot_diff_decompose_tr",
+        rot_diff_decompose_tr_plain, acc, bara, params, tr=True)
+
+
+rot_diff_decompose_tr.launches = 0
+
+
+def external_product_tr_plain(d: torch.Tensor, bk_i: torch.Tensor,
+                              params: TFHEParams,
+                              acc: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """Plain twin: :func:`external_product_plain` with its operands
+    transposed; d (rows, N, B) int8, bk_i (rows, k+1, N) int32, acc
+    (k+1, N, B) int32 or None -> (k+1, N, B) int32."""
+    out = external_product_plain(
+        d.transpose(1, 2), bk_i, params,
+        None if acc is None else acc.transpose(1, 2))
+    return out.transpose(1, 2).contiguous()
+
+
+def external_product_tr(d: torch.Tensor, bk_i: torch.Tensor,
+                        params: TFHEParams,
+                        acc: torch.Tensor | None = None) -> torch.Tensor:
+    """acc + sum_p d[p] ⊛ bk_i[p, o] in the transposed layout, exact mod
+    2^32: d (rows, N, B) int8, bk_i (rows, k+1, N) int32, acc (k+1, N, B)
+    int32 or None -> (k+1, N, B) int32; the kernel on CUDA tensors, the
+    plain twin on CPU."""
+    return _external_product_launch(
+        external_product_tr, "ieache_external_product_tr",
+        external_product_tr_plain, d, bk_i, params, acc, tr=True)
+
+
+external_product_tr.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the rotation probe: X^bara·acc in each layout
+# ---------------------------------------------------------------------------
+
+def rotate_lane_plain(acc: torch.Tensor, bara: torch.Tensor) -> torch.Tensor:
+    """Plain twin: ``negacyclic_rotate_batch`` on acc (k+1, B, N)."""
+    return br.negacyclic_rotate_batch(acc.transpose(0, 1), bara) \
+        .transpose(0, 1).contiguous()
+
+
+def rotate_sublane_plain(acc: torch.Tensor,
+                         bara: torch.Tensor) -> torch.Tensor:
+    """Plain twin: ``negacyclic_rotate_batch`` on acc (k+1, N, B)."""
+    return rotate_lane_plain(acc.transpose(1, 2), bara) \
+        .transpose(1, 2).contiguous()
+
+
+def _rotate_launch(wrapper, entry: str, plain, acc: torch.Tensor,
+                   bara: torch.Tensor, lanes_last: bool) -> torch.Tensor:
+    """Both rotation wrappers' body: acc (k+1, B, N), or (k+1, N, B)
+    when ``lanes_last``, rotated by bara (B,) int32 in [0, 2N)."""
+    kp1 = acc.shape[0] if acc.dim() == 3 else -1
+    b = bara.numel()
+    n = acc.shape[1 if lanes_last else 2] if acc.dim() == 3 else -1
+    shape = (kp1, n, b) if lanes_last else (kp1, b, n)
+    _check(acc, "acc", torch.int32, shape, acc.device)
+    _check(bara, "bara", torch.int32, (b,), acc.device)
+    if n & (n - 1) or n < 8:
+        raise ValueError(f"N must be a power of two >= 8, got {n}")
+    if not acc.is_cuda:
+        return plain(acc, bara)
+
+    out = torch.empty_like(acc)
+    if b == 0 or kp1 == 0:
+        return out
+    lib, stream = _launch_context(acc)
+    code = getattr(lib, entry)(acc.data_ptr(), bara.data_ptr(),
+                               out.data_ptr(), kp1, b, n, stream)
+    _build.check(lib, code, entry)
+    wrapper.launches += 1
+    return out
+
+
+def rotate_lane(acc: torch.Tensor, bara: torch.Tensor) -> torch.Tensor:
+    """X^bara·acc, acc (k+1, B, N) int32, bara (B,) int32 in [0, 2N) ->
+    (k+1, B, N); the kernel on CUDA tensors, the plain twin on CPU."""
+    return _rotate_launch(rotate_lane, "ieache_rotate_lane",
+                          rotate_lane_plain, acc, bara, lanes_last=False)
+
+
+rotate_lane.launches = 0
+
+
+def rotate_sublane(acc: torch.Tensor, bara: torch.Tensor) -> torch.Tensor:
+    """X^bara·acc, acc (k+1, N, B) int32, bara (B,) int32 in [0, 2N) ->
+    (k+1, N, B); the kernel on CUDA tensors, the plain twin on CPU."""
+    return _rotate_launch(rotate_sublane, "ieache_rotate_sublane",
+                          rotate_sublane_plain, acc, bara, lanes_last=True)
+
+
+rotate_sublane.launches = 0

@@ -1,0 +1,90 @@
+"""What the port's tools and ``chip_smoke.py`` share: the card check,
+the card line, an environment override, and the two timers.
+
+A timer needs a CUDA device; it never falls back to the CPU's clock.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import subprocess
+
+import torch
+
+
+def require_cuda(what: str) -> torch.device:
+    """The current CUDA device, or exit: ``what`` measures the card and
+    does not fall back to the CPU."""
+    if not torch.cuda.is_available():
+        raise SystemExit(f"{what}: no CUDA device; this run needs one and "
+                         f"does not fall back to the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return proc.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def environ(name: str, value: str | None):
+    """Run the block with the environment variable ``name`` set to
+    ``value`` (unset for None), restored afterwards."""
+    saved = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved
+
+
+def events_ms(fn, reps: int) -> float:
+    """Mean ms per call of ``fn`` over ``reps`` calls after one warm-up,
+    between two CUDA events (host cost per call included)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int, replays: int = 1) -> float:
+    """Device ms per call: ``reps`` calls captured in one CUDA graph and
+    replayed ``replays`` times between two CUDA events, so the host's
+    per-call cost (the Python wrapper, the launch) is not counted."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)

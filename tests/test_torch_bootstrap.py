@@ -247,6 +247,7 @@ _NO_JAX = textwrap.dedent("""
 
     sys.meta_path.insert(0, _Block())
 
+    import os
     import numpy as np
     from ieache_tpu import params as P
     from ieache_tpu.lwe import keygen
@@ -262,8 +263,12 @@ _NO_JAX = textwrap.dedent("""
     s = prng.key_from_seed_words([5])
     cx = encrypt.encrypt_bits(ks, x, prng.derive(s, 0), "cpu")
     cy = encrypt.encrypt_bits(ks, y, prng.derive(s, 1), "cpu")
-    got = encrypt.decrypt_bits(ks, gates.NAND(cx, cy, key))
-    assert got.tolist() == (1 - (x & y)).tolist(), got
+    for mode in ("split", "tr", "ntt"):
+        os.environ["IEACHE_PALLAS_STEP"] = mode
+        got = encrypt.decrypt_bits(ks, gates.NAND(cx, cy, key))
+        assert got.tolist() == (1 - (x & y)).tolist(), (mode, got)
+    import ieache_tpu_torch.tools.step_bench
+    import ieache_tpu_torch.tools.transposed_probe
     assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
     print("NAND-OK")
 """)
@@ -271,7 +276,8 @@ _NO_JAX = textwrap.dedent("""
 
 def test_port_runs_without_jax():
     """With every jax import refused, the port keygens, encrypts, runs
-    a NAND bootstrap and decrypts: it needs no JAX."""
+    a NAND bootstrap under split, tr and ntt, decrypts, and imports its
+    tools: it needs no JAX."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=root, env=env,

@@ -50,7 +50,9 @@ def test_phases_pass_on_cpu_twins():
     ks = keygen.generate_secret_keyset(p)
     key = bootstrap.pack_cloud_key(ks.cloud, dev)
     nand_in = cs.nand_inputs(ks, 16, dev)
-    cs.bootstrap_vs_plain(key, nand_in[2], dev)
+    want = cs.bootstrap_vs_plain(key, nand_in[2], dev)
+    # IEACHE_PALLAS=0/interpret equal and launch nothing; 1 raises here
+    cs.routes_vs_plain(key, nand_in[2], want, dev)
     errors, _ = cs.run_nand(ks, key, nand_in, dev)
     assert errors == 0
     got, want, _ = cs.run_expression(
@@ -59,7 +61,8 @@ def test_phases_pass_on_cpu_twins():
 
 
 def test_step_mode_phases_pass_on_cpu_twins():
-    """Phases 4-6 under every step mode, and the compat rotation."""
+    """Phases 4-6 under every step mode (tr and ntt included), and the
+    compat rotation."""
     cs = _chip_smoke()
     dev = torch.device("cpu")
     p = P.TEST_TINY
@@ -77,6 +80,7 @@ def test_step_mode_phases_pass_on_cpu_twins():
         assert (expr_s is not None) == (mode in cs.EXPRESSION_MODES)
         assert not any(launches.values())
     assert os.environ.get("IEACHE_PALLAS_STEP") == saved
+    assert {"tr", "ntt"} <= set(cs.MODES)
 
 
 def test_refuses_without_cuda():

@@ -31,7 +31,8 @@ PARAMS = [P.TEST_TINY, P.TEST_SMALL_NOISY, P.IEACHE_110_FAST]
 
 WRAPPERS = {name: getattr(kernels, name) for name in (
     "rot_diff_decompose", "external_product", "cmux_step",
-    "cmux_step_overlap", "blind_rotate_scan")}
+    "cmux_step_overlap", "blind_rotate_scan", "rot_diff_decompose_tr",
+    "external_product_tr", "rotate_lane", "rotate_sublane")}
 
 #: the kernels each step mode launches
 MODES = {
@@ -40,20 +41,26 @@ MODES = {
     "overlap": ("cmux_step_overlap",),
     "overlap2": ("cmux_step_overlap",),
     "scan": ("blind_rotate_scan",),
+    "tr": ("rot_diff_decompose_tr", "external_product_tr"),
+    "ntt": (),
 }
 
 
 @contextlib.contextmanager
-def _step_mode(mode):
-    saved = os.environ.get("IEACHE_PALLAS_STEP")
-    os.environ["IEACHE_PALLAS_STEP"] = mode
+def _env(name, value):
+    saved = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if saved is None:
-            os.environ.pop("IEACHE_PALLAS_STEP", None)
+            os.environ.pop(name, None)
         else:
-            os.environ["IEACHE_PALLAS_STEP"] = saved
+            os.environ[name] = saved
+
+
+def _step_mode(mode):
+    return _env("IEACHE_PALLAS_STEP", mode)
 
 
 @pytest.fixture
@@ -102,15 +109,25 @@ def test_external_product_kernel_matches_plain(cuda, p, b, with_acc):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("mode", list(MODES))
-def test_bootstrap_kernel_path_matches_plain_path(cuda, mode):
-    """The bootstrap under each step mode equals the plain path, and
-    launched the mode's kernels and no other."""
+def _small_noisy_case(cuda):
     p = P.TEST_SMALL_NOISY
     ks = keygen.generate_secret_keyset(p)
     key = bootstrap.pack_cloud_key(ks.cloud, cuda)
     bits = prng.uniform_bits01(prng.key_from_seed_words([3]), 37)
     ct = encrypt.encrypt_bits(ks, bits, prng.key_from_seed_words([4]), cuda)
+    return ks, key, bits, ct
+
+
+def _launched(counts):
+    return {name for (name, w), c in zip(WRAPPERS.items(), counts)
+            if w.launches != c}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_bootstrap_kernel_path_matches_plain_path(cuda, mode):
+    """The bootstrap under each step mode equals the plain path, and
+    launched the mode's kernels and no other (ntt: none)."""
+    ks, key, bits, ct = _small_noisy_case(cuda)
     want = bootstrap.bootstrap(ct, key, plain=True)
     counts = [w.launches for w in WRAPPERS.values()]
     with _step_mode(mode):
@@ -118,9 +135,23 @@ def test_bootstrap_kernel_path_matches_plain_path(cuda, mode):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     np.testing.assert_array_equal(encrypt.decrypt_bits(ks, got), bits)
-    launched = {name for (name, w), c in zip(WRAPPERS.items(), counts)
-                if w.launches != c}
-    assert launched == set(MODES[mode])
+    assert _launched(counts) == set(MODES[mode])
+
+
+@pytest.mark.parametrize("route", ["0", "interpret", "1"])
+@pytest.mark.parametrize("mode", ["split", "scan", "tr"])
+def test_pallas_routes_on_the_card(cuda, route, mode):
+    """IEACHE_PALLAS on CUDA tensors: 0 (the plain step) and interpret
+    (the mode's plain twins) launch nothing, 1 the mode's kernels; all
+    equal the plain path."""
+    ks, key, bits, ct = _small_noisy_case(cuda)
+    want = bootstrap.bootstrap(ct, key, plain=True)
+    counts = [w.launches for w in WRAPPERS.values()]
+    with _step_mode(mode), _env("IEACHE_PALLAS", route):
+        got = bootstrap.bootstrap(ct, key)
+    torch.cuda.synchronize()
+    assert got.is_cuda and torch.equal(got, want)
+    assert _launched(counts) == (set(MODES[mode]) if route == "1" else set())
 
 
 def test_compat_gadget_refused_on_cuda(cuda):
@@ -189,3 +220,52 @@ def test_blind_rotate_scan_kernel_matches_plain(cuda, p, b):
     want = kernels.blind_rotate_scan_plain(acc, bara, bk, p)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("p", PARAMS, ids=lambda p: p.name)
+@pytest.mark.parametrize("b", [1, 5, 64, 1056])
+def test_tr_kernels_match_plain(cuda, p, b):
+    """Both tr kernels, the rotation at each edge amount and the
+    product with and without the accumulator."""
+    rng = np.random.RandomState(400 + b)
+    acc = _rand(rng, (p.k + 1, p.N, b), -2**31, 2**31, np.int32, cuda)
+    bk_i = _rand(rng, (p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
+                 np.int32, cuda)
+    for bara in (_rand(rng, (b,), 0, 2 * p.N, np.int32, cuda),
+                 *(torch.full((b,), a, dtype=torch.int32, device=cuda)
+                   for a in (0, p.N, 2 * p.N - 1))):
+        before = kernels.rot_diff_decompose_tr.launches
+        got = kernels.rot_diff_decompose_tr(acc, bara, p)
+        assert kernels.rot_diff_decompose_tr.launches == before + 1
+        want = kernels.rot_diff_decompose_tr_plain(acc, bara, p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    d = _rand(rng, (p.trgsw_rows, p.N, b), -128, 128, np.int8, cuda)
+    for a in (None, acc):
+        before = kernels.external_product_tr.launches
+        got = kernels.external_product_tr(d, bk_i, p, acc=a)
+        assert kernels.external_product_tr.launches == before + 1
+        want = kernels.external_product_tr_plain(d, bk_i, p, a)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("p", PARAMS, ids=lambda p: p.name)
+@pytest.mark.parametrize("b", [1, 5, 64, 1056])
+def test_rotate_probe_kernels_match_plain(cuda, p, b):
+    rng = np.random.RandomState(500 + b)
+    acc = _rand(rng, (p.k + 1, b, p.N), -2**31, 2**31, np.int32, cuda)
+    acc_t = acc.transpose(1, 2).contiguous()
+    for bara in (_rand(rng, (b,), 0, 2 * p.N, np.int32, cuda),
+                 *(torch.full((b,), a, dtype=torch.int32, device=cuda)
+                   for a in (0, p.N, 2 * p.N - 1))):
+        for kern, plain, x in (
+                (kernels.rotate_lane, kernels.rotate_lane_plain, acc),
+                (kernels.rotate_sublane, kernels.rotate_sublane_plain,
+                 acc_t)):
+            before = kern.launches
+            got = kern(x, bara)
+            assert kern.launches == before + 1
+            want = plain(x, bara)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)

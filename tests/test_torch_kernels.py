@@ -10,6 +10,7 @@ checked against these twins in tests/test_torch_gpu.py and by
 chip_smoke.py.
 """
 
+import contextlib
 import dataclasses
 
 import jax.numpy as jnp
@@ -213,9 +214,10 @@ def test_wrappers_reject_bad_inputs():
 @pytest.mark.parametrize("p", [P.TEST_TINY, TINY_COMPAT],
                          ids=lambda p: p.name)
 def test_blind_rotate_matches_jax(p, monkeypatch):
-    """Every step mode's loop (plain twins on CPU) and the plain step
-    loop equal JAX's blind_rotate at a ragged batch; the compat gadget
-    takes the plain step in every mode, as JAX takes its XLA step."""
+    """Every step mode's loop (plain twins on CPU; ntt's transforms) and
+    the plain step loop equal JAX's blind_rotate at a ragged batch; the
+    compat gadget takes the plain step in every mode, as JAX takes its
+    XLA step."""
     rng = np.random.RandomState(8)
     b = 5
     acc0 = _rand_i32(rng, (b, p.k + 1, p.N))
@@ -227,5 +229,9 @@ def test_blind_rotate_matches_jax(p, monkeypatch):
     np.testing.assert_array_equal(got.numpy(), want)
     for mode in tbr.STEP_MODES:
         monkeypatch.setenv("IEACHE_PALLAS_STEP", mode)
-        got = tbr.blind_rotate(_t(acc0), _t(bara), _t(bk), p)
+        # ntt warns that it cannot take the compat gadget, as JAX does
+        with (pytest.warns(UserWarning, match="ntt needs digit_limbs")
+              if mode == "ntt" and p.digit_limbs != 1
+              else contextlib.nullcontext()):
+            got = tbr.blind_rotate(_t(acc0), _t(bara), _t(bk), p)
         np.testing.assert_array_equal(got.numpy(), want, err_msg=mode)
