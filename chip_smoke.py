@@ -14,35 +14,51 @@ steps in one launch), ``tr`` (rot_diff_decompose_tr +
 external_product_tr per step, in the transposed (k+1, N, B) layout);
 ``ntt`` (the CRT-NTT step, plain PyTorch ops) launches no kernel.
 ``IEACHE_PALLAS`` = 0 (the plain step), interpret (the mode's plain
-twins) or 1 (the kernels) reroutes the kernel modes.  Two more kernels,
-rotate_lane and rotate_sublane, are the rotation probe's
-(``python -m ieache_tpu_torch.tools.transposed_probe``).  Phases, each
-printed on lines of its own; any failure raises, so the script exits
-nonzero and prints no result line:
+twins) or 1 (the kernels) reroutes the kernel modes.  Four more kernels
+belong to the probe tools: rotate_lane and rotate_sublane
+(``python -m ieache_tpu_torch.tools.transposed_probe``), mm_s8 and
+mm_bf16 (``python -m ieache_tpu_torch.tools.mosaic_mm_probe``).  The
+script imports nothing of the JAX package.  Phases, each printed on
+lines of its own; any failure raises, so the script exits nonzero and
+prints no result line:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile the CUDA kernels of ``ieache_tpu_torch/csrc``, one
    ``nvcc`` per source, all started together;
-3. each of the nine kernels against its plain PyTorch twin, exact
-   equality, at IEACHE_110_FAST and the main path's batches (B=1024 for
-   NAND, 8 and 16 for the rounds of ``A + B - C``), at ragged B in
-   {1, 5, 1056} and at rotation amounts {0, N, 2N-1, random}; the scan
-   kernel over all n=500 steps; the probe's kernels at its B=2048 and
-   at B=5;
-4. a whole B=1024 bootstrap under each step mode against the plain
-   path; under ``IEACHE_PALLAS`` = 0 and interpret (no kernel may
-   launch) and 1 (the mode's kernels must launch), each under split
+3. each of the eleven kernels against its plain PyTorch twin: the nine
+   integer kernels of the blind rotation and the rotation probe to
+   exact equality, at IEACHE_110_FAST and the main path's batches
+   (B=1024 for NAND, 8 and 16 for the rounds of ``A + B - C``), at
+   ragged B in {1, 5, 1056} and at rotation amounts {0, N, 2N-1,
+   random}; the scan kernel over all n=500 steps; the rotation probe's
+   kernels at its B=2048 and at B=5; mm_s8 (exact) and mm_bf16 at the
+   matmul probe's (1024, 1024, 1024) with g in {1, 512} (the int32 sum
+   wraps with extreme operands) and at four smaller shapes with k up
+   to 4096, so that each type runs its three kernels, mm_bf16 to within
+   MM_BF16_RTOL of the largest |o| of a float64 product of the same
+   bf16 operands (its float32 sums run in another order than the
+   twin's);
+4. keygen: ``generate_secret_keyset_device`` on the card equal to the
+   host keyset (from ``.keycache/`` or generated), every array, and
+   ``encrypt_bits_device`` equal to host ``encrypt_bits`` on 1024
+   bits.  Then a whole B=1024 bootstrap under each step mode against
+   the plain path; under ``IEACHE_PALLAS`` = 0 and interpret (no kernel
+   may launch) and 1 (the mode's kernels must launch), each under split
    and tr; and the compat gadget's blind rotation (no kernel; the plain
    step on the card) at B=8 against ``plain=True``;
-5. main path, NAND under each step mode: keygen at IEACHE_110_FAST,
-   NAND on 1024 random bit pairs, decrypt; ``decrypt_errors`` must be
-   0.  Every launch count is reset just before a mode's run and read
-   just after it: the mode's kernels must have launched, and no other
-   (under ntt, none);
+5. main path, NAND under each step mode at IEACHE_110_FAST: NAND on
+   1024 random bit pairs, decrypted on the host and on the card
+   (``decrypt_bits_device``); ``decrypt_errors`` must be 0 both ways.
+   Every launch count is reset just before a mode's run and read just
+   after it: the mode's kernels must have launched, and no other (under
+   ntt, none);
 6. main path, ``A + B - C`` under ``split`` and ``scan`` (inside their
    mode's counted run): 16-bit signed words, 8 lanes, through
-   ``ripple_add`` then ``ripple_sub``; every lane must decrypt to the
-   Python result;
+   ``ripple_add`` then ``ripple_sub``, and once through the fused
+   ``add_then_sub``; ``A * B`` through ``fused.schoolbook_mul_csa`` on
+   16-bit words, windowed and ``latency=True`` at 8 lanes and
+   ``latency=True`` at 2 lanes (the Wallace tree); every lane must
+   decrypt to the Python result;
 7. timing, per mode: NAND bootstraps/s over 5 repeats (one repeat for
    a mode slower than 3 s a call) and, except under tr and ntt, the
    latency of ``A + B - C`` (host clock, ``torch.cuda.synchronize``
@@ -52,15 +68,23 @@ nonzero and prints no result line:
    of the scan kernel and its twin at B=8 and B=1024 (CUDA events
    around the call); the rotation probe (``transposed_probe``, its
    launch counts reset just before and read just after: the probe
-   kernels' own path) and ``step_bench`` over all seven modes, each
-   printing the tool's JSON line.
+   kernels' own path), the matmul probe (``mosaic_mm_probe``, counted
+   the same way) with each mm kernel beside its twin and beside
+   ``torch._int_mm`` / bf16 ``torch.matmul`` on the same operands g
+   times, and ``step_bench`` over all seven modes, each printing the
+   tool's JSON line; the device keygen's seconds beside the host's;
+   ``mul32`` at 32 lanes under split, once.
 
 The next-to-last line is a JSON object with one entry per kernel
 (route, source, the Pallas kernel it replaces, launches in its path,
 max abs error against the twin, ms and plain ms per call: at B=1024,
-B=2048 for the probe's kernels); the last line is
-``{"ok": true, "device": {...}}``.  The secret keyset is cached in
-``.keycache/`` (the JAX package's bench uses the same file).
+B=2048 for the rotation probe's kernels, (1024, 1024, 1024) with g=512
+for the matmul probe's; the least time the card could take for the
+call, from its bytes over 3.35 TB/s or its operations over the
+tensor-core peak, whichever is larger; and the ms of the one PyTorch
+call that computes the same function, where there is one); the last
+line is ``{"ok": true, "device": {...}}``.  The secret keyset is cached
+in ``.keycache/`` (the JAX package's bench writes the same file).
 """
 
 from __future__ import annotations
@@ -77,13 +101,19 @@ import torch
 from ieache_tpu_torch import files, keygen, prng
 from ieache_tpu_torch import params as P
 from ieache_tpu_torch.boot import bootstrap, gates
-from ieache_tpu_torch.circuits import arith, words
-from ieache_tpu_torch.lwe import encrypt
+from ieache_tpu_torch.circuits import arith, fused, words
+from ieache_tpu_torch.core.poly import TORUS_LIMBS
+from ieache_tpu_torch.lwe import encrypt, keygen_device
 from ieache_tpu_torch.ops import _build, kernels
 from ieache_tpu_torch.ops.blind_rotate import STEP_MODES, blind_rotate
-from ieache_tpu_torch.tools import step_bench, transposed_probe
+from ieache_tpu_torch.tools import (
+    mosaic_mm_probe,
+    step_bench,
+    transposed_probe,
+)
 from ieache_tpu_torch.tools._common import (
     card_line,
+    card_state,
     environ,
     events_ms,
     graph_ms,
@@ -112,6 +142,10 @@ KERNELS = [
      "tools/transposed_probe.py:62"),
     ("rotate_sublane", "ieache_tpu_torch/csrc/rotate_probe.cu",
      "tools/transposed_probe.py:96"),
+    ("mm_s8", "ieache_tpu_torch/csrc/mm_probe.cu",
+     "tools/mosaic_mm_probe.py:50"),
+    ("mm_bf16", "ieache_tpu_torch/csrc/mm_probe.cu",
+     "tools/mosaic_mm_probe.py:50"),
 ]
 
 #: the kernels each step mode launches
@@ -138,6 +172,28 @@ ROUTES, ROUTE_MODES = ("0", "interpret", "1"), ("split", "tr")
 #: the rotation probe's batch, and the sizes step_bench runs at here
 PROBE_B = 2048
 STEP_BENCH = {"b": 1024, "steps": 32, "iters": 2}
+
+#: the matmul probe's (m, k, n, g) cases of phase 3: the first is the one
+#: phase 7 times; between them they run the three kernels of each type
+#: (resident on the wide tile up to k = 1024 for s8 and 512 for bf16, on
+#: the narrow tile with k split over the warps up to twice that, an odd
+#: number of k-steps a warp included, else streaming)
+MM_CASES = ((1024, 1024, 1024, 512), (1024, 1024, 1024, 1),
+            (128, 256, 384, 3), (256, 2048, 128, 2), (128, 1408, 128, 3),
+            (128, 4096, 128, 2))
+
+#: passes at which extreme int8 operands overflow int32 at k >= 128
+MM_WRAP_G = 1100
+
+#: mm_bf16's tolerance against a float64 product of the same bf16
+#: operands, relative to the largest |o|: the float32 sums of g*k terms
+#: run in another order than the twin's and the tensor core truncates
+#: (under 1e-3 measured at g=512); a wrong fragment layout gives O(1)
+MM_BF16_RTOL = 1e-2
+
+#: published dense peaks of one H100 SXM (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12}
 
 
 def log(*args):
@@ -258,6 +314,91 @@ def check_kernels(p, device, batches, probe_batches=(PROBE_B, 5), seed=0):
     return errs
 
 
+def check_mm_kernels(device, cases=MM_CASES):
+    """Phase 3: mm_s8 equal to its twin (the int32 sum wrapping where g
+    is large) and mm_bf16 within MM_BF16_RTOL of a float64 product,
+    relative to its largest |o|; returns max abs error per kernel
+    against the twin."""
+    errs = {"mm_s8": 0, "mm_bf16": 0.0}
+    for m, k, n, g in cases:
+        ins = mosaic_mm_probe.make_inputs(m, k, n, device)
+        case = f"(m, k, n)=({m}, {k}, {n}) g={g}"
+        a, b = ins["s8"]
+        _compare("mm_s8", kernels.mm_s8(a, b, g),
+                 kernels.mm_s8_plain(a, b, g), errs, device, case)
+        a, b = ins["bf16"]
+        got = kernels.mm_bf16(a, b, g)
+        twin = kernels.mm_bf16_plain(a, b, g)
+        _sync(device)
+        ref = g * (a.double() @ b.double())
+        scale = float(ref.abs().max())
+        rel = {name: float((x.double() - ref).abs().max()) / scale
+               for name, x in (("kernel", got), ("twin", twin))}
+        errs["mm_bf16"] = max(errs["mm_bf16"],
+                              float((got - twin).abs().max()))
+        if got.shape != ref.shape or not max(rel.values()) <= MM_BF16_RTOL:
+            raise AssertionError(
+                f"mm_bf16 at {case}: relative error {rel} against float64, "
+                f"tolerance {MM_BF16_RTOL}")
+        log(f"phase 3 matmul probe kernels: {case}: mm_s8 equal; mm_bf16 "
+            f"relative error {rel['kernel']:.3g} (twin {rel['twin']:.3g}), "
+            f"tolerance {MM_BF16_RTOL}")
+    # random operands never reach 2^31: the extreme ones pass 2^32
+    m, k, n, _ = cases[0]
+    a, b = mosaic_mm_probe.extreme_inputs(m, k, n, device)
+    got = kernels.mm_s8(a, b, MM_WRAP_G)
+    _compare("mm_s8", got, kernels.mm_s8_plain(a, b, MM_WRAP_G), errs, device,
+             f"extreme operands g={MM_WRAP_G}")
+    exact = MM_WRAP_G * k * 128 * 128          # column 0 of a @ b, g times
+    want = ((exact + 2**31) % 2**32) - 2**31
+    if exact < 2**31 or not bool((got[:, 0] == want).all()):
+        raise AssertionError(f"mm_s8 did not wrap: {exact} should read "
+                             f"{want}, got {got[:, 0].unique().tolist()}")
+    log(f"phase 3 matmul probe kernels: extreme operands g={MM_WRAP_G}: "
+        f"mm_s8 equal, {exact} wrapped to {want}")
+    return errs
+
+
+def keygen_vs_host(host_ks, device):
+    """Keygen phase: the device keygen's keyset equal to the host
+    keyset, every array; returns the device keygen's seconds."""
+    t0 = time.perf_counter()
+    dev_ks = keygen_device.generate_secret_keyset_device(host_ks.params,
+                                                         device)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    for name, got, want in (
+            ("lwe_s", dev_ks.lwe_key.s, host_ks.lwe_key.s),
+            ("trlwe_k", dev_ks.trlwe_key.coefs, host_ks.trlwe_key.coefs),
+            ("bk", dev_ks.cloud.bk, host_ks.cloud.bk),
+            ("ks", dev_ks.cloud.ks, host_ks.cloud.ks)):
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError(f"device keygen: {name} differs from the "
+                                 f"host keyset")
+    return dt
+
+
+def encrypt_vs_host(ks, count, device, seed=11):
+    """Keygen phase: encrypt_bits_device equal to host encrypt_bits on
+    ``count`` bits, the result on ``device``, decrypting to the bits on
+    the device; returns (device seconds, host seconds)."""
+    stream = prng.key_from_seed_words([seed])
+    bits = prng.uniform_bits01(prng.derive(stream, 0), count)
+    t0 = time.perf_counter()
+    got = encrypt.encrypt_bits_device(ks, bits, prng.derive(stream, 1),
+                                      device)
+    _sync(device)
+    t1 = time.perf_counter()
+    want = encrypt.encrypt_bits(ks, bits, prng.derive(stream, 1), device)
+    t2 = time.perf_counter()
+    if got.device != device or not torch.equal(got, want):
+        raise AssertionError("encrypt_bits_device differs from encrypt_bits")
+    dec = encrypt.decrypt_bits_device(ks, got)
+    if dec.device != device or dec.cpu().numpy().tolist() != bits.tolist():
+        raise AssertionError("decrypt_bits_device did not return the bits")
+    return t1 - t0, t2 - t1
+
+
 def load_keyset(p):
     """The secret keyset for ``p``, from .keycache/ or generated (host)."""
     path = os.path.join(ROOT, ".keycache", f"{p.name}.iek")
@@ -349,7 +490,13 @@ def run_nand(ks, key, inputs, device):
     dt = time.perf_counter() - t0
     if tuple(out.shape) != (len(x), ks.params.n + 1):
         raise AssertionError(f"NAND output shape {tuple(out.shape)}")
-    errors = int((encrypt.decrypt_bits(ks, out) != 1 - (x & y)).sum())
+    want = 1 - (x & y)
+    errors = int((encrypt.decrypt_bits(ks, out) != want).sum())
+    on_device = encrypt.decrypt_bits_device(ks, out)
+    if on_device.device != out.device:
+        raise AssertionError(f"decrypt_bits_device returned its bits on "
+                             f"{on_device.device}")
+    errors += int((on_device.cpu().numpy() != want).sum())
     return errors, dt
 
 
@@ -380,19 +527,65 @@ def run_expression(ks, key, inputs, device):
     return got, want, dt
 
 
-def run_mode(ks, key, mode, nand_in, expr_in, device):
+def run_fused_expression(ks, key, inputs, device):
+    """Phase 6: A + B - C through the fused adder; returns (decrypted
+    lanes, expected, seconds)."""
+    (a, b, c), (ca, cb, cc) = inputs
+    t0 = time.perf_counter()
+    r = fused.add_then_sub(ca, cb, cc, key)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    return (words.decrypt_word_signed(ks, r),
+            [x + y - z for x, y, z in zip(a, b, c)], dt)
+
+
+def multiply_inputs(ks, width, batch, device, seed=13):
+    """Unsigned ``width``-bit operands, the extremes in lane 0, and
+    their ciphertexts."""
+    rng = np.random.RandomState(seed + batch)
+    vals = [rng.randint(0, 1 << width, batch).tolist() for _ in range(2)]
+    vals[0][0] = vals[1][0] = (1 << width) - 1
+    stream = prng.key_from_seed_words([seed, width, batch])
+    cts = [words.encrypt_word(ks, v, width, prng.derive(stream, i), device)
+           for i, v in enumerate(vals)]
+    return vals, cts
+
+
+def run_multiply(ks, key, inputs, latency, device):
+    """Phase 6: A * B over 2W bits through fused.schoolbook_mul_csa;
+    returns (decrypted lanes, expected, seconds)."""
+    (a, b), (ca, cb) = inputs
+    t0 = time.perf_counter()
+    r = fused.schoolbook_mul_csa(ca, cb, key, latency=latency)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    return (words.decrypt_word(ks, r), [x * y for x, y in zip(a, b)], dt)
+
+
+def run_mode(ks, key, mode, nand_in, expr_in, mul_in, device):
     """Phases 5 and 6 under one step mode, with every launch count set
     to 0 just before and read just after: on a CUDA device the mode's
-    kernels must have launched and no other.  Returns (decrypt_errors,
-    NAND seconds, expression seconds or None, launches)."""
+    kernels must have launched and no other.  ``mul_in`` is a list of
+    (name, multiply inputs, latency).  Returns (decrypt_errors, NAND
+    seconds, {expression name: seconds}, launches of the NAND alone,
+    launches of the whole run)."""
     reset_launches()
     with step_mode(mode):
         errors, nand_s = run_nand(ks, key, nand_in, device)
-        expr_s = None
+        nand_launches = read_launches()
+        runs = []
         if mode in EXPRESSION_MODES:
-            got, want, expr_s = run_expression(ks, key, expr_in, device)
+            runs = [("A+B-C", lambda: run_expression(ks, key, expr_in,
+                                                      device)),
+                    ("A+B-C fused", lambda: run_fused_expression(
+                        ks, key, expr_in, device))]
+            runs += [(name, lambda i=inputs, lat=latency: run_multiply(
+                ks, key, i, lat, device)) for name, inputs, latency in mul_in]
+        expr_s = {}
+        for name, run in runs:
+            got, want, expr_s[name] = run()
             if got != want:
-                raise AssertionError(f"A + B - C under {mode} decrypted "
+                raise AssertionError(f"{name} under {mode} decrypted "
                                      f"wrong: got {got}, want {want}")
     launches = read_launches()
     if errors:
@@ -401,13 +594,34 @@ def run_mode(ks, key, mode, nand_in, expr_in, device):
         # CPU tensors run the plain twins, which launch nothing
         if any(launches.values()):
             raise AssertionError(f"{mode} on {device}: {launches}")
-        return errors, nand_s, expr_s, launches
+        return errors, nand_s, expr_s, nand_launches, launches
     unlaunched = [k for k in MODES[mode] if not launches[k]]
     stray = [k for k, n in launches.items() if n and k not in MODES[mode]]
     if unlaunched or stray:
         raise AssertionError(f"{mode}: kernels not launched {unlaunched}, "
                              f"launched by another mode {stray}: {launches}")
-    return errors, nand_s, expr_s, launches
+    return errors, nand_s, expr_s, nand_launches, launches
+
+
+def bound_ms(tensors, ops, op_type):
+    """The least ms the card could take for a call: the bytes of
+    ``tensors`` (each input read once, each output written once) over
+    the memory rate, or ``ops`` operations over the published peak for
+    ``op_type``, whichever is larger.  Returns (ms, "bytes" or
+    "operations")."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S[op_type] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def external_product_ops(p, batch, steps=1):
+    """Operations of ``steps`` external products in the JAX kernel's
+    form: per limb, TRGSW row and output polynomial, a (B, N) x (N, N)
+    int8 product (2 operations per multiply-add)."""
+    return (2 * TORUS_LIMBS * p.trgsw_rows * (p.k + 1) * batch * p.N * p.N
+            * steps)
 
 
 def step_times(p, device, batch, reps):
@@ -415,7 +629,9 @@ def step_times(p, device, batch, reps):
     twin at the main-path shapes (B=``batch``; the probe's kernels at
     B=PROBE_B), on a CUDA ``device``: ``ms``/``plain_ms`` on the device
     (CUDA graph replay), ``host_ms``/``plain_host_ms`` per call of a
-    Python loop (launch cost included)."""
+    Python loop (launch cost included), and the call's bound
+    (:func:`bound_ms`; a rotation's few integer operations per
+    coefficient have no tensor-core form and are not counted)."""
     rng = np.random.RandomState(1)
     acc = _rand(rng, (p.k + 1, batch, p.N), -2**31, 2**31, np.int32, device)
     bara = _rand(rng, (batch,), 0, 2 * p.N, np.int32, device)
@@ -427,53 +643,95 @@ def step_times(p, device, batch, reps):
                   device)
     probe_tr = probe.transpose(1, 2).contiguous()
     probe_bara = _rand(rng, (PROBE_B,), 0, 2 * p.N, np.int32, device)
+    ep_ops = external_product_ops(p, batch)
+    #: name -> (kernel call, twin call, input tensors, operations)
     calls = {
         "rot_diff_decompose": (
             lambda: kernels.rot_diff_decompose(acc, bara, p),
-            lambda: kernels.rot_diff_decompose_plain(acc, bara, p)),
+            lambda: kernels.rot_diff_decompose_plain(acc, bara, p),
+            (acc, bara), 0),
         "external_product": (
             lambda: kernels.external_product(d, bk_i, p, acc=acc),
-            lambda: kernels.external_product_plain(d, bk_i, p, acc)),
+            lambda: kernels.external_product_plain(d, bk_i, p, acc),
+            (d, bk_i, acc), ep_ops),
         "cmux_step": (
             lambda: kernels.cmux_step(acc, bara, bk_i, p),
-            lambda: kernels.cmux_step_plain(acc, bara, bk_i, p)),
+            lambda: kernels.cmux_step_plain(acc, bara, bk_i, p),
+            (acc, bara, bk_i), ep_ops),
         "cmux_step_overlap": (
             lambda: kernels.cmux_step_overlap(acc, bara, bk_i, p),
-            lambda: kernels.cmux_step_plain(acc, bara, bk_i, p)),
+            lambda: kernels.cmux_step_plain(acc, bara, bk_i, p),
+            (acc, bara, bk_i), ep_ops),
         "rot_diff_decompose_tr": (
             lambda: kernels.rot_diff_decompose_tr(acc_tr, bara, p),
-            lambda: kernels.rot_diff_decompose_tr_plain(acc_tr, bara, p)),
+            lambda: kernels.rot_diff_decompose_tr_plain(acc_tr, bara, p),
+            (acc_tr, bara), 0),
         "external_product_tr": (
             lambda: kernels.external_product_tr(d_tr, bk_i, p, acc=acc_tr),
             lambda: kernels.external_product_tr_plain(d_tr, bk_i, p,
-                                                      acc_tr)),
+                                                      acc_tr),
+            (d_tr, bk_i, acc_tr), ep_ops),
         "rotate_lane": (
             lambda: kernels.rotate_lane(probe, probe_bara),
-            lambda: kernels.rotate_lane_plain(probe, probe_bara)),
+            lambda: kernels.rotate_lane_plain(probe, probe_bara),
+            (probe, probe_bara), 0),
         "rotate_sublane": (
             lambda: kernels.rotate_sublane(probe_tr, probe_bara),
-            lambda: kernels.rotate_sublane_plain(probe_tr, probe_bara)),
+            lambda: kernels.rotate_sublane_plain(probe_tr, probe_bara),
+            (probe_tr, probe_bara), 0),
     }
-    return {name: {"host_ms": events_ms(kern, reps),
-                   "plain_host_ms": events_ms(plain, reps),
-                   "ms": graph_ms(kern, reps),
-                   "plain_ms": graph_ms(plain, reps)}
-            for name, (kern, plain) in calls.items()}
+    times = {}
+    for name, (kern, plain, inputs, ops) in calls.items():
+        bound, by = bound_ms((*inputs, kern()), ops, "int8")
+        times[name] = {"host_ms": events_ms(kern, reps),
+                       "plain_host_ms": events_ms(plain, reps),
+                       "ms": graph_ms(kern, reps),
+                       "plain_ms": graph_ms(plain, reps),
+                       "bound_ms": bound, "bound_by": by, "library_ms": None}
+    return times
 
 
 def scan_times(p, device, batch, reps):
     """Phase 7: ms per whole rotation (n steps) of the scan kernel and
-    of its plain twin, CUDA events around each call."""
+    of its plain twin, CUDA events around each call, and its bound."""
     rng = np.random.RandomState(2)
     acc = _rand(rng, (p.k + 1, batch, p.N), -2**31, 2**31, np.int32, device)
     bara = _rand(rng, (batch, p.n), 0, 2 * p.N, np.int32, device)
     bk = _rand(rng, (p.n, p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
                np.int32, device)
+    bound, by = bound_ms((acc, bara, bk, acc),
+                         external_product_ops(p, batch, p.n), "int8")
     return {"ms": events_ms(
                 lambda: kernels.blind_rotate_scan(acc, bara, bk, p), reps),
             "plain_ms": events_ms(
                 lambda: kernels.blind_rotate_scan_plain(acc, bara, bk, p),
-                reps)}
+                reps),
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def mm_times(device, reps, case=MM_CASES[0]):
+    """Phase 7: ms per call of mm_s8 and mm_bf16 at the probe's shape
+    (the sum of g products), each beside its twin, its bound, and the
+    library call on the same operands g times (``torch._int_mm``, bf16
+    ``torch.matmul``); device times from CUDA-graph replay, the twins'
+    from CUDA events around the call."""
+    m, k, n, g = case
+    ins = mosaic_mm_probe.make_inputs(m, k, n, device)
+    times = {}
+    for name, dt, op_type, library in (
+            ("mm_s8", "s8", "int8", torch._int_mm),
+            ("mm_bf16", "bf16", "bf16", torch.matmul)):
+        a, b = ins[dt]
+        kern = getattr(kernels, name)
+        plain = getattr(kernels, name + "_plain")
+        bound, by = bound_ms((a, b, kern(a, b, g)), g * 2 * m * k * n,
+                             op_type)
+        times[name] = {
+            "ms": graph_ms(lambda: kern(a, b, g), reps),
+            "plain_ms": events_ms(lambda: plain(a, b, g), 2),
+            "library_ms": graph_ms(lambda: library(a, b), g) * g,
+            "bound_ms": bound, "bound_by": by}
+    return times
 
 
 def nand_rates(ks, key, mode, nand_in, device, repeats=5):
@@ -519,6 +777,21 @@ def run_probe(device, b=PROBE_B, steps=200, iters=8):
     return rec, launches
 
 
+def run_mm_probe(device, case=MM_CASES[0]):
+    """Phase 7: the matmul probe, its own path: launch counts set to 0
+    just before and read just after; both mm kernels must have launched,
+    and no other.  Returns (the probe's record, launches)."""
+    m, k, n, g = case
+    reset_launches()
+    rec = mosaic_mm_probe.run(m, k, n, g, "both", device)
+    launches = read_launches()
+    probe = ("mm_s8", "mm_bf16")
+    if (not all(launches[name] for name in probe)
+            or any(c for name, c in launches.items() if name not in probe)):
+        raise AssertionError(f"mosaic_mm_probe: {rec}, launches {launches}")
+    return rec, launches
+
+
 def main() -> int:
     # phase 1: device
     device = require_cuda("chip_smoke")
@@ -546,9 +819,21 @@ def main() -> int:
     # phase 3: kernels against their plain twins; 8 and 16 are the
     # batches of the A + B - C rounds below
     errs = check_kernels(p, device, [batch, 8, 16, 1, 5, 1056])
+    errs.update(check_mm_kernels(device))
 
-    # keys and operands (set-up)
+    # keys and operands (set-up), and the keygen phase: the device
+    # keygen and encryption against the host's
     ks, keygen_s = load_keyset(p)
+    torch.cuda.reset_peak_memory_stats(device)
+    device_keygen_s = keygen_vs_host(ks, device)
+    keygen_peak = torch.cuda.max_memory_allocated(device)
+    log(f"keygen phase: generate_secret_keyset_device on {device} equal to "
+        f"the host keyset (lwe_s, trlwe_k, bk, ks), {device_keygen_s:.2f} s "
+        f"(first call), peak device memory {keygen_peak / 1e9:.2f} GB")
+    enc_s, host_enc_s = encrypt_vs_host(ks, 1024, device)
+    log(f"keygen phase: encrypt_bits_device equal to encrypt_bits on 1024 "
+        f"bits ({enc_s:.3f} s on the device, {host_enc_s:.3f} s on the "
+        f"host); decrypt_bits_device returns the bits")
     key = bootstrap.pack_cloud_key(ks.cloud, device)
     log(f"keys: {p.name} keygen {keygen_s:.1f} s "
         f"({'cached' if keygen_s == 0 else 'generated'}); bk "
@@ -556,6 +841,11 @@ def main() -> int:
         f"{key.ks_limbs.numel() / 1e6:.1f} MB on {device}")
     nand_in = nand_inputs(ks, batch, device)
     expr_in = expression_inputs(ks, 16, 8, device)
+    mul_in = [("mul16 B=8 windowed", multiply_inputs(ks, 16, 8, device),
+               False),
+              ("mul16 B=8 latency", multiply_inputs(ks, 16, 8, device), True),
+              ("mul16 B=2 latency (Wallace)",
+               multiply_inputs(ks, 16, 2, device), True)]
 
     # phase 4: whole bootstrap under each mode and each IEACHE_PALLAS
     # route against the plain path; the compat gadget's rotation (no
@@ -579,20 +869,29 @@ def main() -> int:
 
     # phases 5 and 6: the main path under each mode, counted from 0
     launches = dict.fromkeys(read_launches(), 0)
+    nand_launches = dict(launches)
     for mode in MODES:
-        errors, nand_s, expr_s, counts = run_mode(ks, key, mode, nand_in,
-                                                  expr_in, device)
+        errors, nand_s, expr_s, nand_counts, counts = run_mode(
+            ks, key, mode, nand_in, expr_in, mul_in, device)
         log(f"phase 5 NAND B={batch} {p.name} {mode}: decrypt_errors="
-            f"{errors} ({nand_s:.3f} s, first call); launches "
-            f"{ {k: counts[k] for k in MODES[mode]} }, others 0")
-        if expr_s is not None:
-            log(f"phase 6 A+B-C width 16 B=8 {mode}: every lane right "
-                f"({expr_s:.3f} s, first call)")
+            f"{errors} on the host and on the device ({nand_s:.3f} s, "
+            f"first call); launches "
+            f"{ {k: nand_counts[k] for k in MODES[mode]} }, others 0")
+        for name, secs in expr_s.items():
+            log(f"phase 6 {name} width 16 {mode}: every lane right "
+                f"({secs:.3f} s, first call)")
+        if expr_s:
+            log(f"phase 6 {mode}: launches of NAND and expressions "
+                f"{ {k: counts[k] for k in MODES[mode]} }, others 0")
         for k in MODES[mode]:
             launches[k] += counts[k]
+            nand_launches[k] += nand_counts[k]
     log(f"main-path launches: {launches}")
+    log(f"main-path launches of the NAND batches alone: {nand_launches}")
 
     # phase 7: timing
+    log(f"phase 7 card state (SM clock, its maximum, power draw, "
+        f"temperature) before the timings: {card_state()}")
     for mode in MODES:
         rates = nand_rates(ks, key, mode, nand_in, device)
         line = (f"phase 7 {mode}: NAND B={batch} bootstraps/s median "
@@ -610,17 +909,44 @@ def main() -> int:
         log(f"phase 7 {name} B={b}: kernel {t['ms']:.4f} ms/call, "
             f"plain twin {t['plain_ms']:.4f} ms/call on the device (graph "
             f"replay); from a Python loop {t['host_ms']:.4f} and "
-            f"{t['plain_host_ms']:.4f} ms/call")
+            f"{t['plain_host_ms']:.4f} ms/call; bound {t['bound_ms']:.4f} "
+            f"ms ({t['bound_by']})")
     for b in (8, batch):
         t = scan_times(p, device, b, reps=2)
         log(f"phase 7 blind_rotate_scan B={b}: kernel {t['ms']:.3f} ms, "
             f"plain twin {t['plain_ms']:.3f} ms per rotation of {p.n} "
-            f"steps (CUDA events around the call)")
+            f"steps (CUDA events around the call); bound "
+            f"{t['bound_ms']:.3f} ms ({t['bound_by']})")
     steps["blind_rotate_scan"] = t
     probe, probe_launches = run_probe(device)
     log("phase 7 transposed_probe: " + json.dumps(probe))
+    mm_probe, mm_launches = run_mm_probe(device)
+    log("phase 7 mosaic_mm_probe: " + json.dumps(mm_probe))
+    # at k = 512 both types run their resident kernel
+    m, _, n, g = MM_CASES[0]
+    log("phase 7 mosaic_mm_probe at k=512: "
+        + json.dumps(mosaic_mm_probe.run(m, 512, n, g, "both", device)))
     for k in ("rotate_lane", "rotate_sublane"):
         launches[k] = probe_launches[k]
+    for k in ("mm_s8", "mm_bf16"):
+        launches[k] = mm_launches[k]
+    m, k, n, g = MM_CASES[0]
+    for name, t in mm_times(device, reps=4).items():
+        steps[name] = t
+        log(f"phase 7 {name} ({m}, {k}, {n}) g={g}: kernel {t['ms']:.4f} "
+            f"ms/call (graph replay), plain twin {t['plain_ms']:.4f} ms, "
+            f"the library call {g} times {t['library_ms']:.4f} ms (graph "
+            f"replay), bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    log(f"phase 7 keygen {p.name}: device {device_keygen_s:.2f} s, host "
+        + (f"{keygen_s:.2f} s" if keygen_s else "not timed (cached)"))
+    with step_mode("split"):
+        got, want, mul32_s = run_multiply(
+            ks, key, multiply_inputs(ks, 32, 32, device), False, device)
+    if got != want:
+        raise AssertionError(f"mul32 decrypted wrong: got {got}, want {want}")
+    log(f"phase 7 mul32 B=32 windowed split: every lane right, "
+        f"{mul32_s:.2f} s (one call)")
+    log(f"phase 7 card state after mul32: {card_state()}")
     records = step_bench.run(
         STEP_MODES, p, STEP_BENCH["b"], STEP_BENCH["steps"],
         STEP_BENCH["iters"], device,
@@ -633,7 +959,10 @@ def main() -> int:
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": steps[name]["ms"], "plain_ms": steps[name]["plain_ms"]}
+         "ms": steps[name]["ms"], "plain_ms": steps[name]["plain_ms"],
+         "bound_ms": steps[name]["bound_ms"],
+         "bound_by": steps[name]["bound_by"],
+         "library_ms": steps[name]["library_ms"]}
         for name, src, rep in KERNELS
     ]}
     device_rec = {"platform": "gpu", "kind": kind,

@@ -15,17 +15,17 @@ arithmetic is exact mod 2^32).
   (:mod:`ieache_tpu_torch.ops.blind_rotate`);
 * :mod:`ieache_tpu_torch.tools` holds the measurement tools, each run
   with ``python -m``;
-* the jax-free host modules of the JAX package are reused as they are,
-  and re-exported here so that a caller of the port names one package:
-  :mod:`ieache_tpu.params`, :mod:`ieache_tpu.utils.prng`,
-  :mod:`ieache_tpu.lwe.types`, :mod:`ieache_tpu.lwe.keygen` and
-  :mod:`ieache_tpu.codec.files` (keys, streams and key files are then
-  identical across the two backends).
+* the host modules are the port's own copies, each pinned to its
+  original by a CPU test and re-exported here: :mod:`.params`,
+  :mod:`.utils.prng`, :mod:`.lwe.types`, :mod:`.lwe.keygen` and
+  :mod:`.codec.files` (keys, streams and key files are identical
+  across the two packages, byte for byte).
 
-This package imports ``torch`` and never ``jax``.
+This package imports ``torch`` and never ``jax``, and nothing of
+``ieache_tpu``.
 """
 
-from ieache_tpu import params  # noqa: F401
-from ieache_tpu.codec import files  # noqa: F401
-from ieache_tpu.lwe import keygen, types  # noqa: F401
-from ieache_tpu.utils import prng  # noqa: F401
+from ieache_tpu_torch import params  # noqa: F401
+from ieache_tpu_torch.codec import files  # noqa: F401
+from ieache_tpu_torch.lwe import keygen, types  # noqa: F401
+from ieache_tpu_torch.utils import prng  # noqa: F401

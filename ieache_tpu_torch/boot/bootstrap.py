@@ -8,17 +8,25 @@ JAX package leaves them to XLA.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import numpy as np
 import torch
 from torch import nn
 
-from ieache_tpu.lwe.types import CloudKeySet
-from ieache_tpu.params import TFHEParams
+from ieache_tpu_torch.lwe.types import (
+    CloudKeySet,
+    LweKey,
+    SecretKeySet,
+    TrlweKey,
+)
 from ieache_tpu_torch.ops.blind_rotate import blind_rotate
 from ieache_tpu_torch.ops.keyswitch import keyswitch, pack_ks_limbs, pad_ks_limbs
+from ieache_tpu_torch.params import TFHEParams
 
-#: torus encoding of a gate-bootstrapping bit (1/8); re-declared because
-#: ieache_tpu.boot.bootstrap imports jax (a test pins the two together)
+#: torus encoding of a gate-bootstrapping bit (1/8); a test pins it to
+#: the JAX package's
 MU = 1 << 29
 
 
@@ -60,6 +68,19 @@ def from_jax_cloud_key(dck_arrays, params: TFHEParams, device) -> DeviceCloudKey
                               device),
         params=params,
     )
+
+
+def from_jax_keyset(keyset) -> SecretKeySet:
+    """A JAX-package ``SecretKeySet`` (or any object with its fields)
+    -> the port's :class:`~ieache_tpu_torch.lwe.types.SecretKeySet`
+    with the port's ``TFHEParams``: same arrays, same parameter fields,
+    so that one keyset feeds both packages."""
+    p = TFHEParams(**dataclasses.asdict(keyset.params))
+    as_i32 = functools.partial(np.asarray, dtype=np.int32)
+    return SecretKeySet(
+        p, LweKey(p, as_i32(keyset.lwe_key.s)),
+        TrlweKey(p, as_i32(keyset.trlwe_key.coefs)),
+        CloudKeySet(p, as_i32(keyset.cloud.bk), as_i32(keyset.cloud.ks)))
 
 
 def mod_switch_2n(x: torch.Tensor, params: TFHEParams) -> torch.Tensor:

@@ -19,8 +19,7 @@ from ieache_tpu_torch.boot.bootstrap import (
 from ieache_tpu_torch.ops.keyswitch import keyswitch
 
 #: gate -> (alpha1, alpha2, beta): bootstrap(a1*c1 + a2*c2 + (0, beta));
-#: re-declared because ieache_tpu.boot.gates imports jax (a test pins
-#: the two tables together)
+#: a test pins this table and the opcodes to the JAX package's
 GATE_TABLE = {
     "AND":   (1, 1, -MU),
     "OR":    (1, 1, MU),

@@ -10,9 +10,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ieache_tpu.lwe.types import SecretKeySet
 from ieache_tpu_torch.boot import gates
 from ieache_tpu_torch.lwe import encrypt
+from ieache_tpu_torch.lwe.types import SecretKeySet
 
 
 def values_to_bits(values, width: int) -> np.ndarray:

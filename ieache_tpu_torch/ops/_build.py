@@ -122,6 +122,9 @@ def library() -> ctypes.CDLL:
         ctypes.c_uint32, vp,
     ]
     lib.ieache_blind_rotate_scan.restype = i32
+    for fn in (lib.ieache_mm_s8, lib.ieache_mm_bf16):
+        fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
+        fn.restype = i32
     lib.ieache_error_string.argtypes = [i32]
     lib.ieache_error_string.restype = ctypes.c_char_p
     return lib

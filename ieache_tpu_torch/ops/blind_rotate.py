@@ -56,7 +56,6 @@ import warnings
 
 import torch
 
-from ieache_tpu.params import TFHEParams
 from ieache_tpu_torch.core.poly import (
     TORUS_LIMBS,
     _dot_i8,
@@ -65,6 +64,7 @@ from ieache_tpu_torch.core.poly import (
     toeplitz_index,
 )
 from ieache_tpu_torch.ops.decompose import gadget_decompose
+from ieache_tpu_torch.params import TFHEParams
 
 
 def make_step_gmatrix(bk_step: torch.Tensor, params: TFHEParams) -> torch.Tensor:

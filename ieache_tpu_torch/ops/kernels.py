@@ -1,4 +1,4 @@
-"""The blind rotation's CUDA kernels: wrappers, plain twins, counts.
+"""The port's CUDA kernels: wrappers, plain twins, counts.
 
 :func:`ieache_tpu_torch.ops.blind_rotate.blind_rotate` runs its CMux
 steps, in the (k+1, B, N) accumulator layout (``tr``: (k+1, N, B)),
@@ -29,6 +29,11 @@ replacing the two inline kernels of ``tools/transposed_probe.py``) are
 one negacyclic rotation in each layout, timed by
 :mod:`ieache_tpu_torch.tools.transposed_probe`.
 
+:func:`mm_s8` and :func:`mm_bf16` (``csrc/mm_probe.cu``, replacing the
+inline kernel of ``tools/mosaic_mm_probe.py``) are a bare tensor-core
+matrix product repeated g times into one accumulator, timed by
+:mod:`ieache_tpu_torch.tools.mosaic_mm_probe`.
+
 A wrapper checks device, dtype, shape, contiguity and alignment, then
 launches its kernel when the tensors lie on a CUDA device, or runs its
 plain twin (``*_plain``) when they lie on the CPU; it never falls back
@@ -41,11 +46,11 @@ from __future__ import annotations
 
 import torch
 
-from ieache_tpu.params import TFHEParams
-from ieache_tpu_torch.core.poly import TORUS_LIMBS
+from ieache_tpu_torch.core.poly import TORUS_LIMBS, _dot_i8
 from ieache_tpu_torch.ops import _build
 from ieache_tpu_torch.ops import blind_rotate as br
 from ieache_tpu_torch.ops.decompose import _offset
+from ieache_tpu_torch.params import TFHEParams
 
 
 def _require_single_limb(params: TFHEParams) -> None:
@@ -440,3 +445,87 @@ def rotate_sublane(acc: torch.Tensor, bara: torch.Tensor) -> torch.Tensor:
 
 
 rotate_sublane.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the matmul-rate probe: g products A @ B summed on the tensor cores
+# ---------------------------------------------------------------------------
+
+#: the probe kernels' tile: m, k and n must be multiples of it
+MM_TILE = 128
+
+
+def mm_s8_plain(a: torch.Tensor, b: torch.Tensor, g: int) -> torch.Tensor:
+    """Plain twin: ``o = 0; g times: o += a @ b`` in wrapping int32 (one
+    product is exact in int32 for k < 2^17; the sum of g wraps mod 2^32
+    as the kernel's accumulator does)."""
+    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.int32,
+                      device=a.device)
+    for _ in range(g):
+        out += _dot_i8(a, b)
+    return out
+
+
+def mm_bf16_plain(a: torch.Tensor, b: torch.Tensor, g: int) -> torch.Tensor:
+    """Plain twin: ``o = 0; g times: o += a @ b`` in float32 (bf16
+    products are exact in float32; the sum's order differs from the
+    kernel's, so the two agree within a tolerance, not bit for bit)."""
+    a32, b32 = a.to(torch.float32), b.to(torch.float32)
+    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    for _ in range(g):
+        out += a32 @ b32
+    return out
+
+
+def _mm_launch(wrapper, entry: str, plain, in_dtype: torch.dtype,
+               out_dtype: torch.dtype, a: torch.Tensor, b: torch.Tensor,
+               g: int) -> torch.Tensor:
+    """Both probe wrappers' body: a (m, k), b (k, n) of ``in_dtype``
+    -> the sum of g products as ``out_dtype`` (m, n), from the C entry
+    point ``entry`` on CUDA tensors, counted on ``wrapper``, or from
+    ``plain`` on CPU tensors."""
+    m, k = a.shape if a.dim() == 2 else (-1, -1)
+    n = b.shape[1] if b.dim() == 2 else -1
+    _check(a, "a", in_dtype, (m, k), a.device, align=16)
+    _check(b, "b", in_dtype, (k, n), a.device, align=16)
+    if min(m, k, n) < MM_TILE or any(x % MM_TILE for x in (m, k, n)):
+        raise ValueError(f"m, k, n must be positive multiples of {MM_TILE}, "
+                         f"got {(m, k, n)}")
+    if g < 1 or g * k >= 2**31:
+        raise ValueError(f"g must be in [1, 2^31 / k), got {g}")
+    if not a.is_cuda:
+        return plain(a, b, g)
+
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    bt = torch.empty((n, k), dtype=in_dtype, device=a.device)   # scratch
+    lib, stream = _launch_context(a)
+    code = getattr(lib, entry)(a.data_ptr(), b.data_ptr(), bt.data_ptr(),
+                               out.data_ptr(), m, k, n, g, stream)
+    _build.check(lib, code, entry)
+    wrapper.launches += 1
+    return out
+
+
+def mm_s8(a: torch.Tensor, b: torch.Tensor, g: int = 1) -> torch.Tensor:
+    """The sum of g products a @ b, a (m, k) int8, b (k, n) int8 ->
+    (m, n) int32, wrapping mod 2^32, on the int8 tensor cores; the
+    kernel on CUDA tensors, the plain twin on CPU.  m, k, n multiples of
+    128."""
+    return _mm_launch(mm_s8, "ieache_mm_s8", mm_s8_plain, torch.int8,
+                      torch.int32, a, b, g)
+
+
+mm_s8.launches = 0
+
+
+def mm_bf16(a: torch.Tensor, b: torch.Tensor, g: int = 1) -> torch.Tensor:
+    """The sum of g products a @ b, a (m, k) bf16, b (k, n) bf16 ->
+    (m, n) float32 accumulated in float32 on the bf16 tensor cores; the
+    kernel on CUDA tensors, the plain twin on CPU.  m, k, n multiples of
+    128."""
+    return _mm_launch(mm_bf16, "ieache_mm_bf16", mm_bf16_plain,
+                      torch.bfloat16, torch.float32, a, b, g)
+
+
+mm_bf16.launches = 0

@@ -12,9 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ieache_tpu.params import TFHEParams
 from ieache_tpu_torch.core.poly import TORUS_LIMBS, _dot_i8, split_i8_limbs
 from ieache_tpu_torch.ops.decompose import gadget_decompose
+from ieache_tpu_torch.params import TFHEParams
 
 
 def pad_ks_limbs(limbs: torch.Tensor, device) -> torch.Tensor:

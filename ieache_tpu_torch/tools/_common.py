@@ -1,5 +1,5 @@
 """What the port's tools and ``chip_smoke.py`` share: the card check,
-the card line, an environment override, and the two timers.
+the card's line and state, an environment override, and the two timers.
 
 A timer needs a CUDA device; it never falls back to the CPU's clock.
 """
@@ -22,14 +22,24 @@ def require_cuda(what: str) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
+def _nvidia_smi(fields: str) -> str:
     proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
     return proc.stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return _nvidia_smi("name,power.limit")
+
+
+def card_state() -> str:
+    """The card's SM clock, its maximum, power draw and temperature
+    now: a card that runs below its maximum clock explains times that
+    differ between two runs."""
+    return _nvidia_smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu")
 
 
 @contextlib.contextmanager

@@ -31,7 +31,7 @@ import time
 import numpy as np
 import torch
 
-from ieache_tpu import params as P
+from ieache_tpu_torch import params as P
 from ieache_tpu_torch.ops import blind_rotate as br
 from ieache_tpu_torch.tools._common import card_line, environ, require_cuda
 

@@ -1,13 +1,16 @@
 """The port's CUDA kernels against their plain PyTorch twins, on the card.
 
 Marked ``gpu``: each test asks for the ``cuda`` fixture, which skips it
-when no CUDA device is present.  This file imports no JAX, so it also
-runs on a machine that has none:
+when no CUDA device is present.  This file imports no JAX and nothing
+of the JAX package, so it also runs on a machine that has none:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -m gpu
 
 (``--noconftest`` because tests/conftest.py configures JAX).  All
-arithmetic is exact mod 2^32: kernel and twin must be equal.
+integer arithmetic is exact mod 2^32: kernel and twin must be equal.
+``mm_bf16`` alone is held to a tolerance (``MM_BF16_RTOL`` of the
+largest |o| of a float64 product of the same bf16 operands): its
+float32 sums run in another order than the twin's.
 """
 
 import contextlib
@@ -18,12 +21,12 @@ import numpy as np
 import pytest
 import torch
 
-from ieache_tpu import params as P
-from ieache_tpu.lwe import keygen
-from ieache_tpu.utils import prng
+from ieache_tpu_torch import keygen, prng
+from ieache_tpu_torch import params as P
 from ieache_tpu_torch.boot import bootstrap
-from ieache_tpu_torch.lwe import encrypt
+from ieache_tpu_torch.lwe import encrypt, keygen_device
 from ieache_tpu_torch.ops import kernels
+from ieache_tpu_torch.tools import mosaic_mm_probe
 
 pytestmark = pytest.mark.gpu
 
@@ -32,7 +35,11 @@ PARAMS = [P.TEST_TINY, P.TEST_SMALL_NOISY, P.IEACHE_110_FAST]
 WRAPPERS = {name: getattr(kernels, name) for name in (
     "rot_diff_decompose", "external_product", "cmux_step",
     "cmux_step_overlap", "blind_rotate_scan", "rot_diff_decompose_tr",
-    "external_product_tr", "rotate_lane", "rotate_sublane")}
+    "external_product_tr", "rotate_lane", "rotate_sublane", "mm_s8",
+    "mm_bf16")}
+
+#: mm_bf16 against a float64 product, relative to its largest |o|
+MM_BF16_RTOL = 1e-2
 
 #: the kernels each step mode launches
 MODES = {
@@ -269,3 +276,94 @@ def test_rotate_probe_kernels_match_plain(cuda, p, b):
             want = plain(x, bara)
             torch.cuda.synchronize()
             assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,n,g", [(128, 128, 128, 1), (128, 256, 384, 3),
+                                     (256, 128, 128, 7),
+                                     (256, 2048, 128, 2),
+                                     (128, 1408, 128, 3),
+                                     (128, 4096, 128, 2),
+                                     (128, 512, 256, 5),
+                                     (1024, 1024, 1024, 1),
+                                     (1024, 1024, 1024, 512)])
+def test_mm_probe_kernels_match_plain(cuda, m, k, n, g):
+    """mm_s8 equal to its twin and to numpy's int64 sums truncated to
+    32 bits; mm_bf16 within tolerance of float64.  The cases run the
+    three kernels of each type: resident on the wide tile (s8 up to
+    k = 1024, bf16 up to 512), resident on the narrow tile with k split
+    over the warps (up to twice that; 1408 gives a warp an odd number
+    of k-steps), and streaming."""
+    ins = mosaic_mm_probe.make_inputs(m, k, n, cuda)
+    a, b = ins["s8"]
+    before = kernels.mm_s8.launches
+    got = kernels.mm_s8(a, b, g)
+    assert kernels.mm_s8.launches == before + 1
+    want = kernels.mm_s8_plain(a, b, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    full = g * (a.cpu().numpy().astype(np.int64)
+                @ b.cpu().numpy().astype(np.int64))
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        (full & 0xFFFFFFFF).astype(np.uint32).view(np.int32))
+    a, b = ins["bf16"]
+    before = kernels.mm_bf16.launches
+    got = kernels.mm_bf16(a, b, g)
+    assert kernels.mm_bf16.launches == before + 1
+    torch.cuda.synchronize()
+    ref = g * (a.double() @ b.double())
+    scale = float(ref.abs().max())
+    assert float((got.double() - ref).abs().max()) <= MM_BF16_RTOL * scale
+    twin = kernels.mm_bf16_plain(a, b, g)
+    assert float((twin.double() - ref).abs().max()) <= MM_BF16_RTOL * scale
+
+
+def test_mm_s8_kernel_wraps_like_an_int32_accumulator(cuda):
+    """Extreme operands: every product entry is +-2^24 at k = 1024, so
+    g = 300 passes 2^32 and the sum must wrap, not saturate."""
+    a, b = mosaic_mm_probe.extreme_inputs(1024, 1024, 1024, cuda)
+    g = 300
+    got = kernels.mm_s8(a, b, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kernels.mm_s8_plain(a, b, g))
+    full = g * (a.cpu().numpy().astype(np.int64)
+                @ b.cpu().numpy().astype(np.int64))
+    assert np.abs(full).min() >= 2**32
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        (full & 0xFFFFFFFF).astype(np.uint32).view(np.int32))
+
+
+def test_mm_probe_wrappers_refuse_bad_shapes_on_cuda(cuda):
+    a = torch.zeros((128, 192), dtype=torch.int8, device=cuda)
+    b = torch.zeros((192, 128), dtype=torch.int8, device=cuda)
+    before = kernels.mm_s8.launches
+    with pytest.raises(ValueError, match="multiples of 128"):
+        kernels.mm_s8(a, b)
+    with pytest.raises(ValueError):
+        kernels.mm_s8(torch.zeros((128, 128), dtype=torch.int8),
+                      torch.zeros((128, 128), dtype=torch.int8, device=cuda))
+    assert kernels.mm_s8.launches == before
+
+
+@pytest.mark.parametrize("p", [P.TEST_TINY, P.TEST_SMALL_NOISY],
+                         ids=lambda p: p.name)
+def test_device_keygen_and_encrypt_match_host_on_the_card(cuda, p):
+    """The device keygen's arrays equal the host generator's; device
+    encryption equals host encryption and stays on the card."""
+    host = keygen.generate_secret_keyset(p)
+    dev = keygen_device.generate_secret_keyset_device(p, cuda)
+    for got, want in ((dev.lwe_key.s, host.lwe_key.s),
+                      (dev.trlwe_key.coefs, host.trlwe_key.coefs),
+                      (dev.cloud.bk, host.cloud.bk),
+                      (dev.cloud.ks, host.cloud.ks)):
+        np.testing.assert_array_equal(got, want)
+    stream = prng.key_from_seed_words([8])
+    bits = prng.uniform_bits01(prng.derive(stream, 0), 300)
+    got = encrypt.encrypt_bits_device(host, bits, prng.derive(stream, 1), cuda)
+    assert got.is_cuda
+    assert torch.equal(
+        got, encrypt.encrypt_bits(host, bits, prng.derive(stream, 1), cuda))
+    dec = encrypt.decrypt_bits_device(host, got)
+    assert dec.is_cuda
+    np.testing.assert_array_equal(dec.cpu().numpy(), bits)
