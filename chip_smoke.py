@@ -30,7 +30,14 @@ prints no result line:
    exact equality, at IEACHE_110_FAST and the main path's batches
    (B=1024 for NAND, 8 and 16 for the rounds of ``A + B - C``), at
    ragged B in {1, 5, 1056} and at rotation amounts {0, N, 2N-1,
-   random}; the scan kernel over all n=500 steps; the rotation probe's
+   random}; the scan kernel over all n=500 steps; the two kernels on the
+   int8 tensor-core tile (external_product, blind_rotate_scan) once more
+   at IEACHE_110_FAST and at IEACHE_110 (6 TRGSW rows), B in {1, 5, 8,
+   16, 1024, 1056}, with extreme operands beside random ones (digits all
+   -128 or +127, key words whose int8 limbs are all -128 or +127, and
+   the words where a carry between limbs goes wrong), the external
+   product also at B = 256 and 257, either side of where its launch
+   starts to split a tile's sum over blocks; the rotation probe's
    kernels at its B=2048 and at B=5; mm_s8 (exact) and mm_bf16 at the
    matmul probe's (1024, 1024, 1024) with g in {1, 512} (the int32 sum
    wraps with extreme operands) and at four smaller shapes with k up
@@ -64,7 +71,9 @@ prints no result line:
    latency of ``A + B - C`` (host clock, ``torch.cuda.synchronize``
    fences; one repeat for a mode slower than 3 s); ms per call of each
    per-step kernel beside its twin (CUDA events around a CUDA-graph
-   replay, and around a plain Python loop), and ms per whole rotation
+   replay, and around a plain Python loop), at B=1024 and, for the
+   external product, at B=8 and B=16 too, beside external_product_tr,
+   which still runs the direct int32 tile; ms per whole rotation
    of the scan kernel and its twin at B=8 and B=1024 (CUDA events
    around the call); the rotation probe (``transposed_probe``, its
    launch counts reset just before and read just after: the probe
@@ -191,6 +200,21 @@ MM_WRAP_G = 1100
 #: (under 1e-3 measured at g=512); a wrong fragment layout gives O(1)
 MM_BF16_RTOL = 1e-2
 
+#: the parameter sets and batches at which phase 3 holds the two kernels
+#: on the tensor-core tile against their twins once more, and the batches
+#: either side of where the external product's launch starts to split a
+#: tile's sum over blocks (8 N / 256 tiles of 16 rows below 132 SMs)
+MMA_PARAMS = (P.IEACHE_110_FAST, P.IEACHE_110)
+MMA_BATCHES = (1, 5, 8, 16, 1024, 1056)
+MMA_SPLIT_EDGE = (256, 257)
+
+#: key words at which a carry between int8 limbs goes wrong: INT32_MIN,
+#: -1, 2^31 - 1, 0x7F7F7F7F, 0x80808080 (limbs all -128), 0
+EDGE_KEY_WORDS = (-2**31, -1, 2**31 - 1, 0x7F7F7F7F, 0x80808080 - 2**32, 0)
+
+#: the small batches at which phase 7 times the external product
+SMALL_BATCHES = (8, 16)
+
 #: published dense peaks of one H100 SXM (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12}
@@ -311,6 +335,81 @@ def check_kernels(p, device, batches, probe_batches=(PROBE_B, 5), seed=0):
                      kernels.rotate_sublane_plain(acc_tr, bara), errs,
                      device, case)
         log(f"phase 3 probe kernels: B={b} equal (amounts random/0/N/2N-1)")
+    return errs
+
+
+def edge_key(shape, device):
+    """An int32 key tensor of ``shape`` that runs through
+    :data:`EDGE_KEY_WORDS` in turn."""
+    edge = torch.tensor(EDGE_KEY_WORDS, dtype=torch.int32, device=device)
+    idx = torch.arange(int(np.prod(shape)), device=device)
+    return edge[idx % len(edge)].reshape(shape)
+
+
+def extreme_operands(p, b, device, rng):
+    """(name, digits (rows, B, N) int8, key step (rows, k+1, N) int32):
+    every limb sum at its largest and smallest, then random digits on
+    the key words of :data:`EDGE_KEY_WORDS` in turn."""
+    shape_d = (p.trgsw_rows, b, p.N)
+    shape_k = (p.trgsw_rows, p.k + 1, p.N)
+
+    def full(shape, value, dtype):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    lo, hi = 0x80808080 - 2**32, 0x7F7F7F7F
+    yield "d=-128 key limbs -128", full(shape_d, -128, torch.int8), \
+        full(shape_k, lo, torch.int32)
+    yield "d=+127 key limbs +127", full(shape_d, 127, torch.int8), \
+        full(shape_k, hi, torch.int32)
+    yield "d=-128 key limbs +127", full(shape_d, -128, torch.int8), \
+        full(shape_k, hi, torch.int32)
+    yield "random d, edge key words", \
+        _rand(rng, shape_d, -128, 128, np.int8, device), \
+        edge_key(shape_k, device)
+
+
+def check_mma_kernels(p, device, batches, split_edge=MMA_SPLIT_EDGE, seed=5):
+    """Phase 3, the two kernels on the tensor-core tile once more, at
+    ``p``: external_product on random and extreme operands, with and
+    without acc, at ``batches`` and (random only) at ``split_edge``;
+    blind_rotate_scan over all n steps on a random key and on a key of
+    edge words.  Returns max abs error per kernel."""
+    rng = np.random.RandomState(seed)
+    errs = {}
+    for b in (*batches, *split_edge):
+        acc = _rand(rng, (p.k + 1, b, p.N), -2**31, 2**31, np.int32, device)
+        cases = [("random",
+                  _rand(rng, (p.trgsw_rows, b, p.N), -128, 128, np.int8,
+                        device),
+                  _rand(rng, (p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
+                        np.int32, device))]
+        if b in batches:
+            cases += extreme_operands(p, b, device, rng)
+        for name, d, bk_i in cases:
+            for a in (None, acc):
+                _compare("external_product",
+                         kernels.external_product(d, bk_i, p, acc=a),
+                         kernels.external_product_plain(d, bk_i, p, a),
+                         errs, device,
+                         f"{p.name} B={b} {name} acc={a is not None}")
+        if b not in batches:
+            continue
+        bara = _rand(rng, (b, p.n), 0, 2 * p.N, np.int32, device)
+        shape = (p.n, p.trgsw_rows, p.k + 1, p.N)
+        for name, bk in (
+                ("random key", _rand(rng, shape, -2**31, 2**31, np.int32,
+                                     device)),
+                ("edge key words", edge_key(shape, device))):
+            _compare("blind_rotate_scan",
+                     kernels.blind_rotate_scan(acc, bara, bk, p),
+                     kernels.blind_rotate_scan_plain(acc, bara, bk, p),
+                     errs, device, f"{p.name} B={b} steps={p.n} {name}")
+        log(f"phase 3 tensor-core tile: {p.name} ({p.trgsw_rows} rows) "
+            f"B={b} equal (external_product on random and "
+            f"{len(cases) - 1} extreme operand sets, with and without acc; "
+            f"scan over {p.n} steps on a random key and on edge key words)")
+    log(f"phase 3 tensor-core tile: {p.name} external_product equal at "
+        f"B={'/'.join(map(str, split_edge))}, either side of the split")
     return errs
 
 
@@ -624,14 +723,10 @@ def external_product_ops(p, batch, steps=1):
             * steps)
 
 
-def step_times(p, device, batch, reps):
-    """Phase 7: ms per call of each per-step kernel and of its plain
-    twin at the main-path shapes (B=``batch``; the probe's kernels at
-    B=PROBE_B), on a CUDA ``device``: ``ms``/``plain_ms`` on the device
-    (CUDA graph replay), ``host_ms``/``plain_host_ms`` per call of a
-    Python loop (launch cost included), and the call's bound
-    (:func:`bound_ms`; a rotation's few integer operations per
-    coefficient have no tensor-core form and are not counted)."""
+def step_calls(p, device, batch):
+    """The per-step kernels' calls at B=``batch`` (the probe's kernels
+    at B=PROBE_B): name -> (kernel call, twin call, input tensors,
+    operations of the call)."""
     rng = np.random.RandomState(1)
     acc = _rand(rng, (p.k + 1, batch, p.N), -2**31, 2**31, np.int32, device)
     bara = _rand(rng, (batch,), 0, 2 * p.N, np.int32, device)
@@ -644,8 +739,7 @@ def step_times(p, device, batch, reps):
     probe_tr = probe.transpose(1, 2).contiguous()
     probe_bara = _rand(rng, (PROBE_B,), 0, 2 * p.N, np.int32, device)
     ep_ops = external_product_ops(p, batch)
-    #: name -> (kernel call, twin call, input tensors, operations)
-    calls = {
+    return {
         "rot_diff_decompose": (
             lambda: kernels.rot_diff_decompose(acc, bara, p),
             lambda: kernels.rot_diff_decompose_plain(acc, bara, p),
@@ -680,8 +774,21 @@ def step_times(p, device, batch, reps):
             lambda: kernels.rotate_sublane_plain(probe_tr, probe_bara),
             (probe_tr, probe_bara), 0),
     }
+
+
+def step_times(p, device, batch, reps, names=None):
+    """Phase 7: ms per call of each per-step kernel (of ``names`` only,
+    when given) and of its plain twin at the main-path shapes
+    (:func:`step_calls`), on a CUDA ``device``: ``ms``/``plain_ms`` on
+    the device (CUDA graph replay), ``host_ms``/``plain_host_ms`` per
+    call of a Python loop (launch cost included), and the call's bound
+    (:func:`bound_ms`; a rotation's few integer operations per
+    coefficient have no tensor-core form and are not counted)."""
     times = {}
-    for name, (kern, plain, inputs, ops) in calls.items():
+    for name, (kern, plain, inputs, ops) in step_calls(p, device,
+                                                       batch).items():
+        if names is not None and name not in names:
+            continue
         bound, by = bound_ms((*inputs, kern()), ops, "int8")
         times[name] = {"host_ms": events_ms(kern, reps),
                        "plain_host_ms": events_ms(plain, reps),
@@ -689,6 +796,15 @@ def step_times(p, device, batch, reps):
                        "plain_ms": graph_ms(plain, reps),
                        "bound_ms": bound, "bound_by": by, "library_ms": None}
     return times
+
+
+def step_line(name, b, t):
+    """Phase 7's line for one per-step kernel's times at B=``b``."""
+    return (f"phase 7 {name} B={b}: kernel {t['ms']:.4f} ms/call, "
+            f"plain twin {t['plain_ms']:.4f} ms/call on the device (graph "
+            f"replay); from a Python loop {t['host_ms']:.4f} and "
+            f"{t['plain_host_ms']:.4f} ms/call; bound {t['bound_ms']:.4f} "
+            f"ms ({t['bound_by']})")
 
 
 def scan_times(p, device, batch, reps):
@@ -819,6 +935,10 @@ def main() -> int:
     # phase 3: kernels against their plain twins; 8 and 16 are the
     # batches of the A + B - C rounds below
     errs = check_kernels(p, device, [batch, 8, 16, 1, 5, 1056])
+    for mma_p in MMA_PARAMS:
+        for name, err in check_mma_kernels(mma_p, device,
+                                           MMA_BATCHES).items():
+            errs[name] = max(errs[name], err)
     errs.update(check_mm_kernels(device))
 
     # keys and operands (set-up), and the keygen phase: the device
@@ -905,12 +1025,15 @@ def main() -> int:
         log(line)
     steps = step_times(p, device, batch, reps=20)
     for name, t in steps.items():
-        b = PROBE_B if name.startswith("rotate_") else batch
-        log(f"phase 7 {name} B={b}: kernel {t['ms']:.4f} ms/call, "
-            f"plain twin {t['plain_ms']:.4f} ms/call on the device (graph "
-            f"replay); from a Python loop {t['host_ms']:.4f} and "
-            f"{t['plain_host_ms']:.4f} ms/call; bound {t['bound_ms']:.4f} "
-            f"ms ({t['bound_by']})")
+        log(step_line(name, PROBE_B if name.startswith("rotate_") else batch,
+                      t))
+    # the tensor-core tile (external_product) beside the direct int32 tile
+    # (external_product_tr still runs it) at the batches of A + B - C
+    for b in SMALL_BATCHES:
+        for name, t in step_times(
+                p, device, b, reps=20,
+                names=("external_product", "external_product_tr")).items():
+            log(step_line(name, b, t))
     for b in (8, batch):
         t = scan_times(p, device, b, reps=2)
         log(f"phase 7 blind_rotate_scan B={b}: kernel {t['ms']:.3f} ms, "

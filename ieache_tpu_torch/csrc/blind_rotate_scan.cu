@@ -9,12 +9,13 @@
 //   out: the accumulator after the n CMux steps, exact mod 2^32; equal
 //        to n steps of rot_diff_decompose.cu + external_product.cu
 //
-// Bound on the H100: the CUDA cores' integer multiply-add rate at large
-// B, as external_product.cu.  At small B the per-step split pipeline
-// leaves most SMs idle: B=8 fills one 16-row batch tile, so its external
-// product runs (k+1) * N/256 = 8 blocks on 132 SMs and a step costs one
-// block's serial depth.  This kernel is for that small-batch latency
-// case.
+// Bound on the H100: operations at large B, as external_product.cu (the
+// int8 tensor cores; its product runs the same tile, mma_tile.cuh).  At
+// small B the product is a few microseconds of a step, and what bounds
+// the kernel is latency: two grid-wide barriers a step (1,000 a
+// rotation), phase A's round trip through L2, and the build of the key's
+// byte planes in each block.  This kernel is for that small-batch case:
+// per-step launches pay a launch and a drain of the card for every step.
 //
 // Design: the TPU kernel runs its grid as a loop on one core, with the
 // accumulator resident in VMEM.  Here blocks run in parallel, so each
@@ -30,16 +31,19 @@
 // (64 KB at B=8, 8 MB at B=1024: both stay in the 50 MB L2).  To fill
 // the SMs when B is small, phase B splits each tile's sum over the
 // (p, chunk) pairs into S parts, S the smallest divisor of their count
-// that gives at least one part per SM; each part adds its partial sum
-// into the next accumulator with atomicAdd on unsigned int, which wraps,
-// so the sum is exact in any order.  Phase A then also copies the
-// accumulator into the next buffer, which the parts add to.  At B=8 and
-// N=1024, 4 rows: 8 tiles x S=16 = 128 parts.  Data written in the
-// launch is read through L2 (ld.global.cg).
+// that gives at least one part per SM (mma::split_for); each part adds
+// its partial sum into the next accumulator with atomicAdd on unsigned
+// int, which wraps, so the sum is exact in any order.  Phase A then also
+// copies the accumulator into the next buffer, which the parts add to.
+// At B=8 and N=1024, 4 rows: 8 tiles x S=16 = 128 parts, each one chunk
+// of 256 digit columns of one row p.  Data written in the launch is read
+// through L2 (ld.global.cg; the digits by cp.async.cg).  The launch
+// refuses what the tile refuses: rows * N >= 2^17, or an N that is not a
+// power of two of at least 64 (cudaErrorInvalidValue).
 
 #include <cooperative_groups.h>
 
-#include "cmux_common.cuh"
+#include "mma_tile.cuh"
 
 using namespace ieache;
 namespace cg = cooperative_groups;
@@ -57,14 +61,16 @@ struct ScanArgs {
   uint32_t offset;
 };
 
+template <int NI>
 __global__ void __launch_bounds__(kTileThreads)
     blind_rotate_scan_kernel(ScanArgs a) {
-  extern __shared__ __align__(16) uint32_t smem[];
+  extern __shared__ __align__(16) uint8_t smem[];
+  using S = mma::Shape<NI>;
   cg::grid_group grid = cg::this_grid();
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const int nbt = (a.batch + TB - 1) / TB, njt = (a.n + TJ - 1) / TJ;
+  const int tid = threadIdx.x;
+  const int nbt = (a.batch + TB - 1) / TB, njt = a.n / S::T;
   const int nparts = nbt * njt * a.kp1 * a.split;
-  const int nchunks = a.rows * (a.n / chunk_cols(a.n));
+  const int nchunks = a.rows * (a.n / S::T);
   const int64_t ncoef = (int64_t)a.kp1 * a.batch * a.n;
   const int64_t gtid = (int64_t)blockIdx.x * kTileThreads + tid;
   const int64_t gstride = (int64_t)gridDim.x * kTileThreads;
@@ -97,23 +103,52 @@ __global__ void __launch_bounds__(kTileThreads)
     for (int part = blockIdx.x; part < nparts; part += gridDim.x) {
       const int q = part % a.split;
       const int tile = part / a.split;
-      const Tile t = make_tile(tile % nbt, (tile / nbt) % njt,
-                               tile / (nbt * njt), a.n, tx);
-      uint32_t sum[RB][RJ];
-      zero_sum(sum);
-      product_accumulate(
-          smem, bk_s, a.kp1, a.n, t, q * nchunks / a.split,
-          (q + 1) * nchunks / a.split, tid, ty,
-          GlobalDigits<true>{a.digits, a.batch, a.n, t.b0, tid},
-          BlockSync{}, sum);
+      const int b0 = (tile % nbt) * TB, jb = ((tile / nbt) % njt) * S::T;
+      const int o = tile / (nbt * njt);
+      int32_t sum[4][NI][4];
+      mma::zero_acc<NI>(sum);
+      mma::product_accumulate_mma<NI>(
+          smem, a.digits, bk_s, a.kp1, a.batch, a.n, o, b0, jb,
+          q * nchunks / a.split, (q + 1) * nchunks / a.split, tid, sum);
       if (a.split > 1) {
-        atomic_add_tile(sum, t, ty, dst, a.batch, a.n);
+        mma::atomic_add_tile_mma<NI>(sum, o, b0, jb, tid, dst, a.batch, a.n);
       } else {
-        store_tile<true>(sum, t, ty, cur, dst, a.batch, a.n);
+        mma::store_tile_mma<NI, true>(sum, o, b0, jb, tid, cur, dst, a.batch,
+                                      a.n);
       }
     }
     grid.sync();
   }
+}
+
+// The launch for N's tile, NI = min(N, 256) / 32.
+template <int NI>
+int launch(ScanArgs args, int sms, cudaStream_t stream) {
+  using S = mma::Shape<NI>;
+  const size_t smem = S::kSmemBytes;
+  cudaError_t err = allow_smem(blind_rotate_scan_kernel<NI>, smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, blind_rotate_scan_kernel<NI>, kTileThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+
+  // split each tile's (p, chunk) sum until there is a part per SM
+  const int ntiles =
+      ((args.batch + TB - 1) / TB) * (args.n / S::T) * args.kp1;
+  args.split = mma::split_for(ntiles, args.rows * (args.n / S::T), sms);
+  // every block must be resident at once; more blocks than parts only
+  // help phase A
+  const int parts = ntiles * args.split;
+  const int grid = parts > sms ? (parts < sms * per_sm ? parts : sms * per_sm)
+                               : sms;
+  void* params[] = {&args};
+  err = cudaLaunchCooperativeKernel(
+      (const void*)blind_rotate_scan_kernel<NI>, dim3(grid),
+      dim3(kTileThreads), params, smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -122,44 +157,22 @@ extern "C" int ieache_blind_rotate_scan(
     const void* acc, const void* bara, const void* bk, void* out,
     void* scratch, void* digits, int rows, int kp1, int batch, int n,
     int nsteps, int bg_bit, int l, uint32_t offset, void* stream) {
-  const size_t smem = (size_t)product_smem_words(n) * sizeof(uint32_t);
-  cudaError_t err = allow_smem(blind_rotate_scan_kernel, smem);
+  if (!mma::shape_ok(rows, n)) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, coop = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err != cudaSuccess) return (int)err;
   if (!coop) return (int)cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, blind_rotate_scan_kernel, kTileThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
 
-  // split each tile's (p, chunk) sum until there is a part per SM
-  const int ntiles = ((batch + TB - 1) / TB) * ((n + TJ - 1) / TJ) * kp1;
-  const int nchunks = rows * (n / chunk_cols(n));
-  int split = 1;
-  while (ntiles * split < sms && split < nchunks) {
-    do {
-      ++split;
-    } while (nchunks % split);
-  }
-  // every block must be resident at once; more blocks than parts only
-  // help phase A
-  const int parts = ntiles * split;
-  const int grid = parts > sms ? (parts < sms * per_sm ? parts : sms * per_sm)
-                               : sms;
-
-  ScanArgs args{(const uint32_t*)acc, (const int32_t*)bara,
-                (const uint32_t*)bk,  (uint32_t*)out,
-                (uint32_t*)scratch,   (int8_t*)digits,
-                rows, kp1, batch, n, nsteps, bg_bit, l, split, offset};
-  void* params[] = {&args};
-  err = cudaLaunchCooperativeKernel((const void*)blind_rotate_scan_kernel,
-                                    dim3(grid), dim3(kTileThreads), params,
-                                    smem, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const ScanArgs args{(const uint32_t*)acc, (const int32_t*)bara,
+                      (const uint32_t*)bk,  (uint32_t*)out,
+                      (uint32_t*)scratch,   (int8_t*)digits,
+                      rows, kp1, batch, n, nsteps, bg_bit, l, 1, offset};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (n >= 256) return launch<8>(args, sms, s);
+  if (n == 128) return launch<4>(args, sms, s);
+  return launch<2>(args, sms, s);
 }

@@ -1,6 +1,9 @@
 // Device code shared by the blind rotation's CUDA kernels: the rotation +
 // diff + gadget decomposition of a CMux step, and the external product's
-// output tile (the inner loop of external_product.cu).
+// output tile in its direct int32 form (the inner loop of cmux_step.cu,
+// cmux_step_overlap.cu and external_product_tr.cu; external_product.cu
+// and blind_rotate_scan.cu run the int8 tensor-core form of
+// mma_tile.cuh).
 //
 // Layouts, as in the JAX package's Pallas kernels (pallas_kernels.py):
 //   acc    (k+1, B, N) int32   accumulator, transposed
@@ -16,8 +19,9 @@
 //   (d (*) g)[j] = sum_m d[m] * e[N + j - m],  e = concat(-g, g),
 // over digit rows p and digit columns m in chunks of up to 256 columns.
 // A chunk's digits are staged in shared memory widened to int32 by a
-// staging functor: loaded from global memory (external_product, scan),
-// computed from the accumulator on the fly (fused2), or loaded from
+// staging functor: loaded from global memory (external_product_tr, in
+// its own layout), computed from the accumulator on the fly (fused2), or
+// loaded from
 // digits that other warps of the block decomposed into shared memory
 // (overlap).  Since uint32_t addition is associative and commutative, a
 // tile may also be summed over a sub-range of the (p, chunk) pairs and
@@ -65,12 +69,6 @@ template <bool kCg>
 __device__ __forceinline__ uint4 load_u4(const uint32_t* p) {
   if constexpr (kCg) return __ldcg(reinterpret_cast<const uint4*>(p));
   else return *reinterpret_cast<const uint4*>(p);
-}
-
-template <bool kCg>
-__device__ __forceinline__ char4 load_c4(const int8_t* p) {
-  if constexpr (kCg) return __ldcg(reinterpret_cast<const char4*>(p));
-  else return *reinterpret_cast<const char4*>(p);
 }
 
 // (X^a * c - c)[j] + offset for one polynomial c (N a power of two, a in
@@ -150,29 +148,7 @@ __device__ __forceinline__ Tile make_tile(int bt, int jt, int o, int n,
 }
 
 // Stages digit columns m0c .. m0c+mc-1 of row p, batch rows b0 .. b0+TB-1,
-// from a global (rows, batch, N) int8 tensor.
-template <bool kCg>
-struct GlobalDigits {
-  const int8_t* d;
-  int batch, n, b0, tid;
-  __device__ __forceinline__ void operator()(int p, int m0c, int mc,
-                                             uint32_t* ds) const {
-    const int quads = mc / 4;
-    const int8_t* dp = d + (int64_t)p * batch * n;
-    for (int q = tid; q < TB * quads; q += kTileThreads) {
-      const int bl = q / quads, mq = q - bl * quads;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (b0 + bl < batch) {
-        const char4 c =
-            load_c4<kCg>(dp + (int64_t)(b0 + bl) * n + m0c + 4 * mq);
-        v = make_int4(c.x, c.y, c.z, c.w);
-      }
-      *reinterpret_cast<int4*>(ds + bl * mc + 4 * mq) = v;
-    }
-  }
-};
-
-// The same, from a shared (rows, TB, N) int8 tile (decompose_tile).
+// from a shared (rows, TB, N) int8 tile (decompose_tile).
 struct SharedDigits {
   const int8_t* dsm;
   int n, tid;
@@ -334,24 +310,6 @@ __device__ __forceinline__ void store_tile(const uint32_t (&sum)[RB][RJ],
     }
     *reinterpret_cast<uint4*>(out + base) = lo;
     *reinterpret_cast<uint4*>(out + base + 4) = hi;
-  }
-}
-
-// out[o, b, j0 .. j0+7] += sum, atomically (wrapping, so exact in any
-// order).
-__device__ __forceinline__ void atomic_add_tile(const uint32_t (&sum)[RB][RJ],
-                                                const Tile& t, int ty,
-                                                uint32_t* out, int batch,
-                                                int n) {
-  if (!t.active) return;
-#pragma unroll
-  for (int rb = 0; rb < RB; ++rb) {
-    const int b = t.b0 + ty * RB + rb;
-    if (b >= batch) continue;
-    unsigned int* dst = reinterpret_cast<unsigned int*>(
-        out + ((int64_t)t.o * batch + b) * n + t.j0);
-#pragma unroll
-    for (int r = 0; r < RJ; ++r) atomicAdd(dst + r, sum[rb][r]);
   }
 }
 

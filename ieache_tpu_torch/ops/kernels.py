@@ -8,7 +8,10 @@ through the kernels of the step mode ``IEACHE_PALLAS_STEP`` selects:
   replaces ``rot_diff_decompose_pallas``), the digits of
   X^bara·acc - acc, then :func:`external_product`
   (``csrc/external_product.cu``, replaces ``external_product_pallas_t``)
-  with the accumulator fused;
+  with the accumulator fused, on the int8 tensor cores
+  (``csrc/mma_tile.cuh``; :func:`mma_planes`, :func:`mma_toeplitz_tile`
+  and :func:`external_product_mma_model` are a plain model of that
+  tile's operand construction, for the CPU tests);
 * ``fused2``: :func:`cmux_step` (``csrc/cmux_step.cu``, replaces
   ``cmux_step_pallas``), the whole step in one kernel;
 * ``overlap``/``overlap2``: :func:`cmux_step_overlap`
@@ -16,7 +19,8 @@ through the kernels of the step mode ``IEACHE_PALLAS_STEP`` selects:
   and ``cmux_step_overlap2_pallas``), the step with the next tile's
   decomposition overlapped;
 * ``scan``: :func:`blind_rotate_scan` (``csrc/blind_rotate_scan.cu``,
-  replaces ``blind_rotate_scan_pallas``), all n steps in one launch;
+  replaces ``blind_rotate_scan_pallas``), all n steps in one launch, its
+  products on the same tensor-core tile;
 * ``tr``: :func:`rot_diff_decompose_tr`
   (``csrc/rot_diff_decompose_tr.cu``, replaces
   ``rot_diff_decompose_pallas_tr``) then :func:`external_product_tr`
@@ -46,7 +50,11 @@ from __future__ import annotations
 
 import torch
 
-from ieache_tpu_torch.core.poly import TORUS_LIMBS, _dot_i8
+from ieache_tpu_torch.core.poly import (
+    TORUS_LIMBS,
+    _dot_i8,
+    negacyclic_extend,
+)
 from ieache_tpu_torch.ops import _build
 from ieache_tpu_torch.ops import blind_rotate as br
 from ieache_tpu_torch.ops.decompose import _offset
@@ -140,6 +148,126 @@ rot_diff_decompose.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# the tensor-core tile of csrc/mma_tile.cuh: its limits, and a plain model
+# of how it builds and indexes its Toeplitz operand
+# ---------------------------------------------------------------------------
+
+#: the most coefficients (and digit columns a chunk) of a block's tile
+MMA_TILE_COLS = 256
+
+#: chunks of digit columns per build of the byte planes
+MMA_SEG_CHUNKS = 4
+
+#: the tile's limit on rows * N: below it each limb's s8 x s8 sum over all
+#: rows * N terms (at most 2^14 each) is exact in int32
+MMA_MAX_TERMS = 1 << 17
+
+
+def mma_tile_check(rows: int, n: int) -> None:
+    """Raise ``ValueError`` for a shape the tensor-core tile refuses: N
+    must be a power of two of at least 64 and rows * N below
+    :data:`MMA_MAX_TERMS`."""
+    if n < 64 or n & (n - 1):
+        raise ValueError(f"the tensor-core external product needs N a power "
+                         f"of two >= 64, got N={n}")
+    if rows * n >= MMA_MAX_TERMS:
+        raise ValueError(
+            f"the tensor-core external product needs rows * N < "
+            f"{MMA_MAX_TERMS} (each int8 limb's sum must stay exact in "
+            f"int32), got rows={rows}, N={n}")
+
+
+def mma_limb_bytes(e: torch.Tensor) -> torch.Tensor:
+    """The kernel's balanced limbs: int32 e -> int8 (..., 4), limb v the
+    sign-extended byte v of ``(e + 0x80808080) ^ 0x80808080``."""
+    bias = torch.tensor(0x80808080 - (1 << 32), dtype=torch.int32,
+                        device=e.device)
+    x = (e.to(torch.int32) + bias) ^ bias
+    return torch.stack([(x << (24 - 8 * v)) >> 24 for v in range(TORUS_LIMBS)],
+                       dim=-1).to(torch.int8)
+
+
+def mma_planes(g: torch.Tensor, jb: int, ma: int, mcols: int) -> torch.Tensor:
+    """``build_planes`` of the kernel for one key polynomial g (N,) int32,
+    a tile whose first coefficient is ``jb`` and digit columns ``ma`` ..
+    ``ma + mcols - 1``: int8 (4 limbs, 4 copies, T + mcols bytes), byte
+    4x + q of copy s of limb v = limb v of e[i0 - s - q] with
+    i0 = N - 1 + jb + T - ma - 4x, e = concat(-g, g) and e[i] = 0 for
+    i < 0."""
+    n = g.shape[-1]
+    t = min(n, MMA_TILE_COLS)
+    limbs = mma_limb_bytes(negacyclic_extend(g))           # (2N, 4)
+    y = torch.arange(t + mcols, device=g.device)            # byte 4x + q
+    s = torch.arange(4, device=g.device)[:, None]
+    i = (n - 1 + jb + t - ma) - y[None, :] - s              # (4, bytes)
+    picked = limbs[i.clamp(min=0)]                          # (4, bytes, 4)
+    picked = torch.where((i >= 0)[..., None], picked,
+                         torch.zeros_like(picked))
+    return picked.permute(2, 0, 1).contiguous()
+
+
+def mma_toeplitz_tile(planes: torch.Tensor, n: int, mcols: int) -> torch.Tensor:
+    """The Toeplitz limb tile the kernel's MMAs see, gathered from
+    :func:`mma_planes` through the kernel's fragment map: int8 (4 limbs,
+    mcols, T), entry [v, ml, jl].  Thread (warp, lane = 4 grp + t4) reads,
+    for its MMA tile ni, k-step kseg and half h, word
+    ``(T - 8 NI warp) / 4 + t4 - 1 - grp // 4 + 2 (4 kseg - ni + 2 h)`` of
+    copy ``3 - grp % 4``: its byte q is the operand at digit column
+    ml = 32 kseg + 16 h + 4 t4 + q, coefficient jl = 8 NI warp + 8 ni +
+    grp."""
+    t = min(n, MMA_TILE_COLS)
+    ni_count = t // 32
+    dev = planes.device
+    warp, ni, grp, kseg, h, t4, q = torch.meshgrid(
+        torch.arange(4, device=dev), torch.arange(ni_count, device=dev),
+        torch.arange(8, device=dev), torch.arange(mcols // 32, device=dev),
+        torch.arange(2, device=dev), torch.arange(4, device=dev),
+        torch.arange(4, device=dev), indexing="ij")
+    word = ((t - 8 * ni_count * warp) // 4 + t4 - 1 - grp // 4
+            + 2 * (4 * kseg - ni + 2 * h))
+    copy = 3 - grp % 4
+    ml = 32 * kseg + 16 * h + 4 * t4 + q
+    jl = 8 * ni_count * warp + 8 * ni + grp
+    tile = torch.zeros((TORUS_LIMBS, mcols, t), dtype=torch.int8, device=dev)
+    tile[:, ml.reshape(-1), jl.reshape(-1)] = \
+        planes[:, copy.reshape(-1), (4 * word + q).reshape(-1)]
+    return tile
+
+
+def external_product_mma_model(d: torch.Tensor, bk_i: torch.Tensor,
+                               params: TFHEParams,
+                               acc: torch.Tensor | None = None
+                               ) -> torch.Tensor:
+    """The kernel's arithmetic in plain ops, tile by tile: the planes of
+    each (p, o) key polynomial per segment of up to
+    :data:`MMA_SEG_CHUNKS` chunks, the Toeplitz limb tiles from the
+    fragment map, one int32 sum per limb over all rows and digit columns,
+    folded once as sum_v S_v << 8v (wrapping).  Same arguments and result
+    as :func:`external_product_plain`."""
+    rows, kp1, n = bk_i.shape
+    mma_tile_check(rows, n)
+    t = min(n, MMA_TILE_COLS)
+    seg = min(n, MMA_SEG_CHUNKS * t)
+    d32 = d.to(torch.int32)
+    out = torch.zeros((kp1, d.shape[1], n), dtype=torch.int32,
+                      device=d.device)
+    for o in range(kp1):
+        for jb in range(0, n, t):
+            sums = torch.zeros((TORUS_LIMBS, d.shape[1], t),
+                               dtype=torch.int32, device=d.device)
+            for p in range(rows):
+                for ma in range(0, n, seg):
+                    tile = mma_toeplitz_tile(
+                        mma_planes(bk_i[p, o], jb, ma, seg), n, seg)
+                    sums += torch.einsum(
+                        "bm,vmj->vbj", d32[p, :, ma:ma + seg],
+                        tile.to(torch.int32))
+            for v in range(TORUS_LIMBS):
+                out[o, :, jb:jb + t] += sums[v] << (8 * v)
+    return out if acc is None else acc + out
+
+
+# ---------------------------------------------------------------------------
 # external product, accumulator fused
 # ---------------------------------------------------------------------------
 
@@ -171,18 +299,19 @@ def _external_product_launch(wrapper, entry: str, plain, d: torch.Tensor,
     rows, kp1, n = params.trgsw_rows, params.k + 1, params.N
     b = d.shape[2 if tr else 1] if d.dim() == 3 else -1
     shape = (n, b) if tr else (b, n)
-    # tr's staging reads 16-byte digit columns
-    _check(d, "d", torch.int8, (rows, *shape), d.device,
-           align=16 if tr else 4)
+    # both stagings read 16-byte pieces of the digits
+    _check(d, "d", torch.int8, (rows, *shape), d.device, align=16)
     _check(bk_i, "bk_i", torch.int32, (rows, kp1, n), d.device)
     if acc is not None:
         _check(acc, "acc", torch.int32, (kp1, *shape), d.device, align=16)
     if not d.is_cuda:
         return plain(d, bk_i, params, acc)
 
-    if n % 8:
-        raise ValueError(f"the external-product kernels need N % 8 == 0, "
-                         f"got N={n}")
+    if tr and n % 8:
+        raise ValueError(f"the transposed external-product kernel needs "
+                         f"N % 8 == 0, got N={n}")
+    if not tr:
+        mma_tile_check(rows, n)
     out = torch.empty((kp1, *shape), dtype=torch.int32, device=d.device)
     if b == 0:
         return out
@@ -201,8 +330,9 @@ def external_product(d: torch.Tensor, bk_i: torch.Tensor, params: TFHEParams,
                      acc: torch.Tensor | None = None) -> torch.Tensor:
     """acc + sum_p d[p] ⊛ bk_i[p, o], negacyclic, exact mod 2^32:
     d (rows, B, N) int8, bk_i (rows, k+1, N) int32, acc (k+1, B, N)
-    int32 or None -> (k+1, B, N) int32; the kernel on CUDA tensors, the
-    plain twin on CPU."""
+    int32 or None -> (k+1, B, N) int32; the kernel on CUDA tensors (which
+    raises ``ValueError`` for a shape :func:`mma_tile_check` refuses),
+    the plain twin on CPU."""
     return _external_product_launch(
         external_product, "ieache_external_product", external_product_plain,
         d, bk_i, params, acc, tr=False)
@@ -298,7 +428,8 @@ def blind_rotate_scan(acc: torch.Tensor, bara: torch.Tensor, bk: torch.Tensor,
     """All n CMux steps in one launch: acc (k+1, B, N) int32, bara
     (B, n) int32 in [0, 2N), bk (n, rows, k+1, N) int32 -> the rotated
     (k+1, B, N) int32 accumulator, exact mod 2^32; the kernel on CUDA
-    tensors, the plain twin on CPU."""
+    tensors (which raises ``ValueError`` for a shape
+    :func:`mma_tile_check` refuses), the plain twin on CPU."""
     _require_single_limb(params)
     rows, kp1, n = params.trgsw_rows, params.k + 1, params.N
     b = acc.shape[1] if acc.dim() == 3 else -1
@@ -309,8 +440,7 @@ def blind_rotate_scan(acc: torch.Tensor, bara: torch.Tensor, bk: torch.Tensor,
     if not acc.is_cuda:
         return blind_rotate_scan_plain(acc, bara, bk, params)
 
-    if n % 8:
-        raise ValueError(f"the scan kernel needs N % 8 == 0, got N={n}")
+    mma_tile_check(rows, n)
     if b == 0 or steps == 0:
         return acc.clone()
     out = torch.empty_like(acc)

@@ -1,5 +1,6 @@
 """What the port's tools and ``chip_smoke.py`` share: the card check,
-the card's line and state, an environment override, and the two timers.
+the card's line and state, the parameter sets by name, an environment
+override, and the two timers.
 
 A timer needs a CUDA device; it never falls back to the CPU's clock.
 """
@@ -11,6 +12,11 @@ import os
 import subprocess
 
 import torch
+
+from ieache_tpu_torch import params as P
+
+#: the full-size parameter sets the tools take by name (``*_PARAMS``)
+PARAMS = {"ieache_110": P.IEACHE_110, "ieache_110_l2": P.IEACHE_110_FAST}
 
 
 def require_cuda(what: str) -> torch.device:

@@ -31,11 +31,13 @@ import time
 import numpy as np
 import torch
 
-from ieache_tpu_torch import params as P
 from ieache_tpu_torch.ops import blind_rotate as br
-from ieache_tpu_torch.tools._common import card_line, environ, require_cuda
-
-PARAMS = {"ieache_110": P.IEACHE_110, "ieache_110_l2": P.IEACHE_110_FAST}
+from ieache_tpu_torch.tools._common import (
+    PARAMS,
+    card_line,
+    environ,
+    require_cuda,
+)
 
 
 def make_inputs(p, b: int, steps: int, device, seed: int = 7):

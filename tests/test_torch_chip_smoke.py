@@ -12,6 +12,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -105,6 +106,95 @@ def test_bounds_are_the_larger_of_bytes_and_operations():
     # the external product at B=1024: 68.7 GOP, as the JAX kernel does it
     assert cs.external_product_ops(p, 1024) == 4 * 4 * 2 * 2 * 1024**3
     assert cs.external_product_ops(p, 8, p.n) == 500 * 4 * 4 * 2 * 2 * 8 * 1024**2
+
+
+@pytest.mark.parametrize("rows", [4, 6])
+def test_tensor_core_tile_phase_passes_on_cpu_twins(rows):
+    """Phase 3's second pass over external_product and blind_rotate_scan
+    (extreme operands, 4 and 6 TRGSW rows, a batch either side of the
+    split), on the twins."""
+    cs = _chip_smoke()
+    dev = torch.device("cpu")
+    p = dataclasses.replace(P.TEST_TINY, l=rows // 2, name=f"tiny_{rows}rows")
+    assert p.trgsw_rows == rows
+    errs = cs.check_mma_kernels(p, dev, (1, 5, 8), split_edge=(16, 17))
+    assert errs == {"external_product": 0, "blind_rotate_scan": 0}
+    names = [name for name, _, _ in cs.extreme_operands(
+        p, 3, dev, np.random.RandomState(0))]
+    assert len(names) == 4 and len(set(names)) == 4
+    # the operand sets are what they say
+    for name, d, bk_i in cs.extreme_operands(
+            p, 3, dev, np.random.RandomState(0)):
+        assert d.shape == (rows, 3, p.N) and d.dtype == torch.int8
+        assert bk_i.shape == (rows, p.k + 1, p.N)
+        if name.startswith("d=-128"):
+            assert int(d.max()) == -128
+    assert set(cs.MMA_BATCHES) == {1, 5, 8, 16, 1024, 1056}
+    assert [q.trgsw_rows for q in cs.MMA_PARAMS] == [4, 6]
+
+
+def test_step_calls_and_lines_of_the_timing_phase():
+    """Phase 7's per-step calls at a small batch run and agree with
+    their twins on CPU tensors, and its line names what it times."""
+    cs = _chip_smoke()
+    dev = torch.device("cpu")
+    p = P.TEST_TINY
+    for b in cs.SMALL_BATCHES:
+        calls = cs.step_calls(p, dev, b)
+        assert {"external_product", "external_product_tr"} <= set(calls)
+        for name, (kern, plain, inputs, ops) in calls.items():
+            got, want = kern(), plain()
+            assert torch.equal(got, want), name
+            ms, by = cs.bound_ms((*inputs, got), ops, "int8")
+            assert ms > 0 and by in ("bytes", "operations")
+        assert calls["external_product"][3] == cs.external_product_ops(p, b)
+    line = cs.step_line("external_product", 8, {
+        "ms": 0.007, "plain_ms": 0.2, "host_ms": 0.02, "plain_host_ms": 0.3,
+        "bound_ms": 0.0003, "bound_by": "operations"})
+    assert line.startswith("phase 7 external_product B=8: kernel 0.0070 ms")
+    assert "bound 0.0003 ms (operations)" in line
+
+
+def test_profile_gate_runs_on_cpu_twins():
+    """The profiling tool's two workloads under split and scan, at
+    TEST_TINY on the CPU: each record names its mode and workload, its
+    result decrypts right, and no device figure is made up."""
+    from ieache_tpu_torch.tools import profile_gate
+
+    ks = keygen.generate_secret_keyset(P.TEST_TINY)
+    saved = os.environ.get("IEACHE_PALLAS_STEP")
+    seen = []
+    recs = profile_gate.run(ks, ["split", "scan"], 8, 2, 5,
+                            torch.device("cpu"), top=3, emit=seen.append)
+    assert recs == seen and len(recs) == 4
+    assert [(r["mode"], r["workload"]) for r in recs] == [
+        ("split", "NAND B=8"), ("split", "A+B-C width 5 B=2"),
+        ("scan", "NAND B=8"), ("scan", "A+B-C width 5 B=2")]
+    for r in recs:
+        assert r["decrypt_errors"] == 0 and r["wall_ms"] > 0
+        assert len(r["rows"]) == 3 and r["events"] > 0
+        assert "busy_ms" not in r and "idle_share" not in r
+    assert os.environ.get("IEACHE_PALLAS_STEP") == saved
+
+
+def test_tile_bench_checks_on_cpu_twins():
+    """The tile benchmark's operands and its comparison with the twins,
+    untimed, at TEST_TINY on the CPU."""
+    from ieache_tpu_torch.tools import tile_bench
+
+    dev = torch.device("cpu")
+    p = P.TEST_TINY
+    rec = tile_bench.run(p, [1, 8], [5], dev, check=True, timed=False)
+    assert rec == {"params": p.name, "external_product_ms": {},
+                   "blind_rotate_scan_ms": {}}
+    rng = np.random.RandomState(0)
+    d, bk_i, acc = tile_bench.product_inputs(p, 3, dev, rng)
+    assert d.shape == (p.trgsw_rows, 3, p.N) and d.dtype == torch.int8
+    assert bk_i.shape == (p.trgsw_rows, p.k + 1, p.N)
+    acc, bara, bk = tile_bench.scan_inputs(p, 3, dev, rng)
+    assert bara.shape == (3, p.n) and int(bara.max()) < 2 * p.N
+    assert bk.shape == (p.n, p.trgsw_rows, p.k + 1, p.N)
+    assert set(tile_bench.PARAMS) == {"ieache_110", "ieache_110_l2"}
 
 
 def test_step_mode_phases_pass_on_cpu_twins():

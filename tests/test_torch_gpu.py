@@ -367,3 +367,141 @@ def test_device_keygen_and_encrypt_match_host_on_the_card(cuda, p):
     dec = encrypt.decrypt_bits_device(host, got)
     assert dec.is_cuda
     np.testing.assert_array_equal(dec.cpu().numpy(), bits)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core tile (csrc/mma_tile.cuh): external_product and
+# blind_rotate_scan on random and extreme operands
+# ---------------------------------------------------------------------------
+
+#: key words whose int8 limbs are all -128 / all +127
+LIMBS_LO, LIMBS_HI = 0x80808080 - 2**32, 0x7F7F7F7F
+
+#: words at which a carry between limbs goes wrong
+EDGE_KEY_WORDS = (-2**31, -1, 2**31 - 1, LIMBS_HI, LIMBS_LO, 0)
+
+MMA_BATCHES = [1, 5, 8, 16, 64, 1056]
+
+
+def _edge_key(shape, device):
+    edge = torch.tensor(EDGE_KEY_WORDS, dtype=torch.int32, device=device)
+    idx = torch.arange(int(np.prod(shape)), device=device)
+    return edge[idx % len(edge)].reshape(shape)
+
+
+@pytest.mark.parametrize("p", PARAMS, ids=lambda p: p.name)
+@pytest.mark.parametrize("b", MMA_BATCHES)
+@pytest.mark.parametrize("with_acc", [False, True])
+def test_external_product_kernel_extreme_operands(cuda, p, b, with_acc):
+    """Every limb sum at its largest and smallest, the key words where a
+    carry between limbs goes wrong, and random operands: equal to the
+    twin, and the launch counter moves by one a call."""
+    rng = np.random.RandomState(200 + b)
+    shape_d = (p.trgsw_rows, b, p.N)
+    shape_k = (p.trgsw_rows, p.k + 1, p.N)
+    acc = (_rand(rng, (p.k + 1, b, p.N), -2**31, 2**31, np.int32, cuda)
+           if with_acc else None)
+
+    def full(shape, value, dtype):
+        return torch.full(shape, value, dtype=dtype, device=cuda)
+
+    cases = [
+        (full(shape_d, -128, torch.int8), full(shape_k, LIMBS_LO, torch.int32)),
+        (full(shape_d, 127, torch.int8), full(shape_k, LIMBS_HI, torch.int32)),
+        (full(shape_d, -128, torch.int8), full(shape_k, LIMBS_HI, torch.int32)),
+        (_rand(rng, shape_d, -128, 128, np.int8, cuda),
+         _edge_key(shape_k, cuda)),
+        (_rand(rng, shape_d, -128, 128, np.int8, cuda),
+         _rand(rng, shape_k, -2**31, 2**31, np.int32, cuda)),
+    ]
+    for i, (d, bk_i) in enumerate(cases):
+        before = kernels.external_product.launches
+        got = kernels.external_product(d, bk_i, p, acc=acc)
+        assert kernels.external_product.launches == before + 1
+        want = kernels.external_product_plain(d, bk_i, p, acc)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), i
+
+
+@pytest.mark.parametrize("p", [P.IEACHE_110_FAST, P.IEACHE_110],
+                         ids=lambda p: p.name)
+@pytest.mark.parametrize("b", [256, 257])
+def test_external_product_kernel_either_side_of_the_split(cuda, p, b):
+    """At N=1024, 256 lanes are 128 tiles (fewer than the SMs: each
+    tile's sum is split over two blocks that add atomically) and 257
+    lanes 136 tiles (one block a tile)."""
+    rng = np.random.RandomState(b)
+    d = _rand(rng, (p.trgsw_rows, b, p.N), -128, 128, np.int8, cuda)
+    bk_i = _rand(rng, (p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31, np.int32,
+                 cuda)
+    acc = _rand(rng, (p.k + 1, b, p.N), -2**31, 2**31, np.int32, cuda)
+    for a in (None, acc):
+        got = kernels.external_product(d, bk_i, p, acc=a)
+        want = kernels.external_product_plain(d, bk_i, p, a)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("p", PARAMS, ids=lambda p: p.name)
+@pytest.mark.parametrize("b", MMA_BATCHES)
+def test_blind_rotate_scan_kernel_edge_key_words(cuda, p, b):
+    """The whole rotation on a key of edge words (20 steps at the full
+    size), equal to the twin."""
+    p = dataclasses.replace(p, n=min(p.n, 20))
+    rng = np.random.RandomState(300 + b)
+    acc = _rand(rng, (p.k + 1, b, p.N), -2**31, 2**31, np.int32, cuda)
+    bara = _rand(rng, (b, p.n), 0, 2 * p.N, np.int32, cuda)
+    bk = _edge_key((p.n, p.trgsw_rows, p.k + 1, p.N), cuda)
+    before = kernels.blind_rotate_scan.launches
+    got = kernels.blind_rotate_scan(acc, bara, bk, p)
+    assert kernels.blind_rotate_scan.launches == before + 1
+    want = kernels.blind_rotate_scan_plain(acc, bara, bk, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["split", "scan"])
+def test_nand_decrypts_under_the_tensor_core_modes(cuda, mode):
+    """NAND through the bootstrap under split and scan decrypts to the
+    truth table, and launched the mode's kernels and no other."""
+    from ieache_tpu_torch.boot import gates
+
+    p = P.TEST_SMALL_NOISY
+    ks = keygen.generate_secret_keyset(p)
+    key = bootstrap.pack_cloud_key(ks.cloud, cuda)
+    x = prng.uniform_bits01(prng.key_from_seed_words([5]), 37)
+    y = prng.uniform_bits01(prng.key_from_seed_words([6]), 37)
+    cx = encrypt.encrypt_bits(ks, x, prng.key_from_seed_words([7]), cuda)
+    cy = encrypt.encrypt_bits(ks, y, prng.key_from_seed_words([8]), cuda)
+    counts = [w.launches for w in WRAPPERS.values()]
+    with _step_mode(mode):
+        out = gates.NAND(cx, cy, key)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(encrypt.decrypt_bits(ks, out), 1 - (x & y))
+    assert _launched(counts) == set(MODES[mode])
+
+
+@pytest.mark.parametrize("p", [
+    dataclasses.replace(P.IEACHE_110_FAST, k=63, name="rows128"),
+    dataclasses.replace(P.TEST_TINY, N=32, name="n32")], ids=lambda p: p.name)
+def test_tensor_core_kernels_refuse_shapes_over_their_bounds(cuda, p):
+    """rows * N >= 2^17 (a limb's sum could leave int32), or an N below
+    64: both wrappers raise on CUDA tensors and launch nothing."""
+    rows, kp1, n = p.trgsw_rows, p.k + 1, p.N
+    d = torch.zeros((rows, 1, n), dtype=torch.int8, device=cuda)
+    bk = torch.zeros((1, rows, kp1, n), dtype=torch.int32, device=cuda)
+    acc = torch.zeros((kp1, 1, n), dtype=torch.int32, device=cuda)
+    bara = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    counts = [w.launches for w in WRAPPERS.values()]
+    with pytest.raises(ValueError, match="tensor-core external product"):
+        kernels.external_product(d, bk[0], p, acc=acc)
+    with pytest.raises(ValueError, match="tensor-core external product"):
+        kernels.blind_rotate_scan(acc, bara, bk, p)
+    assert _launched(counts) == set()
+    # the C entry points refuse it too, whatever the wrapper checked
+    lib = kernels._build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty_like(acc)
+    assert lib.ieache_external_product(
+        d.data_ptr(), bk.data_ptr(), None, out.data_ptr(), rows, kp1, 1, n,
+        stream) != 0
