@@ -10,7 +10,8 @@ The blind rotation has seven step modes (``IEACHE_PALLAS_STEP``), six
 with their own kernels: ``split`` (rot_diff_decompose +
 external_product per step), ``fused2`` (cmux_step), ``overlap`` and
 ``overlap2`` (cmux_step_overlap), ``scan`` (blind_rotate_scan, all
-steps in one launch), ``tr`` (rot_diff_decompose_tr +
+steps in one launch; these five run their products on the int8
+tensor-core tile), ``tr`` (rot_diff_decompose_tr +
 external_product_tr per step, in the transposed (k+1, N, B) layout);
 ``ntt`` (the CRT-NTT step, plain PyTorch ops) launches no kernel.
 ``IEACHE_PALLAS`` = 0 (the plain step), interpret (the mode's plain
@@ -30,14 +31,16 @@ prints no result line:
    exact equality, at IEACHE_110_FAST and the main path's batches
    (B=1024 for NAND, 8 and 16 for the rounds of ``A + B - C``), at
    ragged B in {1, 5, 1056} and at rotation amounts {0, N, 2N-1,
-   random}; the scan kernel over all n=500 steps; the two kernels on the
-   int8 tensor-core tile (external_product, blind_rotate_scan) once more
-   at IEACHE_110_FAST and at IEACHE_110 (6 TRGSW rows), B in {1, 5, 8,
-   16, 1024, 1056}, with extreme operands beside random ones (digits all
-   -128 or +127, key words whose int8 limbs are all -128 or +127, and
-   the words where a carry between limbs goes wrong), the external
-   product also at B = 256 and 257, either side of where its launch
-   starts to split a tile's sum over blocks; the rotation probe's
+   random}; the scan kernel over all n=500 steps; the four kernels on the
+   int8 tensor-core tile (external_product, blind_rotate_scan, cmux_step,
+   cmux_step_overlap) once more at IEACHE_110_FAST and at IEACHE_110 (6
+   TRGSW rows), B in {1, 5, 8, 16, 1024, 1056}, with extreme operands
+   beside random ones (digits all -128 or +127: for the step kernels an
+   accumulator that decomposes to them at bara = N; key words whose int8
+   limbs are all -128 or +127, and the words where a carry between limbs
+   goes wrong), the per-step kernels also at B = 256 and 257, either
+   side of where their launches start to split a tile's sum over blocks;
+   the rotation probe's
    kernels at its B=2048 and at B=5; mm_s8 (exact) and mm_bf16 at the
    matmul probe's (1024, 1024, 1024) with g in {1, 512} (the int32 sum
    wraps with extreme operands) and at four smaller shapes with k up
@@ -51,16 +54,20 @@ prints no result line:
    bits.  Then a whole B=1024 bootstrap under each step mode against
    the plain path; under ``IEACHE_PALLAS`` = 0 and interpret (no kernel
    may launch) and 1 (the mode's kernels must launch), each under split
-   and tr; and the compat gadget's blind rotation (no kernel; the plain
-   step on the card) at B=8 against ``plain=True``;
+   and tr; the compat gadget's blind rotation (no kernel; the plain
+   step on the card) at B=8 against ``plain=True``; and the blind
+   rotation at N=32, which the tensor-core kernels refuse, under every
+   step mode (and under ``IEACHE_PALLAS=interpret``) against
+   ``plain=True``: all but tr must take the plain step and launch
+   nothing;
 5. main path, NAND under each step mode at IEACHE_110_FAST: NAND on
    1024 random bit pairs, decrypted on the host and on the card
    (``decrypt_bits_device``); ``decrypt_errors`` must be 0 both ways.
    Every launch count is reset just before a mode's run and read just
    after it: the mode's kernels must have launched, and no other (under
    ntt, none);
-6. main path, ``A + B - C`` under ``split`` and ``scan`` (inside their
-   mode's counted run): 16-bit signed words, 8 lanes, through
+6. main path, ``A + B - C`` under ``split``, ``fused2`` and ``scan``
+   (inside their mode's counted run): 16-bit signed words, 8 lanes, through
    ``ripple_add`` then ``ripple_sub``, and once through the fused
    ``add_then_sub``; ``A * B`` through ``fused.schoolbook_mul_csa`` on
    16-bit words, windowed and ``latency=True`` at 8 lanes and
@@ -72,8 +79,9 @@ prints no result line:
    fences; one repeat for a mode slower than 3 s); ms per call of each
    per-step kernel beside its twin (CUDA events around a CUDA-graph
    replay, and around a plain Python loop), at B=1024 and, for the
-   external product, at B=8 and B=16 too, beside external_product_tr,
-   which still runs the direct int32 tile; ms per whole rotation
+   split pair and the two fused step kernels, at B=8 and B=16 too,
+   beside external_product_tr, which still runs the direct int32 tile;
+   ms per whole rotation
    of the scan kernel and its twin at B=8 and B=1024 (CUDA events
    around the call); the rotation probe (``transposed_probe``, its
    launch counts reset just before and read just after: the probe
@@ -169,7 +177,7 @@ MODES = {
 }
 
 #: the modes that also run A + B - C in the counted main path
-EXPRESSION_MODES = ("split", "scan")
+EXPRESSION_MODES = ("split", "fused2", "scan")
 
 #: the modes whose A + B - C latency phase 7 times: 96 rounds of B=8
 #: bootstraps under tr or ntt would take minutes
@@ -200,10 +208,10 @@ MM_WRAP_G = 1100
 #: (under 1e-3 measured at g=512); a wrong fragment layout gives O(1)
 MM_BF16_RTOL = 1e-2
 
-#: the parameter sets and batches at which phase 3 holds the two kernels
+#: the parameter sets and batches at which phase 3 holds the four kernels
 #: on the tensor-core tile against their twins once more, and the batches
-#: either side of where the external product's launch starts to split a
-#: tile's sum over blocks (8 N / 256 tiles of 16 rows below 132 SMs)
+#: either side of where the per-step launches start to split a tile's sum
+#: over blocks (8 N / 256 tiles of 16 rows below 132 SMs)
 MMA_PARAMS = (P.IEACHE_110_FAST, P.IEACHE_110)
 MMA_BATCHES = (1, 5, 8, 16, 1024, 1056)
 MMA_SPLIT_EDGE = (256, 257)
@@ -212,8 +220,19 @@ MMA_SPLIT_EDGE = (256, 257)
 #: -1, 2^31 - 1, 0x7F7F7F7F, 0x80808080 (limbs all -128), 0
 EDGE_KEY_WORDS = (-2**31, -1, 2**31 - 1, 0x7F7F7F7F, 0x80808080 - 2**32, 0)
 
-#: the small batches at which phase 7 times the external product
+#: the small batches at which phase 7 times the per-step kernels
 SMALL_BATCHES = (8, 16)
+
+#: the per-step kernels phase 7 times at the small batches: the split pair
+#: beside the two fused steps, and the direct int32 tile
+SMALL_BATCH_KERNELS = ("rot_diff_decompose", "external_product", "cmux_step",
+                       "cmux_step_overlap", "external_product_tr")
+
+#: a ring degree below the tensor-core tile's 64: the kernels refuse it and
+#: the blind rotation takes the plain step
+SMALL_N_PARAMS = P.TFHEParams(n=8, N=32, k=1, bg_bit=8, l=2, ks_basebit=4,
+                              ks_t=4, lwe_noise_scale=0, tlwe_noise_scale=0,
+                              name="small_n32")
 
 #: published dense peaks of one H100 SXM (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -368,12 +387,39 @@ def extreme_operands(p, b, device, rng):
         edge_key(shape_k, device)
 
 
+def extreme_accumulators(p, b, device, rng):
+    """(name, acc (k+1, B, N) int32, bara (B,), key step): accumulators
+    whose step at bara = N decomposes to -128 and to +127 everywhere
+    (checked here against the plain decomposition), on the key limbs
+    that drive every limb sum to its ends; then a random accumulator on
+    the key words of :data:`EDGE_KEY_WORDS` in turn."""
+    shape_a = (p.k + 1, b, p.N)
+    shape_k = (p.trgsw_rows, p.k + 1, p.N)
+    at_n = torch.full((b,), p.N, dtype=torch.int32, device=device)
+    lo, hi = 0x80808080 - 2**32, 0x7F7F7F7F
+    for digit, limbs, limb in ((-128, lo, -128), (127, hi, 127),
+                               (-128, hi, 127)):
+        acc = kernels.accumulator_for_digits(p, digit, shape_a, device)
+        d = kernels.rot_diff_decompose_plain(acc, at_n, p)
+        if int(d.min()) != digit or int(d.max()) != digit:
+            raise AssertionError(f"the accumulator for digits {digit} "
+                                 f"decomposes to [{int(d.min())}, "
+                                 f"{int(d.max())}]")
+        yield (f"digits {digit:+d} key limbs {limb:+d}", acc, at_n,
+               torch.full(shape_k, limbs, dtype=torch.int32, device=device))
+    yield ("random acc, edge key words",
+           _rand(rng, shape_a, -2**31, 2**31, np.int32, device),
+           _rand(rng, (b,), 0, 2 * p.N, np.int32, device),
+           edge_key(shape_k, device))
+
+
 def check_mma_kernels(p, device, batches, split_edge=MMA_SPLIT_EDGE, seed=5):
-    """Phase 3, the two kernels on the tensor-core tile once more, at
+    """Phase 3, the four kernels on the tensor-core tile once more, at
     ``p``: external_product on random and extreme operands, with and
-    without acc, at ``batches`` and (random only) at ``split_edge``;
-    blind_rotate_scan over all n steps on a random key and on a key of
-    edge words.  Returns max abs error per kernel."""
+    without acc, and cmux_step and cmux_step_overlap on random and
+    extreme accumulators, at ``batches`` and (random only) at
+    ``split_edge``; blind_rotate_scan over all n steps on a random key
+    and on a key of edge words.  Returns max abs error per kernel."""
     rng = np.random.RandomState(seed)
     errs = {}
     for b in (*batches, *split_edge):
@@ -383,8 +429,12 @@ def check_mma_kernels(p, device, batches, split_edge=MMA_SPLIT_EDGE, seed=5):
                         device),
                   _rand(rng, (p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
                         np.int32, device))]
+        steps = [("random", acc,
+                  _rand(rng, (b,), 0, 2 * p.N, np.int32, device),
+                  cases[0][2])]
         if b in batches:
             cases += extreme_operands(p, b, device, rng)
+            steps += extreme_accumulators(p, b, device, rng)
         for name, d, bk_i in cases:
             for a in (None, acc):
                 _compare("external_product",
@@ -392,6 +442,11 @@ def check_mma_kernels(p, device, batches, split_edge=MMA_SPLIT_EDGE, seed=5):
                          kernels.external_product_plain(d, bk_i, p, a),
                          errs, device,
                          f"{p.name} B={b} {name} acc={a is not None}")
+        for name, a, bara, bk_i in steps:
+            want = kernels.cmux_step_plain(a, bara, bk_i, p)
+            for kern in ("cmux_step", "cmux_step_overlap"):
+                _compare(kern, getattr(kernels, kern)(a, bara, bk_i, p), want,
+                         errs, device, f"{p.name} B={b} {name}")
         if b not in batches:
             continue
         bara = _rand(rng, (b, p.n), 0, 2 * p.N, np.int32, device)
@@ -407,8 +462,11 @@ def check_mma_kernels(p, device, batches, split_edge=MMA_SPLIT_EDGE, seed=5):
         log(f"phase 3 tensor-core tile: {p.name} ({p.trgsw_rows} rows) "
             f"B={b} equal (external_product on random and "
             f"{len(cases) - 1} extreme operand sets, with and without acc; "
-            f"scan over {p.n} steps on a random key and on edge key words)")
-    log(f"phase 3 tensor-core tile: {p.name} external_product equal at "
+            f"cmux_step and cmux_step_overlap on random and "
+            f"{len(steps) - 1} extreme accumulator sets; scan over {p.n} "
+            f"steps on a random key and on edge key words)")
+    log(f"phase 3 tensor-core tile: {p.name} external_product, cmux_step "
+        f"and cmux_step_overlap equal at "
         f"B={'/'.join(map(str, split_edge))}, either side of the split")
     return errs
 
@@ -578,6 +636,45 @@ def compat_vs_plain(p, device, batch, seed=3):
     if not torch.equal(got, want):
         raise AssertionError(f"{p.name} blind rotation differs from "
                              f"plain=True")
+
+
+def small_n_vs_plain(p, device, batch=1, seed=4):
+    """Phase 4: the blind rotation at a ring degree the tensor-core
+    kernels refuse, under every step mode and under the interpret route,
+    against ``plain=True``; launch counts set to 0 just before each and
+    read just after: only tr, whose kernels take the shape, launches."""
+    rng = np.random.RandomState(seed)
+    acc0 = _rand(rng, (batch, p.k + 1, p.N), -2**31, 2**31, np.int32,
+                 device)
+    bara = _rand(rng, (batch, p.n), 0, 2 * p.N, np.int32, device)
+    bk = _rand(rng, (p.n, p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
+               np.int32, device)
+    want = blind_rotate(acc0, bara, bk, p, plain=True)
+    for mode in MODES:
+        takes = kernels.kernels_take(mode, p)
+        if takes != (mode in ("tr", "ntt")):
+            raise AssertionError(f"kernels_take({mode!r}) at N={p.N}: {takes}")
+        for route in ("auto", "interpret"):
+            reset_launches()
+            with step_mode(mode), environ("IEACHE_PALLAS", route):
+                got = blind_rotate(acc0, bara, bk, p)
+            _sync(device)
+            launched = {k for k, n in read_launches().items() if n}
+            expected = set(MODES[mode]) if (
+                takes and route == "auto" and device.type == "cuda") else set()
+            if not torch.equal(got, want) or launched != expected:
+                raise AssertionError(
+                    f"N={p.N} under {mode}, IEACHE_PALLAS={route}: equal to "
+                    f"plain=True {torch.equal(got, want)}, launched "
+                    f"{sorted(launched)}, expected {sorted(expected)}")
+        if not takes:
+            with step_mode(mode), environ("IEACHE_PALLAS", "1"):
+                try:
+                    blind_rotate(acc0, bara, bk, p)
+                except ValueError:
+                    continue
+            raise AssertionError(f"IEACHE_PALLAS=1 under {mode} ran at "
+                                 f"N={p.N}")
 
 
 def run_nand(ks, key, inputs, device):
@@ -986,6 +1083,10 @@ def main() -> int:
     compat_vs_plain(P.IEACHE_110_TFHE_COMPAT, device, 8)
     log(f"phase 4 {P.IEACHE_110_TFHE_COMPAT.name} blind rotation B=8: "
         f"runs, equal to plain=True")
+    small_n_vs_plain(SMALL_N_PARAMS, device)
+    log(f"phase 4 blind rotation at N={SMALL_N_PARAMS.N} B=1: every step "
+        f"mode, under IEACHE_PALLAS unset and interpret, equal to "
+        f"plain=True; only tr launched kernels; IEACHE_PALLAS=1 raises")
 
     # phases 5 and 6: the main path under each mode, counted from 0
     launches = dict.fromkeys(read_launches(), 0)
@@ -1027,12 +1128,11 @@ def main() -> int:
     for name, t in steps.items():
         log(step_line(name, PROBE_B if name.startswith("rotate_") else batch,
                       t))
-    # the tensor-core tile (external_product) beside the direct int32 tile
+    # the split pair beside the two fused steps and the direct int32 tile
     # (external_product_tr still runs it) at the batches of A + B - C
     for b in SMALL_BATCHES:
-        for name, t in step_times(
-                p, device, b, reps=20,
-                names=("external_product", "external_product_tr")).items():
+        for name, t in step_times(p, device, b, reps=20,
+                                  names=SMALL_BATCH_KERNELS).items():
             log(step_line(name, b, t))
     for b in (8, batch):
         t = scan_times(p, device, b, reps=2)

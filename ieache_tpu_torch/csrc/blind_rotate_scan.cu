@@ -108,8 +108,9 @@ __global__ void __launch_bounds__(kTileThreads)
       int32_t sum[4][NI][4];
       mma::zero_acc<NI>(sum);
       mma::product_accumulate_mma<NI>(
-          smem, a.digits, bk_s, a.kp1, a.batch, a.n, o, b0, jb,
-          q * nchunks / a.split, (q + 1) * nchunks / a.split, tid, sum);
+          smem, mma::GlobalDigits<NI>{a.digits, a.batch, a.n, b0}, bk_s, a.kp1,
+          a.n, o, jb, q * nchunks / a.split, (q + 1) * nchunks / a.split, tid,
+          BlockSync{}, sum);
       if (a.split > 1) {
         mma::atomic_add_tile_mma<NI>(sum, o, b0, jb, tid, dst, a.batch, a.n);
       } else {

@@ -1,9 +1,9 @@
 // Device code shared by the blind rotation's CUDA kernels: the rotation +
-// diff + gadget decomposition of a CMux step, and the external product's
-// output tile in its direct int32 form (the inner loop of cmux_step.cu,
-// cmux_step_overlap.cu and external_product_tr.cu; external_product.cu
-// and blind_rotate_scan.cu run the int8 tensor-core form of
-// mma_tile.cuh).
+// diff + gadget decomposition of a CMux step, also as a tile of digits in
+// shared memory (decompose_tile: cmux_step.cu, cmux_step_overlap.cu), and
+// the external product's output tile in its direct int32 form (the inner
+// loop of external_product_tr.cu; the other product kernels run the int8
+// tensor-core form of mma_tile.cuh).
 //
 // Layouts, as in the JAX package's Pallas kernels (pallas_kernels.py):
 //   acc    (k+1, B, N) int32   accumulator, transposed
@@ -19,13 +19,11 @@
 //   (d (*) g)[j] = sum_m d[m] * e[N + j - m],  e = concat(-g, g),
 // over digit rows p and digit columns m in chunks of up to 256 columns.
 // A chunk's digits are staged in shared memory widened to int32 by a
-// staging functor: loaded from global memory (external_product_tr, in
-// its own layout), computed from the accumulator on the fly (fused2), or
-// loaded from
-// digits that other warps of the block decomposed into shared memory
-// (overlap).  Since uint32_t addition is associative and commutative, a
-// tile may also be summed over a sub-range of the (p, chunk) pairs and
-// the partial sums added together in any order, exactly.
+// staging functor (external_product_tr.cu loads them from global memory
+// in its own layout).  Since uint32_t addition is associative and
+// commutative, a tile may also be summed over a sub-range of the
+// (p, chunk) pairs and the partial sums added together in any order,
+// exactly.
 
 #pragma once
 
@@ -91,42 +89,94 @@ __device__ __forceinline__ int8_t gadget_digit(uint32_t v, int jl,
   return (int8_t)((int)((v >> shift) & mask) - (1 << (bg_bit - 1)));
 }
 
-// Rotate, diff and decompose batch rows b0 .. b0+TB-1 of acc into a
-// shared (rows, TB, N) int8 tile; rows past the batch get zero digits.
-// bara[b * bara_stride] is row b's rotation amount.  Run by `nthreads`
-// threads numbered from `tid`; consecutive threads take consecutive
-// coefficients, so the reads of acc are coalesced.  Each thread loads
-// kJ coefficients' operands before it stores any digit: an int8 store
-// may alias any load, so loads after a store would wait for it, and the
-// tile's 2 * (k+1) * 16 * N loads would run one L2 latency at a time.
+// Bytes of one row of a digit tile in shared memory: N digits and 16
+// bytes of padding, so that the 8 rows of an ldmatrix fall on 8 distinct
+// groups of 4 banks.
+__host__ __device__ inline int digit_pitch(int n) { return n + 16; }
+
+// Bytes of a block's digit tile, (rows, TB, digit_pitch(N)) int8.
+__host__ __device__ inline size_t digit_tile_bytes(int rows, int n) {
+  return (size_t)rows * TB * digit_pitch(n);
+}
+
+// Rotate, diff and decompose batch rows b0+bl_lo .. b0+bl_hi-1 of acc into
+// rows bl_lo .. bl_hi-1 of the shared (rows, TB, digit_pitch(N)) int8 tile
+// dsm: digit rows p_lo .. p_hi (p = u*l + jl) at columns col_lo ..
+// col_hi-1 (col_lo a multiple of 4, their count a power of two of at least
+// 4); nothing else of the tile is written.  Rows past the batch get zero
+// digits.  Run by `nthreads`
+// threads numbered from `tid`.  A thread takes four consecutive
+// coefficients of one polynomial: X^bara * acc - acc once, then one 4-byte
+// store for each digit row of it.  Consecutive threads take consecutive
+// quads of one batch row, then the next row: the reads are coalesced, and
+// a whole row (both its plain and its rotated read, the same 4 N bytes)
+// is in flight at once, so L1 serves one of the two.  Each thread loads
+// kI items' operands before it stores any digit.  With Bg = 2^8 (every
+// preset with single-limb digits) a digit is a byte of the word, and a
+// digit row's four bytes are gathered with three byte permutes.
 __device__ __forceinline__ void decompose_tile(
-    const uint32_t* acc, const int32_t* bara, int bara_stride, int8_t* dsm,
-    int kp1, int batch, int n, int b0, int bg_bit, int l, uint32_t offset,
-    int tid, int nthreads) {
-  constexpr int kJ = 8;
-  for (int bl = 0; bl < TB; ++bl) {
-    const int b = b0 + bl;
-    const uint32_t a =
-        b < batch ? (uint32_t)bara[(int64_t)b * bara_stride] : 0u;
-    for (int u = 0; u < kp1; ++u) {
-      const uint32_t* c = acc + ((int64_t)u * batch + b) * n;
-      int8_t* drow = dsm + (u * l * TB + bl) * n;  // + jl * TB * n
-      for (int j0 = tid; j0 < n; j0 += kJ * nthreads) {
-        uint32_t v[kJ];
+    const uint32_t* acc, const int32_t* bara, int8_t* dsm, int batch, int n,
+    int b0, int bg_bit, int l, uint32_t offset, int bl_lo, int bl_hi,
+    int p_lo, int p_hi, int col_lo, int col_hi, int tid, int nthreads) {
+  constexpr int kI = 4;
+  const int pitch = digit_pitch(n);
+  const uint32_t mask2n = (uint32_t)(2 * n - 1);
+  // item = (batch row, quad of the column range)
+  const int quads = (col_hi - col_lo) >> 2;
+  const int qshift = __ffs(quads) - 1;
+  const int items = (bl_hi - bl_lo) * quads;
+  for (int u = p_lo / l; u <= p_hi / l; ++u) {
+    for (int it0 = tid; it0 < items; it0 += kI * nthreads) {
+      uint32_t rot[kI][4];
+      uint4 cur[kI];
 #pragma unroll
-        for (int k = 0; k < kJ; ++k) {
-          const int j = j0 + k * nthreads;
-          v[k] = (b < batch && j < n) ? rot_diff<false>(c, a, j, n, offset)
-                                      : 0u;
+      for (int k = 0; k < kI; ++k) {
+        const int it = it0 + k * nthreads;
+        const int b = b0 + bl_lo + (it >> qshift);
+        cur[k] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int s = 0; s < 4; ++s) rot[k][s] = 0u;
+        if (it >= items || b >= batch) continue;
+        const int j = col_lo + 4 * (it & (quads - 1));
+        const uint32_t* c = acc + ((int64_t)u * batch + b) * n;
+        const uint32_t i0 = (uint32_t)j - (uint32_t)bara[b];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const uint32_t i = (i0 + s) & mask2n;
+          rot[k][s] = i < (uint32_t)n ? c[i] : 0u - c[i - n];
         }
+        cur[k] = *reinterpret_cast<const uint4*>(c + j);
+      }
 #pragma unroll
-        for (int k = 0; k < kJ; ++k) {
-          const int j = j0 + k * nthreads;
-          if (j >= n) continue;
-          for (int jl = 0; jl < l; ++jl) {
-            drow[jl * TB * n + j] =
-                b < batch ? gadget_digit(v[k], jl, bg_bit) : (int8_t)0;
+      for (int k = 0; k < kI; ++k) {
+        const int it = it0 + k * nthreads;
+        if (it >= items) continue;
+        const int bl = bl_lo + (it >> qshift);
+        const int j = col_lo + 4 * (it & (quads - 1));
+        const bool valid = b0 + bl < batch;
+        const uint32_t v[4] = {rot[k][0] - cur[k].x + offset,
+                               rot[k][1] - cur[k].y + offset,
+                               rot[k][2] - cur[k].z + offset,
+                               rot[k][3] - cur[k].w + offset};
+        for (int jl = 0; jl < l; ++jl) {
+          const int p = u * l + jl;
+          if (p < p_lo || p > p_hi) continue;
+          uint32_t word = 0u;
+          if (valid && bg_bit == 8) {
+            // digit jl is byte 3 - jl of v, less 128: gather the four
+            // coefficients' bytes and flip their top bits
+            const uint32_t pick =
+                (uint32_t)(3 - jl) | ((uint32_t)(7 - jl) << 4);
+            word = __byte_perm(__byte_perm(v[0], v[1], pick),
+                               __byte_perm(v[2], v[3], pick), 0x5410) ^
+                   0x80808080u;
+          } else if (valid) {
+#pragma unroll
+            for (int s = 0; s < 4; ++s)
+              word |= (uint32_t)(uint8_t)gadget_digit(v[s], jl, bg_bit)
+                      << (8 * s);
           }
+          *reinterpret_cast<uint32_t*>(dsm + (p * TB + bl) * pitch + j) = word;
         }
       }
     }
@@ -146,58 +196,6 @@ __device__ __forceinline__ Tile make_tile(int bt, int jt, int o, int n,
   const int j_first = jt * TJ + tx * RJ;
   return Tile{o, bt * TB, j_first < n ? j_first : 0, j_first < n};
 }
-
-// Stages digit columns m0c .. m0c+mc-1 of row p, batch rows b0 .. b0+TB-1,
-// from a shared (rows, TB, N) int8 tile (decompose_tile).
-struct SharedDigits {
-  const int8_t* dsm;
-  int n, tid;
-  __device__ __forceinline__ void operator()(int p, int m0c, int mc,
-                                             uint32_t* ds) const {
-    const int quads = mc / 4;
-    for (int q = tid; q < TB * quads; q += kTileThreads) {
-      const int bl = q / quads, mq = q - bl * quads;
-      const char4 c = *reinterpret_cast<const char4*>(
-          dsm + (p * TB + bl) * n + m0c + 4 * mq);
-      *reinterpret_cast<int4*>(ds + bl * mc + 4 * mq) =
-          make_int4(c.x, c.y, c.z, c.w);
-    }
-  }
-};
-
-// The same, computed from the accumulator on the fly: row p = u*l + jl
-// holds digit jl of X^bara * acc_u - acc_u (+ offset).  Each thread
-// takes four consecutive coefficients of one batch row, so the reads of
-// acc are coalesced.
-struct RotatedDigits {
-  const uint32_t* acc;
-  const int32_t* bara;
-  int batch, n, b0, l, bg_bit, tid;
-  uint32_t offset;
-  __device__ __forceinline__ void operator()(int p, int m0c, int mc,
-                                             uint32_t* ds) const {
-    const int u = p / l, jl = p - u * l;
-    const int quads = mc / 4;
-    for (int q = tid; q < TB * quads; q += kTileThreads) {
-      const int bl = q / quads, mq = q - bl * quads;
-      const int b = b0 + bl;
-      int4 w = make_int4(0, 0, 0, 0);
-      if (b < batch) {
-        const uint32_t* c = acc + ((int64_t)u * batch + b) * n;
-        const uint32_t a = (uint32_t)bara[b];
-        const int m = m0c + 4 * mq;
-        w.x = gadget_digit(rot_diff<false>(c, a, m, n, offset), jl, bg_bit);
-        w.y = gadget_digit(rot_diff<false>(c, a, m + 1, n, offset), jl,
-                           bg_bit);
-        w.z = gadget_digit(rot_diff<false>(c, a, m + 2, n, offset), jl,
-                           bg_bit);
-        w.w = gadget_digit(rot_diff<false>(c, a, m + 3, n, offset), jl,
-                           bg_bit);
-      }
-      *reinterpret_cast<int4*>(ds + bl * mc + 4 * mq) = w;
-    }
-  }
-};
 
 // A barrier over the whole block.
 struct BlockSync {

@@ -1,0 +1,230 @@
+// One whole CMux step on the int8 tensor-core tile, the digits decomposed
+// by each block into its own shared memory: the kernel of cmux_step.cu,
+// which cmux_step_overlap.cu also launches for a batch too small to fill
+// the card with whole tiles.
+//
+// 16 batch rows have N/T x (k+1) output tiles of 16 x T, T = min(N, 256):
+// tile t is coefficient block t % (N/T) of component t / (N/T).  A block
+// rotates, diffs and decomposes its 16 rows into shared memory once
+// (ieache::decompose_tile) and runs mma::product_accumulate_mma from that
+// tile for a run of `per_item` of the rows' tiles, adding the accumulator
+// and storing each.  per_item is the run that ends soonest when the
+// launch's blocks are dealt to the card's places (tiles_per_item): the
+// longer the run, the fewer blocks decompose the same rows.  The blocks
+// that share batch rows, (x, 0 .. gridDim.y - 1), are launched in
+// thread-block clusters of up to kMaxCluster neighbours along y: a block
+// decomposes its share of the 16 rows and copies the others from its
+// peers' shared memory.
+//
+// A launch with fewer tiles than SMs instead splits each tile's sum
+// (per_item is then 1): a block computes part q of `split` of one tile,
+// the (p, chunk) pairs q * nchunks / split .. (q + 1) * nchunks / split - 1,
+// pair c = p * (N / T) + chunk, and decomposes only the digits those pairs
+// read (part_range: one digit row's columns of its chunks, or all columns
+// of every row the part touches).  The launch has copied the accumulator
+// into the output, and the part adds its share with atomicAdd on unsigned
+// int, which wraps: exact in any order.
+
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include "mma_tile.cuh"
+
+namespace ieache {
+namespace fused {
+
+namespace cg = cooperative_groups;
+
+// Blocks a cluster: two halve the decomposition; four were slower (the
+// card then holds fewer blocks at once).
+constexpr int kMaxCluster = 2;
+
+// Shared memory of a block: the byte planes, then one digit tile.
+template <int NI>
+inline size_t step_smem_bytes(int rows, int n) {
+  return mma::Shape<NI>::kPlanesBytes + digit_tile_bytes(rows, n);
+}
+
+// Tiles per block (or per work item of the overlap kernel): of the ways to
+// cut a row group's `group` tiles into equal runs, the one whose busiest
+// place ends soonest when `nbt` row groups are dealt to `places` blocks
+// resident at once, a run costing its tiles and a quarter of a tile for
+// its decomposition (0.03 of 0.115 ms measured); of equal ones the longest
+// run, which decomposes least.
+inline int tiles_per_item(int nbt, int group, int places) {
+  int best = group;
+  int64_t best_cost = INT64_MAX;
+  for (int parts = 1; parts <= group; ++parts) {
+    const int per = (group + parts - 1) / parts;
+    const int64_t items = (int64_t)nbt * ((group + per - 1) / per);
+    const int64_t cost = ((items + places - 1) / places) * (4 * per + 1);
+    if (cost < best_cost) {
+      best_cost = cost;
+      best = per;
+    }
+  }
+  return best;
+}
+
+// What a part of a split tile sums and decomposes.
+struct PartRange {
+  int c_begin, c_end;    // its (p, chunk) pairs
+  int p_lo, p_hi;        // the digit rows it decomposes,
+  int col_lo, col_hi;    // and their columns
+};
+
+// Part q of `split` of a tile's rows * nchunk pairs, chunks of t columns.
+// A part inside one digit row decomposes the columns of its chunks when
+// their count is a power of two (decompose_tile wants one), else, and when
+// it spans several rows, all n columns of its rows.
+__host__ __device__ inline PartRange part_range(int q, int split, int rows,
+                                                int nchunk, int t, int n) {
+  PartRange r;
+  const int nchunks = rows * nchunk;
+  r.c_begin = q * nchunks / split;
+  r.c_end = (q + 1) * nchunks / split;
+  r.p_lo = r.c_begin / nchunk;
+  r.p_hi = (r.c_end - 1) / nchunk;
+  const int count = r.c_end - r.c_begin;
+  if (r.p_lo == r.p_hi && (count & (count - 1)) == 0) {
+    r.col_lo = (r.c_begin - r.p_lo * nchunk) * t;
+    r.col_hi = r.col_lo + count * t;
+  } else {
+    r.col_lo = 0;
+    r.col_hi = n;
+  }
+  return r;
+}
+
+// Block (x, y): part x % split of the sum of tile y (split > 1), or the
+// tiles y * per_item .. of batch rows 16 x .. (split == 1).
+template <int NI>
+__global__ void __launch_bounds__(mma::kThreads, 2) cmux_step_parts_kernel(
+    const uint32_t* __restrict__ acc, const int32_t* __restrict__ bara,
+    const uint32_t* __restrict__ bk, uint32_t* __restrict__ out, int rows,
+    int kp1, int batch, int n, int bg_bit, int l, uint32_t offset, int split,
+    int per_item) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  using S = mma::Shape<NI>;
+  int8_t* dsm = reinterpret_cast<int8_t*>(smem + S::kPlanesBytes);
+  const int tid = threadIdx.x;
+  const int b0 = (blockIdx.x / split) * mma::BM;
+  const int njt = n / S::T, group = njt * kp1;
+  const PartRange r =
+      part_range(blockIdx.x % split, split, rows, njt, S::T, n);
+  // the blocks of a cluster, neighbours along y, share their 16 batch
+  // rows: each decomposes its share of the rows, then copies the others'
+  // from their shared memory into its own tile, which ldmatrix can only
+  // read locally
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  const int crank = (int)cluster.block_rank();
+  decompose_tile(acc, bara, dsm, batch, n, b0, bg_bit, l, offset,
+                 crank * mma::BM / csize, (crank + 1) * mma::BM / csize, r.p_lo,
+                 r.p_hi, r.col_lo, r.col_hi, tid, mma::kThreads);
+  if (csize > 1) {
+    cluster.sync();
+    const int pitch = digit_pitch(n), pieces = n / 16;
+    for (int peer = 1; peer < csize; ++peer) {
+      const int from = (crank + peer) % csize;  // spread over the peers
+      const int8_t* src = cluster.map_shared_rank(dsm, from);
+      const int bl_lo = from * mma::BM / csize;
+      const int nrow = (from + 1) * mma::BM / csize - bl_lo;
+      for (int i = tid; i < rows * nrow * pieces; i += mma::kThreads) {
+        const int piece = i % pieces, row = i / pieces;
+        const int at = ((row / nrow) * mma::BM + bl_lo + row % nrow) * pitch +
+                       16 * piece;
+        *reinterpret_cast<uint4*>(dsm + at) =
+            *reinterpret_cast<const uint4*>(src + at);
+      }
+    }
+    cluster.sync();  // no block leaves while a peer still reads its tile
+  }
+  const mma::SharedDigits digits{(uint32_t)__cvta_generic_to_shared(dsm),
+                                 digit_pitch(n)};
+  const int t0 = blockIdx.y * per_item;
+  const int t1 = t0 + per_item < group ? t0 + per_item : group;
+  for (int t = t0; t < t1; ++t) {
+    const int jb = (t % njt) * S::T, o = t / njt;
+    int32_t sum[4][NI][4];
+    mma::zero_acc<NI>(sum);
+    // the product's first barrier makes the digits visible to every warp
+    mma::product_accumulate_mma<NI>(smem, digits, bk, kp1, n, o, jb, r.c_begin,
+                                    r.c_end, tid, BlockSync{}, sum);
+    if (split > 1) {
+      mma::atomic_add_tile_mma<NI>(sum, o, b0, jb, tid, out, batch, n);
+    } else {
+      mma::store_tile_mma<NI, false>(sum, o, b0, jb, tid, acc, out, batch, n);
+    }
+  }
+}
+
+// The launch for N's tile, NI = min(N, 256) / 32; `out` must not alias
+// `acc`, which blocks read while others write `out`.  A digit tile that
+// does not fit the block's shared memory is refused.
+template <int NI>
+int launch_step_parts(const void* acc, const void* bara, const void* bk,
+                      void* out, int rows, int kp1, int batch, int n,
+                      int bg_bit, int l, uint32_t offset, int sms,
+                      int smem_optin, cudaStream_t s) {
+  using S = mma::Shape<NI>;
+  const size_t smem = step_smem_bytes<NI>(rows, n);
+  if (smem > (size_t)smem_optin) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(cmux_step_parts_kernel<NI>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nbt = (batch + mma::BM - 1) / mma::BM, njt = n / S::T;
+  const int group = njt * kp1;
+  const int split = mma::split_for(nbt * group, rows * njt, sms);
+  int per_item = 1;
+  if (split > 1) {
+    err = cudaMemcpyAsync(out, acc, (size_t)kp1 * batch * n * sizeof(uint32_t),
+                          cudaMemcpyDeviceToDevice, s);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, cmux_step_parts_kernel<NI>, mma::kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    per_item = tiles_per_item(nbt, group, sms * per_sm);
+  }
+  const int nper = (group + per_item - 1) / per_item;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(nbt * split, nper);
+  config.blockDim = dim3(mma::kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = s;
+  // the blocks that share batch rows in clusters of the largest size up to
+  // kMaxCluster that divides their number
+  cudaLaunchAttribute cluster = {};
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  int csize = split == 1 ? kMaxCluster : 1;
+  while (nper % csize) --csize;
+  cluster.val.clusterDim.y = csize;
+  cluster.val.clusterDim.z = 1;
+  config.attrs = &cluster;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, cmux_step_parts_kernel<NI>,
+                           (const uint32_t*)acc, (const int32_t*)bara,
+                           (const uint32_t*)bk, (uint32_t*)out, rows, kp1,
+                           batch, n, bg_bit, l, offset, split, per_item);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The SM count and the most dynamic shared memory a block may ask for on
+// the current device.
+inline cudaError_t device_limits(int* sms, int* smem_optin) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(smem_optin,
+                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
+}  // namespace fused
+}  // namespace ieache

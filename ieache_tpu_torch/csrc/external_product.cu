@@ -59,9 +59,9 @@ __global__ void __launch_bounds__(mma::kThreads, 2) external_product_kernel(
   const int nchunks = rows * (n / S::T);
   int32_t sum[4][NI][4];
   mma::zero_acc<NI>(sum);
-  mma::product_accumulate_mma<NI>(smem, d, bk, kp1, batch, n, o, b0, jb,
-                                  q * nchunks / split,
-                                  (q + 1) * nchunks / split, tid, sum);
+  mma::product_accumulate_mma<NI>(
+      smem, mma::GlobalDigits<NI>{d, batch, n, b0}, bk, kp1, n, o, jb,
+      q * nchunks / split, (q + 1) * nchunks / split, tid, BlockSync{}, sum);
   if (split > 1) {
     mma::atomic_add_tile_mma<NI>(sum, o, b0, jb, tid, out, batch, n);
   } else {

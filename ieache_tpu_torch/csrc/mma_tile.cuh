@@ -1,7 +1,7 @@
 // The external product's output tile on the int8 tensor cores: the second
 // form of the tile, beside the direct int32 convolution
-// (ieache::product_accumulate in cmux_common.cuh).  external_product.cu and
-// blind_rotate_scan.cu run this one.
+// (ieache::product_accumulate in cmux_common.cuh).  external_product.cu,
+// blind_rotate_scan.cu, cmux_step.cu and cmux_step_overlap.cu run this one.
 //
 // The function, for one output component o, as a matrix product:
 //   out[b, j] = sum_p sum_m d[p, b, m] * T_p[m, j],  T_p[m, j] = e_p[N + j - m],
@@ -60,6 +60,15 @@
 //   4 chunks of digit columns at a time (T + 4T - 1 bytes of each of the 16
 //   copies: 21 KB at N = 1024).  Shared memory: 38.4 KB a block at
 //   N >= 256, so two blocks fit an SM beside their registers.
+// * Two sources of digits (the template parameter Digits).  GlobalDigits
+//   is the ring above, fed from a (rows, B, N) int8 tensor in device
+//   memory (external_product.cu, blind_rotate_scan.cu).  SharedDigits
+//   points ldmatrix straight into a (rows, 16, N + 16) int8 tile that the
+//   block itself decomposed into shared memory (ieache::decompose_tile;
+//   cmux_step.cu, cmux_step_overlap.cu): no ring, no cp.async, no wait,
+//   and the 16-byte row padding again puts ldmatrix's 8 rows on 8 bank
+//   groups.  The block-wide barriers are a functor (Sync), since in a
+//   warp-specialised block only the consumer warps run the tile.
 //
 // N must be a power of two, at least 64.
 
@@ -176,23 +185,59 @@ __device__ __forceinline__ void stage_digits(uint32_t dst, const int8_t* d,
   }
 }
 
+// Digit source: batch rows b0 .. b0 + BM - 1 of a (rows, batch, N) int8
+// tensor in device memory, streamed chunk by chunk through the ring of
+// kStages buffers behind the planes.
+template <int NI>
+struct GlobalDigits {
+  static constexpr bool kRing = true;
+  const int8_t* d;
+  int batch, n, b0;
+  __device__ __forceinline__ int pitch() const { return Shape<NI>::kPitch; }
+  // Start chunk c's copy into its ring buffer (nothing when c is past the
+  // range) and commit the group.
+  __device__ __forceinline__ void stage(uint32_t ring, int c, int c_begin,
+                                        int c_end, int tid) const {
+    using S = Shape<NI>;
+    if (c < c_end) {
+      const int nchunk = n / S::T, p = c / nchunk;
+      stage_digits<NI>(ring + ((c - c_begin) % kStages) * S::kStageBytes, d, p,
+                       (c - p * nchunk) * S::T, batch, n, b0, tid);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+};
+
+// Digit source: a (rows, BM, row_bytes) int8 tile in shared memory that
+// the block decomposed itself (ieache::decompose_tile), row_bytes =
+// digit_pitch(N).  `tile` is its shared-space address, 16-byte aligned.
+// The caller makes the tile's writes visible to the tile's threads before
+// the call (the first sync() of the product is enough when the same
+// threads wrote it).
+struct SharedDigits {
+  static constexpr bool kRing = false;
+  uint32_t tile;
+  int row_bytes;
+  __device__ __forceinline__ int pitch() const { return row_bytes; }
+};
+
 // acc[v] += the tile's share of sum_p d[p] x T_{p,v} over the (p, chunk)
 // pairs c_begin .. c_end-1, pair c = p * (N / T) + chunk, for the 16 x T
-// tile at batch row b0, coefficient jb of component o.  Run by the block's
-// kThreads threads with the same arguments; smem holds
-// Shape<NI>::kSmemBytes bytes, 16-byte aligned.  Thread (warp, lane) ends
-// with, in acc[v][ni][0..3], limb v's sums for batch rows b0 + lane/4
-// (0, 1) and b0 + lane/4 + 8 (2, 3) at coefficients
-// jb + warp * 8 NI + 8 ni + 2 (lane % 4) and the next.
-template <int NI>
+// tile at coefficient jb of component o, the digits of its batch rows
+// from `dg`.  Run by kThreads threads (tid 0 .. kThreads - 1) with the
+// same arguments, which `sync` joins in a barrier; smem holds
+// Shape<NI>::kPlanesBytes bytes, 16-byte aligned, and behind them, for a
+// ring source, kStages * kStageBytes more (Shape<NI>::kSmemBytes in all).
+// Thread (warp, lane) ends with, in acc[v][ni][0..3], limb v's sums for
+// batch rows lane/4 (0, 1) and lane/4 + 8 (2, 3) of the tile at
+// coefficients jb + warp * 8 NI + 8 ni + 2 (lane % 4) and the next.
+template <int NI, class Digits, class Sync>
 __device__ __forceinline__ void product_accumulate_mma(
-    uint8_t* smem, const int8_t* d, const uint32_t* bk, int kp1, int batch,
-    int n, int o, int b0, int jb, int c_begin, int c_end, int tid,
+    uint8_t* smem, const Digits& dg, const uint32_t* bk, int kp1, int n, int o,
+    int jb, int c_begin, int c_end, int tid, const Sync& sync,
     int32_t (&acc)[4][NI][4]) {
   using S = Shape<NI>;
   uint32_t* planes = reinterpret_cast<uint32_t*>(smem);
-  const uint32_t ring =
-      (uint32_t)__cvta_generic_to_shared(smem + S::kPlanesBytes);
   const int lane = tid & 31, warp = tid >> 5;
   const int grp = lane >> 2, t4 = lane & 3;
   const int nchunk = n / S::T;
@@ -200,22 +245,18 @@ __device__ __forceinline__ void product_accumulate_mma(
   // this thread's word of diagonal 0 in limb 0's copy 3 - grp % 4
   const uint32_t* wp = planes + (3 - (grp & 3)) * S::kPlaneStride +
                        (S::T - warp * 8 * NI) / 4 + t4 - 1 - (grp >> 2);
-  // where this lane points ldmatrix.x4 in a staged chunk: lanes 0-7 rows
-  // 0-7 bytes 0-15, 8-15 rows 8-15, 16-31 the same rows' bytes 16-31
-  const uint32_t lm = ((lane & 7) + ((lane >> 3) & 1) * 8) * S::kPitch +
+  // where this lane points ldmatrix.x4 in a chunk of digits: lanes 0-7
+  // rows 0-7 bytes 0-15, 8-15 rows 8-15, 16-31 the same rows' bytes 16-31
+  const uint32_t lm = ((lane & 7) + ((lane >> 3) & 1) * 8) * dg.pitch() +
                       (lane >> 4) * 16;
 
-  auto stage_chunk = [&](int c) {
-    if (c < c_end) {
-      const int p = c / nchunk;
-      stage_digits<NI>(ring + ((c - c_begin) % kStages) * S::kStageBytes, d, p,
-                       (c - p * nchunk) * S::T, batch, n, b0, tid);
-    }
-    asm volatile("cp.async.commit_group;" ::: "memory");
-  };
-
-  __syncthreads();  // an earlier tile's readers of the ring are done
-  for (int s = 0; s < kStages - 1; ++s) stage_chunk(c_begin + s);
+  uint32_t ring = 0;
+  if constexpr (Digits::kRing) {
+    ring = (uint32_t)__cvta_generic_to_shared(smem + S::kPlanesBytes);
+    sync();  // an earlier tile's readers of the ring are done
+    for (int s = 0; s < kStages - 1; ++s)
+      dg.stage(ring, c_begin + s, c_begin, c_end, tid);
+  }
 
   uint32_t win[4][NI + 2];  // win[v][i]: diagonal 4 kseg - NI + 1 + i
   int c = c_begin;
@@ -223,15 +264,22 @@ __device__ __forceinline__ void product_accumulate_mma(
     const int p = c / nchunk, ch0 = c - p * nchunk;
     int nseg = c_end - c < nchunk - ch0 ? c_end - c : nchunk - ch0;
     if (nseg > kSegChunks) nseg = kSegChunks;
-    __syncthreads();  // the previous planes' readers are done
+    sync();  // the previous planes' readers are done
     build_planes<NI>(planes, bk + ((int64_t)p * kp1 + o) * n, n, jb,
                      ch0 * S::T, nseg * S::T, tid);
     for (int i = 0; i < nseg; ++i, ++c) {
-      // chunk c has landed, the planes are built, and every warp is past
-      // chunk c - 1, whose buffer is the one staged next
-      asm volatile("cp.async.wait_group %0;" ::"n"(kStages - 2) : "memory");
-      __syncthreads();
-      stage_chunk(c + kStages - 1);
+      uint32_t chunk;  // this lane's ldmatrix row in chunk c
+      if constexpr (Digits::kRing) {
+        // chunk c has landed, the planes are built, and every warp is
+        // past chunk c - 1, whose buffer is the one staged next
+        asm volatile("cp.async.wait_group %0;" ::"n"(kStages - 2) : "memory");
+        sync();
+        dg.stage(ring, c + kStages - 1, c_begin, c_end, tid);
+        chunk = ring + ((c - c_begin) % kStages) * S::kStageBytes + lm;
+      } else {
+        if (i == 0) sync();  // the planes are built
+        chunk = dg.tile + p * BM * dg.pitch() + (ch0 + i) * S::T + lm;
+      }
       if (i == 0) {
 #pragma unroll
         for (int v = 0; v < 4; ++v)
@@ -239,13 +287,11 @@ __device__ __forceinline__ void product_accumulate_mma(
           for (int w = 0; w < NI - 2; ++w)
             win[v][w + 4] = wp[v * 4 * S::kPlaneStride + 2 * (w - NI + 1)];
       }
-      const uint32_t stage =
-          ring + ((c - c_begin) % kStages) * S::kStageBytes + lm;
       const uint32_t* wk = wp + 8 * NI * i;  // diagonal 4 kseg, kseg = NI i
 #pragma unroll
       for (int ks = 0; ks < NI; ++ks) {
         uint32_t a[4];
-        ldmatrix_x4(a, stage + 32 * ks);
+        ldmatrix_x4(a, chunk + 32 * ks);
 #pragma unroll
         for (int v = 0; v < 4; ++v) {
 #pragma unroll
@@ -261,7 +307,8 @@ __device__ __forceinline__ void product_accumulate_mma(
       }
     }
   }
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  if constexpr (Digits::kRing)
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
 template <int NI>

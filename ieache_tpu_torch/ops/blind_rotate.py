@@ -40,7 +40,12 @@ kernel modes:
   counterpart of the Pallas interpreter);
 * ``1``: the kernels; CPU tensors raise, since no kernel runs there.
 
-Every route and mode returns the same arrays, for any batch.  The
+Every route and mode returns the same arrays, for any batch.  Where
+the mode's kernels refuse the parameter set's shape
+(:func:`~ieache_tpu_torch.ops.kernels.kernels_take`: a ring degree
+below 64 under the tensor-core modes, N % 8 != 0 under ``tr``), ``auto``
+and ``interpret`` take :func:`external_product_step`, as the JAX package
+takes its XLA step where its kernels cannot run, and ``1`` raises.  The
 two-limb compat gadget has no kernel, as on the TPU: it takes
 :func:`external_product_step`, the plain form of the JAX package's XLA
 branch (Toeplitz operand + int8 limb products), on any device, as does
@@ -221,6 +226,16 @@ def blind_rotate(
                 f"{params.digit_limbs}); taking the plain step",
                 stacklevel=2)
         plain = mode == "ntt" or route == "0" or params.digit_limbs != 1
+    if not plain:
+        # kernels.py builds its plain twins from this module's functions
+        from ieache_tpu_torch.ops import kernels
+
+        why = kernels.kernels_refusal(mode, params.trgsw_rows, params.N)
+        if why is not None:
+            if route == "1":
+                raise ValueError(f"IEACHE_PALLAS=1 asks for the kernels of "
+                                 f"{mode}, which refuse this shape: {why}")
+            plain = True
     if plain:
         acc = acc0
         for i in range(bk.shape[0]):
@@ -230,9 +245,6 @@ def blind_rotate(
         raise RuntimeError(
             f"IEACHE_PALLAS=1 asks for the CUDA kernels, but the tensors "
             f"are on {acc0.device}, where no kernel runs")
-
-    # kernels.py builds its plain twins from this module's functions
-    from ieache_tpu_torch.ops import kernels
 
     def pick(name):
         """The wrapper ``name``, or its plain twin under interpret."""

@@ -13,11 +13,15 @@ through the kernels of the step mode ``IEACHE_PALLAS_STEP`` selects:
   and :func:`external_product_mma_model` are a plain model of that
   tile's operand construction, for the CPU tests);
 * ``fused2``: :func:`cmux_step` (``csrc/cmux_step.cu``, replaces
-  ``cmux_step_pallas``), the whole step in one kernel;
+  ``cmux_step_pallas``), the whole step in one kernel: the same
+  tensor-core tile fed from digits the block decomposes into its own
+  shared memory (:func:`cmux_digit_tile`, :func:`cmux_part_ranges` and
+  :func:`cmux_step_mma_model` are the plain model of that);
 * ``overlap``/``overlap2``: :func:`cmux_step_overlap`
   (``csrc/cmux_step_overlap.cu``, replaces ``cmux_step_overlap_pallas``
-  and ``cmux_step_overlap2_pallas``), the step with the next tile's
-  decomposition overlapped;
+  and ``cmux_step_overlap2_pallas``), the step with the next batch rows'
+  decomposition overlapped (:func:`step_work_items` and
+  :func:`cmux_step_overlap_mma_model` model its order of work);
 * ``scan``: :func:`blind_rotate_scan` (``csrc/blind_rotate_scan.cu``,
   replaces ``blind_rotate_scan_pallas``), all n steps in one launch, its
   products on the same tensor-core tile;
@@ -44,6 +48,10 @@ plain twin (``*_plain``) when they lie on the CPU; it never falls back
 from one to the other.  Each wrapper's ``launches`` attribute counts
 its kernel launches (the plain twins count nothing).  Only the
 single-limb gadget (``digit_limbs == 1``) is taken, as on the TPU.
+:func:`kernels_take` says whether a step mode's kernels accept a
+parameter set's shape; the wrappers refuse what it refuses
+(``ValueError``, CUDA tensors only), and ``blind_rotate`` asks it before
+it picks kernels.
 """
 
 from __future__ import annotations
@@ -118,9 +126,8 @@ def _rot_diff_decompose_launch(wrapper, entry: str, plain,
     if not acc.is_cuda:
         return plain(acc, bara, params)
 
-    if n % 8:
-        raise ValueError(f"the rotation kernels need N % 8 == 0, got N={n}")
     rows = params.trgsw_rows
+    _refuse(kernels_refusal("tr", rows, n))
     out = torch.empty((rows, n, b) if tr else (rows, b, n), dtype=torch.int8,
                       device=acc.device)
     if b == 0:
@@ -158,23 +165,87 @@ MMA_TILE_COLS = 256
 #: chunks of digit columns per build of the byte planes
 MMA_SEG_CHUNKS = 4
 
+#: batch rows of a block's tile (the MMA's m)
+MMA_TILE_ROWS = 16
+
+#: bytes of padding after the N digits of a row of a digit tile in shared
+#: memory: ldmatrix's 8 rows then fall on 8 distinct groups of 4 banks
+DIGIT_ROW_PAD = 16
+
 #: the tile's limit on rows * N: below it each limb's s8 x s8 sum over all
 #: rows * N terms (at most 2^14 each) is exact in int32
 MMA_MAX_TERMS = 1 << 17
+
+
+#: dynamic shared memory a block may ask for on the H100
+SMEM_BLOCK_BYTES = 232448
+
+#: digit tiles a block of each tensor-core step mode keeps in shared
+#: memory: none where the digits stream from device memory, one under
+#: fused2, the overlap kernel's two stages
+_DIGIT_TILES = {"split": 0, "scan": 0, "fused2": 1, "overlap": 2,
+                "overlap2": 2}
+
+
+def mma_planes_bytes(n: int) -> int:
+    """Shared memory of the tile's byte planes at ring degree ``n``
+    (``Shape<NI>::kPlanesBytes``): 4 limbs x 4 copies of T + 4T bytes, a
+    copy's stride in words padded to 8 mod 32."""
+    words = (min(n, MMA_TILE_COLS) * (1 + MMA_SEG_CHUNKS)) // 4
+    return 16 * (words + (8 - words % 32) % 32) * 4
+
+
+def digit_tile_bytes(rows: int, n: int) -> int:
+    """Bytes of a block's digit tile, (rows, 16, N + 16) int8."""
+    return rows * MMA_TILE_ROWS * (n + DIGIT_ROW_PAD)
+
+
+def kernels_refusal(mode: str, rows: int, n: int) -> str | None:
+    """Why the kernels of step mode ``mode`` refuse ``rows`` TRGSW rows
+    at ring degree ``n``, or None where they take the shape.  The
+    tensor-core modes (split, fused2, overlap, overlap2, scan) need N a
+    power of two of at least 64, rows * N below :data:`MMA_MAX_TERMS`
+    and, where a block keeps digit tiles in shared memory, room for
+    them; ``tr`` (and both rotation kernels) N % 8 == 0; ``ntt`` runs no
+    kernel."""
+    if mode == "ntt":
+        return None
+    if mode == "tr":
+        return None if n % 8 == 0 else (
+            f"the rotation and transposed kernels need N % 8 == 0, got N={n}")
+    tiles = _DIGIT_TILES[mode]
+    if n < 64 or n & (n - 1):
+        return (f"the tensor-core external product needs N a power of two "
+                f">= 64, got N={n}")
+    if rows * n >= MMA_MAX_TERMS:
+        return (f"the tensor-core external product needs rows * N < "
+                f"{MMA_MAX_TERMS} (each int8 limb's sum must stay exact in "
+                f"int32), got rows={rows}, N={n}")
+    need = mma_planes_bytes(n) + tiles * digit_tile_bytes(rows, n)
+    if tiles and need > SMEM_BLOCK_BYTES:
+        return (f"the tensor-core external product's {tiles} digit tile(s) "
+                f"of rows={rows}, N={n} need {need} bytes of shared memory, "
+                f"a block has {SMEM_BLOCK_BYTES}")
+    return None
+
+
+def kernels_take(mode: str, params: TFHEParams) -> bool:
+    """Whether the kernels of step mode ``mode`` accept ``params``'
+    shape (:func:`kernels_refusal`); ``blind_rotate`` takes the plain
+    step where they do not."""
+    return kernels_refusal(mode, params.trgsw_rows, params.N) is None
+
+
+def _refuse(why: str | None) -> None:
+    if why is not None:
+        raise ValueError(why)
 
 
 def mma_tile_check(rows: int, n: int) -> None:
     """Raise ``ValueError`` for a shape the tensor-core tile refuses: N
     must be a power of two of at least 64 and rows * N below
     :data:`MMA_MAX_TERMS`."""
-    if n < 64 or n & (n - 1):
-        raise ValueError(f"the tensor-core external product needs N a power "
-                         f"of two >= 64, got N={n}")
-    if rows * n >= MMA_MAX_TERMS:
-        raise ValueError(
-            f"the tensor-core external product needs rows * N < "
-            f"{MMA_MAX_TERMS} (each int8 limb's sum must stay exact in "
-            f"int32), got rows={rows}, N={n}")
+    _refuse(kernels_refusal("split", rows, n))
 
 
 def mma_limb_bytes(e: torch.Tensor) -> torch.Tensor:
@@ -307,11 +378,7 @@ def _external_product_launch(wrapper, entry: str, plain, d: torch.Tensor,
     if not d.is_cuda:
         return plain(d, bk_i, params, acc)
 
-    if tr and n % 8:
-        raise ValueError(f"the transposed external-product kernel needs "
-                         f"N % 8 == 0, got N={n}")
-    if not tr:
-        mma_tile_check(rows, n)
+    _refuse(kernels_refusal("tr" if tr else "split", rows, n))
     out = torch.empty((kp1, *shape), dtype=torch.int32, device=d.device)
     if b == 0:
         return out
@@ -353,12 +420,221 @@ def cmux_step_plain(acc: torch.Tensor, bara: torch.Tensor,
     return external_product_plain(d, bk_i, params, acc)
 
 
-def _cmux_step_launch(wrapper, entry: str, acc: torch.Tensor,
+# A plain model of what the two step kernels add to the tile: the digit
+# tile a block decomposes into shared memory, the part of it a split
+# tile's block decomposes, and the overlap kernel's order of work.
+
+def accumulator_for_digits(params: TFHEParams, digit: int, shape: tuple,
+                           device=None) -> torch.Tensor:
+    """An int32 accumulator of ``shape`` whose CMux step at bara = N
+    decomposes to ``digit`` (in [-Bg/2, Bg/2)) in every digit row and
+    column: X^N·acc - acc = -2·acc, so acc = -diff / 2 for the diff
+    whose l fields all hold ``digit``, which is even while
+    l * bg_bit < 32."""
+    field = digit + (1 << (params.bg_bit - 1))
+    v = sum(field << (32 - (j + 1) * params.bg_bit) for j in range(params.l))
+    neg_diff = (_offset(params.bg_bit, params.l) - v) % (1 << 32)
+    if neg_diff % 2:
+        raise ValueError("no accumulator gives these digits at bara = N "
+                         "(l * bg_bit == 32)")
+    acc = neg_diff // 2
+    return torch.full(shape, acc - (1 << 32) if acc >= 1 << 31 else acc,
+                      dtype=torch.int32, device=device)
+
+
+def cmux_digit_tile(acc: torch.Tensor, bara: torch.Tensor,
+                    params: TFHEParams, b0: int, p_lo: int = 0,
+                    p_hi: int | None = None, col_lo: int = 0,
+                    col_hi: int | None = None, bl_lo: int = 0,
+                    bl_hi: int = MMA_TILE_ROWS) -> torch.Tensor:
+    """``decompose_tile`` of the kernels: the (rows, 16, N + 16) int8
+    tile a block builds in shared memory for batch rows b0 .. b0 + 15 of
+    acc (k+1, B, N): tile rows bl_lo .. bl_hi - 1, digit rows p_lo ..
+    p_hi at columns col_lo .. col_hi - 1 (all by default).  Rows past
+    the batch hold zero digits; what the block does not write (the
+    padding, and digits outside the ranges) is zero here and never read
+    there."""
+    rows, n = params.trgsw_rows, params.N
+    p_hi = rows - 1 if p_hi is None else p_hi
+    col_hi = n if col_hi is None else col_hi
+    d = rot_diff_decompose_plain(
+        acc[:, b0:b0 + MMA_TILE_ROWS].contiguous(),
+        bara[b0:b0 + MMA_TILE_ROWS].contiguous(), params)
+    tile = torch.zeros((rows, MMA_TILE_ROWS, n + DIGIT_ROW_PAD),
+                       dtype=torch.int8, device=acc.device)
+    bl_hi = min(bl_hi, d.shape[1])
+    tile[p_lo:p_hi + 1, bl_lo:bl_hi, col_lo:col_hi] = \
+        d[p_lo:p_hi + 1, bl_lo:bl_hi, col_lo:col_hi]
+    return tile
+
+
+#: the most blocks the fused2 launch joins in a thread-block cluster
+STEP_CLUSTER_MAX = 2
+
+
+def step_cluster_shares(nper: int, split: int) -> list:
+    """The fused2 launch's cluster: the ``nper`` blocks that share 16
+    batch rows form clusters of the largest size up to
+    :data:`STEP_CLUSTER_MAX` that divides ``nper`` (of one block when the
+    launch splits each tile's sum), and rank r of c decomposes tile rows
+    16 r // c .. 16 (r + 1) // c - 1, then copies the rest from its
+    peers' shared memory.  Returns the (bl_lo, bl_hi) of each rank."""
+    csize = STEP_CLUSTER_MAX if split == 1 else 1
+    while nper % csize:
+        csize -= 1
+    return [(r * MMA_TILE_ROWS // csize, (r + 1) * MMA_TILE_ROWS // csize)
+            for r in range(csize)]
+
+
+def mma_split_for(ntiles: int, nchunks: int, sms: int) -> int:
+    """``mma::split_for``: the smallest divisor of a tile's ``nchunks``
+    (p, chunk) pairs that gives a launch of ``ntiles`` tiles at least
+    one part per SM."""
+    split = 1
+    while ntiles * split < sms and split < nchunks:
+        split += 1
+        while nchunks % split:
+            split += 1
+    return split
+
+
+def cmux_part_ranges(rows: int, n: int, split: int) -> list:
+    """What part q of a tile split ``split`` ways sums and decomposes
+    (``part_range`` of the kernels), as (c_begin, c_end, p_lo, p_hi,
+    col_lo, col_hi) for q = 0 .. split - 1: the (p, chunk) pairs c_begin
+    .. c_end - 1 (pair c = p * (N / T) + chunk), and the digit rows p_lo
+    .. p_hi and columns col_lo .. col_hi - 1 its block decomposes first:
+    one row's columns of its chunks when their count is a power of two,
+    else all columns of every row it touches."""
+    t = min(n, MMA_TILE_COLS)
+    nchunk = n // t
+    nchunks = rows * nchunk
+    parts = []
+    for q in range(split):
+        c_begin, c_end = q * nchunks // split, (q + 1) * nchunks // split
+        p_lo, p_hi = c_begin // nchunk, (c_end - 1) // nchunk
+        count = c_end - c_begin
+        if p_lo == p_hi and count & (count - 1) == 0:
+            col_lo = (c_begin - p_lo * nchunk) * t
+            parts.append((c_begin, c_end, p_lo, p_hi, col_lo,
+                          col_lo + count * t))
+        else:
+            parts.append((c_begin, c_end, p_lo, p_hi, 0, n))
+    return parts
+
+
+def tiles_per_item(nbt: int, group: int, places: int) -> int:
+    """``tiles_per_item`` of the step kernels' launches: the tiles a
+    block (fused2) or a work item (overlap) computes from one
+    decomposition.  Of the ways to cut a row group's ``group`` tiles into
+    equal runs, the one whose busiest place ends soonest when ``nbt``
+    row groups are dealt to ``places`` blocks resident at once, a run
+    costing its tiles and a quarter of a tile for its decomposition; of
+    equal ones the longest run."""
+    best, best_cost = group, None
+    for parts in range(1, group + 1):
+        per = -(-group // parts)
+        items = nbt * -(-group // per)
+        cost = -(-items // places) * (4 * per + 1)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = per, cost
+    return best
+
+
+def step_work_items(batch: int, n: int, kp1: int, places: int) -> list:
+    """The step kernels' work items in their order, as (b0, [(jb, o),
+    ...]): 16 batch rows from b0 and a run of their N/T x (k+1) output
+    tiles, tile t at coefficient jb = (t % (N/T)) * T of component
+    o = t // (N/T).  Under fused2 item (x, y) is block (x, y) of the
+    grid; block x of the overlap kernel's grid of g takes items x,
+    x + g, ..."""
+    t = min(n, MMA_TILE_COLS)
+    njt = n // t
+    nbt, group = -(-batch // MMA_TILE_ROWS), njt * kp1
+    per = tiles_per_item(nbt, group, places)
+    return [(bt * MMA_TILE_ROWS,
+             [((tl % njt) * t, tl // njt)
+              for tl in range(t0, min(t0 + per, group))])
+            for bt in range(nbt) for t0 in range(0, group, per)]
+
+
+def cmux_step_mma_model(acc: torch.Tensor, bara: torch.Tensor,
+                        bk_i: torch.Tensor, params: TFHEParams,
+                        sms: int = 132, blocks_per_sm: int = 2,
+                        cluster: bool = True) -> torch.Tensor:
+    """The fused2 kernel's work in plain ops, block by block, on a card
+    of ``sms`` SMs that hold ``blocks_per_sm`` of its blocks each.  With
+    fewer tiles than SMs: per 16 batch rows and part of the split, the
+    digit tile the block decomposes (:func:`cmux_digit_tile` over
+    :func:`cmux_part_ranges`), cut to the part's (p, chunk) pairs, through
+    :func:`external_product_mma_model`, the parts' shares added to a copy
+    of the accumulator.  Else per work item of :func:`step_work_items`
+    one whole digit tile (with ``cluster`` put together from the shares
+    of :func:`step_cluster_shares`) and, from it, each of the item's
+    output tiles, every output written once.  Same arguments and result
+    as :func:`cmux_step_plain`."""
+    rows, kp1, n = bk_i.shape
+    b = acc.shape[1]
+    t = min(n, MMA_TILE_COLS)
+    nbt = -(-b // MMA_TILE_ROWS)
+    split = mma_split_for(nbt * (n // t) * kp1, rows * (n // t), sms)
+    if split > 1:
+        out = acc.clone()
+        for b0 in range(0, b, MMA_TILE_ROWS):
+            nb = min(MMA_TILE_ROWS, b - b0)
+            for c_begin, c_end, *rect in cmux_part_ranges(rows, n, split):
+                tile = cmux_digit_tile(acc, bara, params, b0, *rect)
+                d = torch.zeros((rows, nb, n), dtype=torch.int8,
+                                device=acc.device)
+                for c in range(c_begin, c_end):
+                    p, m0 = c // (n // t), (c % (n // t)) * t
+                    d[p, :, m0:m0 + t] = tile[p, :nb, m0:m0 + t]
+                out[:, b0:b0 + nb] += external_product_mma_model(d, bk_i,
+                                                                 params)
+        return out
+    out = torch.zeros_like(acc)
+    written = torch.zeros_like(acc)
+    items = step_work_items(b, n, kp1, sms * blocks_per_sm)
+    shares = step_cluster_shares(len(items) // nbt, split) if cluster \
+        else [(0, MMA_TILE_ROWS)]
+    for b0, tiles in items:
+        nb = min(MMA_TILE_ROWS, b - b0)
+        # a cluster's blocks each decompose a share of the rows; every
+        # block ends with the whole tile
+        tile = sum(cmux_digit_tile(acc, bara, params, b0, bl_lo=lo, bl_hi=hi)
+                   for lo, hi in shares)
+        full = external_product_mma_model(
+            tile[:, :nb, :n].contiguous(), bk_i, params,
+            acc[:, b0:b0 + nb].contiguous())
+        for jb, o in tiles:
+            out[o, b0:b0 + nb, jb:jb + t] = full[o, :, jb:jb + t]
+            written[o, b0:b0 + nb, jb:jb + t] += 1
+    if not bool((written == 1).all()):
+        raise AssertionError("the work items do not write every output "
+                             "tile once")
+    return out
+
+
+def cmux_step_overlap_mma_model(acc: torch.Tensor, bara: torch.Tensor,
+                                bk_i: torch.Tensor, params: TFHEParams,
+                                sms: int = 132) -> torch.Tensor:
+    """The overlap kernel's work in plain ops on a card of ``sms`` SMs:
+    :func:`cmux_step_mma_model` with one block an SM (with fewer tiles
+    than SMs its launch runs the fused2 kernel's split parts; else its
+    persistent blocks walk the same work items, each decomposing its
+    own)."""
+    return cmux_step_mma_model(acc, bara, bk_i, params, sms, blocks_per_sm=1,
+                               cluster=False)
+
+
+def _cmux_step_launch(wrapper, entry: str, mode: str, acc: torch.Tensor,
                       bara: torch.Tensor, bk_i: torch.Tensor,
                       params: TFHEParams) -> torch.Tensor:
     """Both step kernels' wrapper body: the new accumulator from the C
-    entry point ``entry`` on CUDA tensors, counted on ``wrapper``, or
-    from the plain twin on CPU tensors."""
+    entry point ``entry`` on CUDA tensors (which raises ``ValueError``
+    for a shape :func:`kernels_refusal` refuses under ``mode``), counted
+    on ``wrapper``, or from the plain twin on CPU tensors.  The output
+    never aliases ``acc``: blocks read it while others write."""
     _require_single_limb(params)
     rows, kp1, b, n = params.trgsw_rows, params.k + 1, bara.numel(), params.N
     _check(acc, "acc", torch.int32, (kp1, b, n), acc.device, align=16)
@@ -367,8 +643,7 @@ def _cmux_step_launch(wrapper, entry: str, acc: torch.Tensor,
     if not acc.is_cuda:
         return cmux_step_plain(acc, bara, bk_i, params)
 
-    if n % 8:
-        raise ValueError(f"the CMux step kernels need N % 8 == 0, got N={n}")
+    _refuse(kernels_refusal(mode, rows, n))
     out = torch.empty_like(acc)
     if b == 0:
         return out
@@ -388,8 +663,8 @@ def cmux_step(acc: torch.Tensor, bara: torch.Tensor, bk_i: torch.Tensor,
     """One CMux step, acc + BK_i ⊡ (X^bara·acc - acc), as one kernel
     (``fused2``): acc (k+1, B, N) int32, bara (B,) int32 in [0, 2N),
     bk_i (rows, k+1, N) int32 -> (k+1, B, N) int32, exact mod 2^32."""
-    return _cmux_step_launch(cmux_step, "ieache_cmux_step", acc, bara,
-                             bk_i, params)
+    return _cmux_step_launch(cmux_step, "ieache_cmux_step", "fused2", acc,
+                             bara, bk_i, params)
 
 
 cmux_step.launches = 0
@@ -397,11 +672,11 @@ cmux_step.launches = 0
 
 def cmux_step_overlap(acc: torch.Tensor, bara: torch.Tensor,
                       bk_i: torch.Tensor, params: TFHEParams) -> torch.Tensor:
-    """:func:`cmux_step` with the next tile's rotate + decompose
-    overlapped with this tile's product (``overlap``/``overlap2``);
+    """:func:`cmux_step` with the next batch rows' rotate + decompose
+    overlapped with these rows' product (``overlap``/``overlap2``);
     same arguments and result, bit for bit."""
     return _cmux_step_launch(cmux_step_overlap, "ieache_cmux_step_overlap",
-                             acc, bara, bk_i, params)
+                             "overlap", acc, bara, bk_i, params)
 
 
 cmux_step_overlap.launches = 0
@@ -440,7 +715,7 @@ def blind_rotate_scan(acc: torch.Tensor, bara: torch.Tensor, bk: torch.Tensor,
     if not acc.is_cuda:
         return blind_rotate_scan_plain(acc, bara, bk, params)
 
-    mma_tile_check(rows, n)
+    _refuse(kernels_refusal("scan", rows, n))
     if b == 0 or steps == 0:
         return acc.clone()
     out = torch.empty_like(acc)

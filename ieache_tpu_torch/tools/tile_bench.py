@@ -1,23 +1,25 @@
-"""Times of the two kernels on the tensor-core tile, by batch.
+"""Times of the four kernels on the tensor-core tile, by batch.
 
-``external_product`` (ms per call with the accumulator fused: the median
-of three CUDA-graph replays of 50 calls) and ``blind_rotate_scan`` (ms
-per whole rotation of n steps: the median of three runs of 3 calls
-between CUDA events) at ``IEACHE_110_FAST`` or ``IEACHE_110`` on random
-operands from seed 0, each first held against its plain twin (the scan
-kernel at batches up to 16 only: its twin takes half a second a
-rotation).  One JSON line with the card's name, power limit and clocks.
-It is the yardstick for a change to ``csrc/mma_tile.cuh``: run it on two
-copies of the package within one call, and on a copy with a part of the
-kernel taken out (the build of the byte planes, the MMAs, the atomic
-adds, a phase of the scan kernel) to see that part's share; such a copy
-computes garbage, so ``TB_CHECK=0`` skips the comparison.  Run from the
-root of a checkout, on a CUDA device:
+``external_product`` (ms per call with the accumulator fused),
+``cmux_step`` and ``cmux_step_overlap`` (ms per step; each the median of
+three CUDA-graph replays of 50 calls) and ``blind_rotate_scan`` (ms per
+whole rotation of n steps: the median of three runs of 3 calls between
+CUDA events) at ``IEACHE_110_FAST`` or ``IEACHE_110`` on random operands
+from seed 0, each first held against its plain twin (the scan kernel at
+batches up to 16 only: its twin takes half a second a rotation).  One
+JSON line with the card's name, power limit and clocks.  It is the
+yardstick for a change to ``csrc/mma_tile.cuh`` or to the step kernels:
+run it on two copies of the package within one call, and on a copy with
+a part of the kernel taken out (the build of the byte planes, the MMAs,
+the atomic adds, ``decompose_tile``, a phase of the scan kernel) to see
+that part's share; such a copy computes garbage, so ``TB_CHECK=0`` skips
+the comparison.  Run from the root of a checkout, on a CUDA device:
 
     python -m ieache_tpu_torch.tools.tile_bench
 
-Env: TB_PRODUCT_B (comma list, default ``8,16,1024``), TB_SCAN_B
-(``8,1024``), TB_PARAMS (ieache_110_l2, or ieache_110), TB_CHECK (1).
+Env: TB_PRODUCT_B (comma list, default ``8,16,1024``), TB_STEP_B
+(``8,16,1024``), TB_SCAN_B (``8,1024``), TB_PARAMS (ieache_110_l2, or
+ieache_110), TB_CHECK (1).
 """
 
 from __future__ import annotations
@@ -65,15 +67,23 @@ def scan_inputs(p, b: int, device, rng):
                   np.int32, device))
 
 
+def step_inputs(p, b: int, device, rng):
+    """acc (k+1, B, N), bara (B,), bk_i (rows, k+1, N)."""
+    return (_rand(rng, (p.k + 1, b, p.N), -2**31, 2**31, np.int32, device),
+            _rand(rng, (b,), 0, 2 * p.N, np.int32, device),
+            _rand(rng, (p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31, np.int32,
+                  device))
+
+
 def run(p, product_b, scan_b, device, check: bool = True,
-        timed: bool = True) -> dict:
-    """The record: ``external_product_ms`` and ``blind_rotate_scan_ms``
-    by batch.  ``check`` holds each kernel against its twin first and
-    raises where they differ; ``timed=False`` (the CPU rehearsal) only
-    checks."""
+        timed: bool = True, step_b=()) -> dict:
+    """The record: ``external_product_ms``, ``cmux_step_ms``,
+    ``cmux_step_overlap_ms`` and ``blind_rotate_scan_ms`` by batch.
+    ``check`` holds each kernel against its twin first and raises where
+    they differ; ``timed=False`` (the CPU rehearsal) only checks."""
     rng = np.random.RandomState(0)
-    rec = {"params": p.name, "external_product_ms": {},
-           "blind_rotate_scan_ms": {}}
+    rec = {"params": p.name, "external_product_ms": {}, "cmux_step_ms": {},
+           "cmux_step_overlap_ms": {}, "blind_rotate_scan_ms": {}}
     for b in product_b:
         d, bk_i, acc = product_inputs(p, b, device, rng)
         if check and not torch.equal(
@@ -86,6 +96,19 @@ def run(p, product_b, scan_b, device, check: bool = True,
                 graph_ms(lambda: kernels.external_product(d, bk_i, p,
                                                           acc=acc), 50)
                 for _ in range(3))
+    for b in step_b:
+        acc, bara, bk_i = step_inputs(p, b, device, rng)
+        for name in ("cmux_step", "cmux_step_overlap"):
+            kern = getattr(kernels, name)
+            if check and not torch.equal(
+                    kern(acc, bara, bk_i, p),
+                    kernels.cmux_step_plain(acc, bara, bk_i, p)):
+                raise AssertionError(f"{name} differs from its twin at "
+                                     f"B={b}")
+            if timed:
+                rec[name + "_ms"][b] = statistics.median(
+                    graph_ms(lambda: kern(acc, bara, bk_i, p), 50)
+                    for _ in range(3))
     for b in scan_b:
         acc, bara, bk = scan_inputs(p, b, device, rng)
         if check and b <= SCAN_CHECK_MAX_B and not torch.equal(
@@ -112,7 +135,8 @@ def main() -> int:
 
     rec = run(PARAMS[env("PARAMS", "ieache_110_l2")],
               batches("PRODUCT_B", "8,16,1024"), batches("SCAN_B", "8,1024"),
-              device, check=env("CHECK", "1") != "0")
+              device, check=env("CHECK", "1") != "0",
+              step_b=batches("STEP_B", "8,16,1024"))
     print(json.dumps({**rec, "device": torch.cuda.get_device_name(device),
                       "card": card_line(), "card_state": card_state()}),
           flush=True)

@@ -92,6 +92,42 @@ def test_keygen_and_multiply_phases_pass_on_cpu_twins():
         cs.keygen_vs_host(ks, dev)
 
 
+def test_small_n_phase_passes_on_cpu_twins():
+    """Phase 4's blind rotation at N=32 under every step mode and under
+    the interpret route: equal to plain=True, nothing launched, and
+    IEACHE_PALLAS=1 raises for the modes whose kernels refuse it."""
+    cs = _chip_smoke()
+    saved = (os.environ.get("IEACHE_PALLAS_STEP"),
+             os.environ.get("IEACHE_PALLAS"))
+    assert cs.SMALL_N_PARAMS.N == 32 and cs.SMALL_N_PARAMS.n == 8
+    cs.small_n_vs_plain(cs.SMALL_N_PARAMS, torch.device("cpu"), batch=2)
+    assert (os.environ.get("IEACHE_PALLAS_STEP"),
+            os.environ.get("IEACHE_PALLAS")) == saved
+    # a shape every mode's kernels take is no small-N case
+    with pytest.raises(AssertionError, match="kernels_take"):
+        cs.small_n_vs_plain(P.TEST_TINY, torch.device("cpu"))
+
+
+def test_fused2_runs_the_expressions_of_the_counted_path():
+    """Phase 6 under fused2: A + B - C (ripple and fused) in the mode's
+    counted run, every lane right, no launch on CPU tensors."""
+    cs = _chip_smoke()
+    dev = torch.device("cpu")
+    assert cs.EXPRESSION_MODES == ("split", "fused2", "scan")
+    assert set(cs.TIMED_EXPRESSION_MODES) >= {"split", "fused2", "overlap",
+                                              "scan"}
+    assert {"cmux_step", "cmux_step_overlap", "external_product",
+            "rot_diff_decompose"} <= set(cs.SMALL_BATCH_KERNELS)
+    p = P.TEST_TINY
+    ks = keygen.generate_secret_keyset(p)
+    key = bootstrap.pack_cloud_key(ks.cloud, dev)
+    errors, _, expr_s, _, launches = cs.run_mode(
+        ks, key, "fused2", cs.nand_inputs(ks, 8, dev),
+        cs.expression_inputs(ks, 6, 3, dev), [], dev)
+    assert errors == 0 and set(expr_s) == {"A+B-C", "A+B-C fused"}
+    assert not any(launches.values())
+
+
 def test_bounds_are_the_larger_of_bytes_and_operations():
     cs = _chip_smoke()
     p = P.IEACHE_110_FAST
@@ -110,15 +146,25 @@ def test_bounds_are_the_larger_of_bytes_and_operations():
 
 @pytest.mark.parametrize("rows", [4, 6])
 def test_tensor_core_tile_phase_passes_on_cpu_twins(rows):
-    """Phase 3's second pass over external_product and blind_rotate_scan
-    (extreme operands, 4 and 6 TRGSW rows, a batch either side of the
-    split), on the twins."""
+    """Phase 3's second pass over the four kernels on the tensor-core
+    tile (extreme operands and accumulators, 4 and 6 TRGSW rows, a batch
+    either side of the split), on the twins."""
     cs = _chip_smoke()
     dev = torch.device("cpu")
     p = dataclasses.replace(P.TEST_TINY, l=rows // 2, name=f"tiny_{rows}rows")
     assert p.trgsw_rows == rows
     errs = cs.check_mma_kernels(p, dev, (1, 5, 8), split_edge=(16, 17))
-    assert errs == {"external_product": 0, "blind_rotate_scan": 0}
+    assert errs == {"external_product": 0, "blind_rotate_scan": 0,
+                    "cmux_step": 0, "cmux_step_overlap": 0}
+    # the extreme accumulators decompose to what their names say
+    at = {name: cs.kernels.rot_diff_decompose_plain(acc, bara, p)
+          for name, acc, bara, _ in cs.extreme_accumulators(
+              p, 3, dev, np.random.RandomState(0))}
+    assert len(at) == 4
+    assert {(int(d.min()), int(d.max())) for name, d in at.items()
+            if name.startswith("digits -128")} == {(-128, -128)}
+    assert {(int(d.min()), int(d.max())) for name, d in at.items()
+            if name.startswith("digits +127")} == {(127, 127)}
     names = [name for name, _, _ in cs.extreme_operands(
         p, 3, dev, np.random.RandomState(0))]
     assert len(names) == 4 and len(set(names)) == 4
@@ -141,7 +187,7 @@ def test_step_calls_and_lines_of_the_timing_phase():
     p = P.TEST_TINY
     for b in cs.SMALL_BATCHES:
         calls = cs.step_calls(p, dev, b)
-        assert {"external_product", "external_product_tr"} <= set(calls)
+        assert set(cs.SMALL_BATCH_KERNELS) <= set(calls)
         for name, (kern, plain, inputs, ops) in calls.items():
             got, want = kern(), plain()
             assert torch.equal(got, want), name
@@ -184,9 +230,15 @@ def test_tile_bench_checks_on_cpu_twins():
 
     dev = torch.device("cpu")
     p = P.TEST_TINY
-    rec = tile_bench.run(p, [1, 8], [5], dev, check=True, timed=False)
+    rec = tile_bench.run(p, [1, 8], [5], dev, check=True, timed=False,
+                         step_b=[3, 17])
     assert rec == {"params": p.name, "external_product_ms": {},
+                   "cmux_step_ms": {}, "cmux_step_overlap_ms": {},
                    "blind_rotate_scan_ms": {}}
+    acc, bara, bk_i = tile_bench.step_inputs(p, 3, dev,
+                                             np.random.RandomState(0))
+    assert acc.shape == (p.k + 1, 3, p.N) and bara.shape == (3,)
+    assert bk_i.shape == (p.trgsw_rows, p.k + 1, p.N)
     rng = np.random.RandomState(0)
     d, bk_i, acc = tile_bench.product_inputs(p, 3, dev, rng)
     assert d.shape == (p.trgsw_rows, 3, p.N) and d.dtype == torch.int8

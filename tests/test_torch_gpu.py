@@ -53,6 +53,19 @@ MODES = {
 }
 
 
+#: key words whose int8 limbs are all -128 / all +127
+LIMBS_LO, LIMBS_HI = 0x80808080 - 2**32, 0x7F7F7F7F
+
+#: words at which a carry between limbs goes wrong
+EDGE_KEY_WORDS = (-2**31, -1, 2**31 - 1, LIMBS_HI, LIMBS_LO, 0)
+
+
+def _edge_key(shape, device):
+    edge = torch.tensor(EDGE_KEY_WORDS, dtype=torch.int32, device=device)
+    idx = torch.arange(int(np.prod(shape)), device=device)
+    return edge[idx % len(edge)].reshape(shape)
+
+
 @contextlib.contextmanager
 def _env(name, value):
     saved = os.environ.get(name)
@@ -208,6 +221,119 @@ def test_cmux_step_kernels_match_plain(cuda, p, b, step):
         want = kernels.cmux_step_plain(acc, bara, bk_i, p)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+#: the batches at which the step kernels' launches change shape at
+#: N=1024: split parts up to 256 lanes, whole tiles from 257
+STEP_BATCHES = [1, 5, 8, 16, 256, 257, 1024, 1056]
+
+
+@pytest.mark.parametrize("p", PARAMS, ids=lambda p: p.name)
+@pytest.mark.parametrize("b", STEP_BATCHES)
+@pytest.mark.parametrize("step", ["cmux_step", "cmux_step_overlap"])
+def test_cmux_step_kernels_extreme_accumulators(cuda, p, b, step):
+    """Both fused kernels on the tensor-core tile: accumulators that
+    decompose to -128 and to +127 everywhere (bara = N) on key limbs at
+    their ends, a random accumulator on the edge key words, and random
+    operands; equal to the twin, one launch a call."""
+    kern = getattr(kernels, step)
+    rng = np.random.RandomState(600 + b)
+    shape_a = (p.k + 1, b, p.N)
+    shape_k = (p.trgsw_rows, p.k + 1, p.N)
+    at_n = torch.full((b,), p.N, dtype=torch.int32, device=cuda)
+    cases = []
+    for digit, limbs in ((-128, LIMBS_LO), (127, LIMBS_HI), (-128, LIMBS_HI)):
+        acc = kernels.accumulator_for_digits(p, digit, shape_a, cuda)
+        d = kernels.rot_diff_decompose_plain(acc, at_n, p)
+        assert int(d.min()) == int(d.max()) == digit
+        cases.append((acc, at_n, torch.full(shape_k, limbs,
+                                            dtype=torch.int32, device=cuda)))
+    for key in (_edge_key(shape_k, cuda),
+                _rand(rng, shape_k, -2**31, 2**31, np.int32, cuda)):
+        cases.append((_rand(rng, shape_a, -2**31, 2**31, np.int32, cuda),
+                      _rand(rng, (b,), 0, 2 * p.N, np.int32, cuda), key))
+    for i, (acc, bara, bk_i) in enumerate(cases):
+        before = kern.launches
+        got = kern(acc, bara, bk_i, p)
+        assert kern.launches == before + 1
+        want = kernels.cmux_step_plain(acc, bara, bk_i, p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), i
+        assert got.data_ptr() != acc.data_ptr()
+
+
+@pytest.mark.parametrize("p", [
+    dataclasses.replace(P.TEST_TINY, bg_bit=6, l=3, name="tiny_bg6"),
+    dataclasses.replace(P.TEST_SMALL_NOISY, bg_bit=4, l=4, name="small_bg4"),
+    dataclasses.replace(P.IEACHE_110, name="ieache_110_6rows"),
+    dataclasses.replace(P.TEST_TINY, N=128, name="tiny_n128")],
+    ids=lambda p: p.name)
+@pytest.mark.parametrize("b", [3, 40, 1056])
+@pytest.mark.parametrize("step", ["cmux_step", "cmux_step_overlap"])
+def test_cmux_step_kernels_other_gadgets_and_sizes(cuda, p, b, step):
+    """A gadget base below 2^8 (digits by shift and mask, not by byte
+    permutes), 6 TRGSW rows at N=1024 (one fused2 block an SM), and the
+    N=128 tile."""
+    rng = np.random.RandomState(700 + b)
+    acc = _rand(rng, (p.k + 1, b, p.N), -2**31, 2**31, np.int32, cuda)
+    bk_i = _rand(rng, (p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31, np.int32,
+                 cuda)
+    for bara in (_rand(rng, (b,), 0, 2 * p.N, np.int32, cuda),
+                 torch.full((b,), p.N, dtype=torch.int32, device=cuda)):
+        got = getattr(kernels, step)(acc, bara, bk_i, p)
+        want = kernels.cmux_step_plain(acc, bara, bk_i, p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+#: the smallest input that showed the fault: N below the tile's 64
+SMALL_N = P.TFHEParams(n=8, N=32, k=1, bg_bit=8, l=2, ks_basebit=4, ks_t=4,
+                       lwe_noise_scale=0, tlwe_noise_scale=0, name="n32")
+
+
+@pytest.mark.parametrize("route", ["auto", "interpret"])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_small_n_takes_the_plain_step_on_the_card(cuda, mode, route):
+    """At N=32 the blind rotation on CUDA tensors equals plain=True under
+    every step mode; the tensor-core modes launch nothing (their kernels
+    refuse the shape, and the plain step runs), tr launches its own."""
+    from ieache_tpu_torch.ops.blind_rotate import blind_rotate
+
+    p = SMALL_N
+    rng = np.random.RandomState(32)
+    acc0 = _rand(rng, (1, p.k + 1, p.N), -2**31, 2**31, np.int32, cuda)
+    bara = _rand(rng, (1, p.n), 0, 2 * p.N, np.int32, cuda)
+    bk = _rand(rng, (p.n, p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
+               np.int32, cuda)
+    want = blind_rotate(acc0, bara, bk, p, plain=True)
+    counts = [w.launches for w in WRAPPERS.values()]
+    with _step_mode(mode), _env("IEACHE_PALLAS", route):
+        got = blind_rotate(acc0, bara, bk, p)
+    torch.cuda.synchronize()
+    assert got.is_cuda and torch.equal(got, want)
+    takes = kernels.kernels_take(mode, p)
+    assert takes == (mode in ("tr", "ntt"))
+    assert _launched(counts) == (set(MODES[mode])
+                                 if takes and route == "auto" else set())
+    if not takes:
+        with _step_mode(mode), _env("IEACHE_PALLAS", "1"):
+            with pytest.raises(ValueError, match="refuse this shape"):
+                blind_rotate(acc0, bara, bk, p)
+
+
+def test_small_n_bootstrap_runs_on_the_card(cuda):
+    """The whole gate bootstrap at N=32 under the default mode, which
+    raised before the blind rotation asked the predicate."""
+    ks = keygen.generate_secret_keyset(SMALL_N)
+    key = bootstrap.pack_cloud_key(ks.cloud, cuda)
+    bits = prng.uniform_bits01(prng.key_from_seed_words([3]), 9)
+    ct = encrypt.encrypt_bits(ks, bits, prng.key_from_seed_words([4]), cuda)
+    counts = [w.launches for w in WRAPPERS.values()]
+    got = bootstrap.bootstrap(ct, key)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bootstrap.bootstrap(ct, key, plain=True))
+    np.testing.assert_array_equal(encrypt.decrypt_bits(ks, got), bits)
+    assert _launched(counts) == set()
 
 
 @pytest.mark.parametrize("p", PARAMS, ids=lambda p: p.name)
@@ -374,19 +500,7 @@ def test_device_keygen_and_encrypt_match_host_on_the_card(cuda, p):
 # blind_rotate_scan on random and extreme operands
 # ---------------------------------------------------------------------------
 
-#: key words whose int8 limbs are all -128 / all +127
-LIMBS_LO, LIMBS_HI = 0x80808080 - 2**32, 0x7F7F7F7F
-
-#: words at which a carry between limbs goes wrong
-EDGE_KEY_WORDS = (-2**31, -1, 2**31 - 1, LIMBS_HI, LIMBS_LO, 0)
-
 MMA_BATCHES = [1, 5, 8, 16, 64, 1056]
-
-
-def _edge_key(shape, device):
-    edge = torch.tensor(EDGE_KEY_WORDS, dtype=torch.int32, device=device)
-    idx = torch.arange(int(np.prod(shape)), device=device)
-    return edge[idx % len(edge)].reshape(shape)
 
 
 @pytest.mark.parametrize("p", PARAMS, ids=lambda p: p.name)
@@ -460,10 +574,12 @@ def test_blind_rotate_scan_kernel_edge_key_words(cuda, p, b):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("mode", ["split", "scan"])
+@pytest.mark.parametrize("mode", ["split", "scan", "fused2", "overlap",
+                                  "overlap2"])
 def test_nand_decrypts_under_the_tensor_core_modes(cuda, mode):
-    """NAND through the bootstrap under split and scan decrypts to the
-    truth table, and launched the mode's kernels and no other."""
+    """NAND through the bootstrap under the five modes on the tensor-core
+    tile decrypts to the truth table, and launched the mode's kernels and
+    no other."""
     from ieache_tpu_torch.boot import gates
 
     p = P.TEST_SMALL_NOISY
@@ -486,7 +602,8 @@ def test_nand_decrypts_under_the_tensor_core_modes(cuda, mode):
     dataclasses.replace(P.TEST_TINY, N=32, name="n32")], ids=lambda p: p.name)
 def test_tensor_core_kernels_refuse_shapes_over_their_bounds(cuda, p):
     """rows * N >= 2^17 (a limb's sum could leave int32), or an N below
-    64: both wrappers raise on CUDA tensors and launch nothing."""
+    64: the four wrappers on the tile raise on CUDA tensors and launch
+    nothing."""
     rows, kp1, n = p.trgsw_rows, p.k + 1, p.N
     d = torch.zeros((rows, 1, n), dtype=torch.int8, device=cuda)
     bk = torch.zeros((1, rows, kp1, n), dtype=torch.int32, device=cuda)
@@ -497,6 +614,9 @@ def test_tensor_core_kernels_refuse_shapes_over_their_bounds(cuda, p):
         kernels.external_product(d, bk[0], p, acc=acc)
     with pytest.raises(ValueError, match="tensor-core external product"):
         kernels.blind_rotate_scan(acc, bara, bk, p)
+    for step in (kernels.cmux_step, kernels.cmux_step_overlap):
+        with pytest.raises(ValueError, match="tensor-core external product"):
+            step(acc, bara[0], bk[0], p)
     assert _launched(counts) == set()
     # the C entry points refuse it too, whatever the wrapper checked
     lib = kernels._build.library()
@@ -505,3 +625,44 @@ def test_tensor_core_kernels_refuse_shapes_over_their_bounds(cuda, p):
     assert lib.ieache_external_product(
         d.data_ptr(), bk.data_ptr(), None, out.data_ptr(), rows, kp1, 1, n,
         stream) != 0
+    for entry in (lib.ieache_cmux_step, lib.ieache_cmux_step_overlap):
+        assert entry(acc.data_ptr(), bara.data_ptr(), bk.data_ptr(),
+                     out.data_ptr(), rows, kp1, 1, n, p.bg_bit, p.l, 0,
+                     stream) != 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("step,rows", [("cmux_step", 13),
+                                       ("cmux_step_overlap", 7)])
+def test_step_kernels_refuse_digit_tiles_over_shared_memory(cuda, step, rows):
+    """At N=1024 a fused2 block holds one digit tile of up to 12 TRGSW
+    rows and an overlap block two of up to 6: one row more is refused by
+    the wrapper and by the C entry point, and the blind rotation takes
+    the plain step."""
+    from ieache_tpu_torch.ops.blind_rotate import blind_rotate
+
+    p = dataclasses.replace(P.IEACHE_110_FAST, k=rows - 1, l=1, n=2,
+                            name=f"rows{rows}")
+    assert p.trgsw_rows == rows
+    mode = "fused2" if step == "cmux_step" else "overlap"
+    assert not kernels.kernels_take(mode, p)
+    assert kernels.kernels_take(mode, dataclasses.replace(p, k=rows - 2))
+    rng = np.random.RandomState(rows)
+    acc = _rand(rng, (rows, 2, p.N), -2**31, 2**31, np.int32, cuda)
+    bara = _rand(rng, (2, p.n), 0, 2 * p.N, np.int32, cuda)
+    bk = _rand(rng, (p.n, rows, rows, p.N), -2**31, 2**31, np.int32, cuda)
+    counts = [w.launches for w in WRAPPERS.values()]
+    with pytest.raises(ValueError, match="shared memory"):
+        getattr(kernels, step)(acc, bara[:, 0].contiguous(), bk[0], p)
+    lib = kernels._build.library()
+    out = torch.empty_like(acc)
+    assert getattr(lib, "ieache_" + step)(
+        acc.data_ptr(), bara.data_ptr(), bk.data_ptr(), out.data_ptr(), rows,
+        rows, 2, p.N, p.bg_bit, p.l, 0,
+        torch.cuda.current_stream().cuda_stream) != 0
+    acc0 = acc.transpose(0, 1).contiguous()
+    with _step_mode(mode):
+        got = blind_rotate(acc0, bara, bk, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, blind_rotate(acc0, bara, bk, p, plain=True))
+    assert _launched(counts) == set()

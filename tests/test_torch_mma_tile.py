@@ -3,7 +3,12 @@ hold it: the plain model of its operand construction in
 ``ieache_tpu_torch.ops.kernels`` (byte planes, shifted reversed copies,
 the fragment map, the per-limb fold) against the port's own references,
 the external product's plain twin, and the JAX package's Pallas kernel
-run in interpret mode on the same numpy inputs.
+run in interpret mode on the same numpy inputs; and the plain model of
+what the two fused step kernels add to it (the padded digit tile a block
+decomposes into shared memory, the part of it a split tile's block
+decomposes, a cluster's shares of its rows, the order of the work
+items) against the step's twin and the JAX package's fused Pallas
+kernels in interpret mode.
 
 All arithmetic is exact mod 2^32: the tolerance is exact equality.  The
 CUDA kernel itself is held against the twin on the card
@@ -18,7 +23,11 @@ import pytest
 import torch
 
 from ieache_tpu import params as P
-from ieache_tpu.ops.pallas_kernels import external_product_pallas_t
+from ieache_tpu.ops.pallas_kernels import (
+    cmux_step_overlap_pallas,
+    cmux_step_pallas,
+    external_product_pallas_t,
+)
 from ieache_tpu_torch.core.poly import negacyclic_extend, split_i8_limbs
 from ieache_tpu_torch.ops import kernels
 from ieache_tpu_torch.ops.blind_rotate import make_step_gmatrix
@@ -199,3 +208,197 @@ def test_cpu_tensors_take_the_twin_whatever_the_tile_refuses():
                        kernels.external_product_plain(d, bk[0], p, acc))
     assert torch.equal(kernels.blind_rotate_scan(acc, bara, bk, p),
                        kernels.blind_rotate_scan_plain(acc, bara, bk, p))
+
+
+# ---------------------------------------------------------------------------
+# the fused step kernels: digit tile, split parts, clusters, work items
+# ---------------------------------------------------------------------------
+
+def _step_case(p, b, seed):
+    rng = np.random.RandomState(seed)
+    bara = rng.randint(0, 2 * p.N, (b,)).astype(np.int32)
+    bara[:3] = (0, p.N, 2 * p.N - 1)[:b]
+    return (_rand_i32(rng, (p.k + 1, b, p.N)), bara,
+            _rand_i32(rng, (p.trgsw_rows, p.k + 1, p.N)))
+
+
+def _extreme_step_cases(p, b, seed):
+    """name -> (acc, bara, bk_i): a random accumulator, and accumulators
+    that decompose to -128 and to +127 everywhere at bara = N, on key
+    limbs at their ends."""
+    acc, bara, bk_i = _step_case(p, b, seed)
+    at_n = np.full((b,), p.N, np.int32)
+    shape_k = bk_i.shape
+    cases = {"random": (acc, bara, bk_i)}
+    for digit, limbs in ((-128, LIMBS_LO), (127, LIMBS_HI)):
+        a = kernels.accumulator_for_digits(p, digit, acc.shape).numpy()
+        cases[f"digits{digit:+d}"] = (a, at_n,
+                                      np.full(shape_k, limbs, np.int32))
+    return cases
+
+
+@pytest.mark.parametrize("p", [P.TEST_TINY, TINY_6ROWS, P.TEST_SMALL_NOISY],
+                         ids=lambda p: p.name)
+@pytest.mark.parametrize("digit", [-128, 127, 0, -1])
+def test_accumulator_for_digits_decomposes_to_them(p, digit):
+    acc = kernels.accumulator_for_digits(p, digit, (p.k + 1, 3, p.N))
+    assert acc.dtype == torch.int32
+    d = kernels.rot_diff_decompose_plain(
+        acc, torch.full((3,), p.N, dtype=torch.int32), p)
+    assert int(d.min()) == int(d.max()) == digit
+
+
+def test_accumulator_for_digits_needs_an_even_diff():
+    p = dataclasses.replace(P.TEST_TINY, l=4, name="tiny_32bits")
+    with pytest.raises(ValueError, match="l \\* bg_bit == 32"):
+        kernels.accumulator_for_digits(p, -127, (2, 1, p.N))
+
+
+@pytest.mark.parametrize("p", [P.TEST_TINY, P.TEST_SMALL_NOISY],
+                         ids=lambda p: p.name)
+@pytest.mark.parametrize("b", [5, 16, 37])
+def test_digit_tile_is_the_padded_decomposition(p, b):
+    """The (rows, 16, N + 16) tile of each 16 batch rows holds
+    rot_diff_decompose_plain's digits, zero rows past the batch and zero
+    padding; a (p, column, row) range of it holds that range alone."""
+    acc, bara, _ = _step_case(p, b, b)
+    want = kernels.rot_diff_decompose_plain(_t(acc), _t(bara), p)
+    rows, n = p.trgsw_rows, p.N
+    for b0 in range(0, b, 16):
+        nb = min(16, b - b0)
+        tile = kernels.cmux_digit_tile(_t(acc), _t(bara), p, b0)
+        assert tile.dtype == torch.int8
+        assert tile.shape == (rows, 16, n + kernels.DIGIT_ROW_PAD)
+        assert torch.equal(tile[:, :nb, :n], want[:, b0:b0 + nb])
+        assert not tile[:, nb:].any() and not tile[:, :, n:].any()
+        part = kernels.cmux_digit_tile(_t(acc), _t(bara), p, b0, 1, 2,
+                                       n // 4, n // 2, 0, 8)
+        keep = torch.zeros_like(tile)
+        keep[1:3, :8, n // 4:n // 2] = tile[1:3, :8, n // 4:n // 2]
+        assert torch.equal(part, keep)
+
+
+@pytest.mark.parametrize("rows,n", [(4, 64), (4, 256), (6, 256), (4, 1024),
+                                    (6, 1024)])
+def test_split_parts_cover_every_pair_once(rows, n):
+    """For every split the launch can pick, the parts' (p, chunk) ranges
+    partition the tile's pairs, and each part decomposes a rectangle that
+    holds its pairs, with a power-of-two count of columns."""
+    t = min(n, kernels.MMA_TILE_COLS)
+    nchunk = n // t
+    nchunks = rows * nchunk
+    for split in (s for s in range(1, nchunks + 1) if nchunks % s == 0):
+        parts = kernels.cmux_part_ranges(rows, n, split)
+        assert len(parts) == split
+        seen = []
+        for c_begin, c_end, p_lo, p_hi, col_lo, col_hi in parts:
+            assert c_end > c_begin
+            ncols = col_hi - col_lo
+            assert ncols >= 64 and ncols & (ncols - 1) == 0
+            assert 0 <= col_lo and col_hi <= n and col_lo % t == 0
+            for c in range(c_begin, c_end):
+                pp, m0 = c // nchunk, (c % nchunk) * t
+                assert p_lo <= pp <= p_hi
+                assert col_lo <= m0 and m0 + t <= col_hi
+                seen.append(c)
+        assert seen == list(range(nchunks))
+    # one chunk a part, as at B=8 and N=1024: nothing decomposed twice
+    ones = kernels.cmux_part_ranges(rows, n, nchunks)
+    assert all(p_lo == p_hi and col_hi - col_lo == t
+               for _, _, p_lo, p_hi, col_lo, col_hi in ones)
+
+
+def test_split_for_follows_the_launch():
+    # 8 tiles at B=8, N=1024: 16 parts of one chunk; from 132 tiles, none
+    assert kernels.mma_split_for(8, 16, 132) == 16
+    assert kernels.mma_split_for(128, 16, 132) == 2
+    assert kernels.mma_split_for(136, 16, 132) == 1
+    assert kernels.mma_split_for(8, 24, 132) == 24
+    assert kernels.mma_split_for(24, 24, 132) == 6
+
+
+@pytest.mark.parametrize("batch", [1, 16, 256, 1024, 1056])
+@pytest.mark.parametrize("places", [132, 264])
+def test_work_items_visit_every_tile_once(batch, places):
+    """The order of work at N=1024, k=1, for the overlap kernel (one
+    block an SM) and for fused2 (two): every (batch rows, coefficient
+    block, component) tile in exactly one item, items of a row group side
+    by side, and no run longer than what fills the card."""
+    n, kp1 = 1024, 2
+    items = kernels.step_work_items(batch, n, kp1, places)
+    nbt = -(-batch // 16)
+    seen = [(b0, jb, o) for b0, tiles in items for jb, o in tiles]
+    assert sorted(seen) == sorted(
+        (bt * 16, jb, o) for bt in range(nbt) for jb in range(0, n, 256)
+        for o in range(kp1))
+    assert [b0 for b0, _ in items] == sorted(b0 for b0, _ in items)
+    per = kernels.tiles_per_item(nbt, 8, places)
+    assert max(len(tiles) for _, tiles in items) == per
+    assert len(items) == nbt * -(-8 // per)
+
+
+def test_tiles_per_item_fills_the_card_with_the_longest_run():
+    # overlap, 132 places: B=1024 and 1056 halve a row group, B=2048 keeps
+    # it whole; fused2, 264 places: runs of 2 at B=1024, 4 at B=2048
+    assert kernels.tiles_per_item(64, 8, 132) == 4
+    assert kernels.tiles_per_item(66, 8, 132) == 4
+    assert kernels.tiles_per_item(128, 8, 132) == 8
+    assert kernels.tiles_per_item(64, 8, 264) == 2
+    assert kernels.tiles_per_item(128, 8, 264) == 4
+    assert kernels.tiles_per_item(17, 8, 132) == 2
+    assert kernels.tiles_per_item(1000, 8, 132) == 8
+
+
+def test_cluster_shares_partition_the_rows():
+    assert kernels.step_cluster_shares(4, 1) == [(0, 8), (8, 16)]
+    assert kernels.step_cluster_shares(2, 1) == [(0, 8), (8, 16)]
+    assert kernels.step_cluster_shares(3, 1) == [(0, 16)]
+    assert kernels.step_cluster_shares(1, 1) == [(0, 16)]
+    # a launch that splits the tiles' sums forms no cluster
+    assert kernels.step_cluster_shares(8, 16) == [(0, 16)]
+
+
+@pytest.mark.parametrize("case", ["random", "digits-128", "digits+127"])
+@pytest.mark.parametrize("p", [P.TEST_TINY, TINY_6ROWS],
+                         ids=lambda p: f"{p.trgsw_rows}rows")
+def test_step_models_match_twin_and_pallas(p, case):
+    """The digits of the padded tile through the tile's model equal the
+    step's twin and JAX's fused kernels in interpret mode (cmux_step at
+    b=8, the overlap kernel at one batch block of 8 lanes a rotation
+    slice), on random and on extreme-digit accumulators, whether the
+    launch splits the tiles' sums (132 SMs) or deals whole tiles (2 and
+    1)."""
+    slices = (p.k + 1) * p.trgsw_rows
+    for b, pallas in ((8, cmux_step_pallas),
+                      (8 * slices, cmux_step_overlap_pallas)):
+        acc, bara, bk_i = _extreme_step_cases(p, b, p.trgsw_rows + b)[case]
+        twin = kernels.cmux_step_plain(_t(acc), _t(bara), _t(bk_i), p)
+        want = np.asarray(pallas(jnp.asarray(acc), jnp.asarray(bara),
+                                 jnp.asarray(bk_i), p, interpret=True))
+        np.testing.assert_array_equal(twin.numpy(), want)
+        # the whole padded tile's digits through the tile's model
+        d = torch.cat([kernels.cmux_digit_tile(_t(acc), _t(bara), p, b0)
+                       [:, :min(16, b - b0), :p.N]
+                       for b0 in range(0, b, 16)], dim=1)
+        got = kernels.external_product_mma_model(d, _t(bk_i), p, _t(acc))
+        np.testing.assert_array_equal(got.numpy(), want)
+        for sms in ((132, 2) if b == 8 else (1,)):
+            for model in (kernels.cmux_step_mma_model,
+                          kernels.cmux_step_overlap_mma_model):
+                got = model(_t(acc), _t(bara), _t(bk_i), p, sms)
+                np.testing.assert_array_equal(got.numpy(), want,
+                                              err_msg=f"{model.__name__} "
+                                                      f"b={b} sms={sms}")
+
+
+@pytest.mark.parametrize("b", [5, 33])
+def test_step_models_match_twin_at_small_noisy(b):
+    """N=256, 6 rows: ragged batches, split parts that span rows."""
+    p = P.TEST_SMALL_NOISY
+    acc, bara, bk_i = _step_case(p, b, 90 + b)
+    want = kernels.cmux_step_plain(_t(acc), _t(bara), _t(bk_i), p)
+    for sms in (132, 4):
+        assert torch.equal(kernels.cmux_step_mma_model(
+            _t(acc), _t(bara), _t(bk_i), p, sms), want)
+        assert torch.equal(kernels.cmux_step_overlap_mma_model(
+            _t(acc), _t(bara), _t(bk_i), p, sms), want)

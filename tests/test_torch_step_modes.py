@@ -138,6 +138,28 @@ def test_cmux_step_overlap_plain_matches_pallas(pallas, b):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("p", [P.TEST_TINY, P.TEST_SMALL_NOISY],
+                         ids=lambda p: p.name)
+@pytest.mark.parametrize("sms", [132, 1])
+def test_fused_step_models_match_pallas(p, sms):
+    """The plain models of the two fused kernels' work (digit tiles in
+    shared memory, split parts on a card of 132 SMs, whole work items on
+    a card of one) against JAX's cmux_step kernel in interpret mode, at
+    every edge amount."""
+    b = 8
+    rng = np.random.RandomState(35 + p.N)
+    acc_t = _rand_i32(rng, (p.k + 1, b, p.N))
+    bk_i = _rand_i32(rng, (p.trgsw_rows, p.k + 1, p.N))
+    for bara in _amounts(rng, p, b):
+        want = np.asarray(cmux_step_pallas(
+            jnp.asarray(acc_t), jnp.asarray(bara), jnp.asarray(bk_i), p,
+            interpret=True))
+        for model in (kernels.cmux_step_mma_model,
+                      kernels.cmux_step_overlap_mma_model):
+            got = model(_t(acc_t), _t(bara), _t(bk_i), p, sms)
+            np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("b", [8, 16])
 def test_blind_rotate_scan_plain_matches_pallas(b):
     """All n = 8 steps of TEST_TINY, edge amounts in the first steps."""
