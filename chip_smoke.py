@@ -10,10 +10,9 @@ The blind rotation has seven step modes (``IEACHE_PALLAS_STEP``), six
 with their own kernels: ``split`` (rot_diff_decompose +
 external_product per step), ``fused2`` (cmux_step), ``overlap`` and
 ``overlap2`` (cmux_step_overlap), ``scan`` (blind_rotate_scan, all
-steps in one launch; these five run their products on the int8
-tensor-core tile), ``tr`` (rot_diff_decompose_tr +
+steps in one launch), ``tr`` (rot_diff_decompose_tr +
 external_product_tr per step, in the transposed (k+1, N, B) layout);
-``ntt`` (the CRT-NTT step, plain PyTorch ops) launches no kernel.
+all six run their products on the int8 tensor-core tile; ``ntt`` (the CRT-NTT step, plain PyTorch ops) launches no kernel.
 ``IEACHE_PALLAS`` = 0 (the plain step), interpret (the mode's plain
 twins) or 1 (the kernels) reroutes the kernel modes.  Four more kernels
 belong to the probe tools: rotate_lane and rotate_sublane
@@ -31,15 +30,16 @@ prints no result line:
    exact equality, at IEACHE_110_FAST and the main path's batches
    (B=1024 for NAND, 8 and 16 for the rounds of ``A + B - C``), at
    ragged B in {1, 5, 1056} and at rotation amounts {0, N, 2N-1,
-   random}; the scan kernel over all n=500 steps; the four kernels on the
+   random}; the scan kernel over all n=500 steps; the five kernels on the
    int8 tensor-core tile (external_product, blind_rotate_scan, cmux_step,
-   cmux_step_overlap) once more at IEACHE_110_FAST and at IEACHE_110 (6
-   TRGSW rows), B in {1, 5, 8, 16, 1024, 1056}, with extreme operands
-   beside random ones (digits all -128 or +127: for the step kernels an
-   accumulator that decomposes to them at bara = N; key words whose int8
-   limbs are all -128 or +127, and the words where a carry between limbs
-   goes wrong), the per-step kernels also at B = 256 and 257, either
-   side of where their launches start to split a tile's sum over blocks;
+   cmux_step_overlap, external_product_tr) and the tr rotation once more
+   at IEACHE_110_FAST and at IEACHE_110 (6 TRGSW rows), B in {1, 5, 8,
+   16, 1024, 1056}, with extreme operands beside random ones (digits all
+   -128 or +127: for the step kernels and the tr pair an accumulator that
+   decomposes to them at bara = N; key words whose int8 limbs are all
+   -128 or +127, and the words where a carry between limbs goes wrong),
+   the per-step kernels also at B = 256 and 257, either side of where
+   their launches start to split a tile's sum over blocks;
    the rotation probe's
    kernels at its B=2048 and at B=5; mm_s8 (exact) and mm_bf16 at the
    matmul probe's (1024, 1024, 1024) with g in {1, 512} (the int32 sum
@@ -56,10 +56,10 @@ prints no result line:
    may launch) and 1 (the mode's kernels must launch), each under split
    and tr; the compat gadget's blind rotation (no kernel; the plain
    step on the card) at B=8 against ``plain=True``; and the blind
-   rotation at N=32, which the tensor-core kernels refuse, under every
-   step mode (and under ``IEACHE_PALLAS=interpret``) against
-   ``plain=True``: all but tr must take the plain step and launch
-   nothing;
+   rotation at N=32, which every mode's kernels refuse (each runs its
+   products on the tensor-core tile), under every step mode (and under
+   ``IEACHE_PALLAS=interpret``) against ``plain=True``: each must take
+   the plain step and launch nothing;
 5. main path, NAND under each step mode at IEACHE_110_FAST: NAND on
    1024 random bit pairs, decrypted on the host and on the card
    (``decrypt_bits_device``); ``decrypt_errors`` must be 0 both ways.
@@ -74,14 +74,13 @@ prints no result line:
    ``latency=True`` at 2 lanes (the Wallace tree); every lane must
    decrypt to the Python result;
 7. timing, per mode: NAND bootstraps/s over 5 repeats (one repeat for
-   a mode slower than 3 s a call) and, except under tr and ntt, the
+   a mode slower than 3 s a call) and, except under ntt, the
    latency of ``A + B - C`` (host clock, ``torch.cuda.synchronize``
    fences; one repeat for a mode slower than 3 s); ms per call of each
    per-step kernel beside its twin (CUDA events around a CUDA-graph
    replay, and around a plain Python loop), at B=1024 and, for the
-   split pair and the two fused step kernels, at B=8 and B=16 too,
-   beside external_product_tr, which still runs the direct int32 tile;
-   ms per whole rotation
+   split pair, the two fused step kernels and the tr pair, at B=8 and
+   B=16 too; ms per whole rotation
    of the scan kernel and its twin at B=8 and B=1024 (CUDA events
    around the call); the rotation probe (``transposed_probe``, its
    launch counts reset just before and read just after: the probe
@@ -180,8 +179,9 @@ MODES = {
 EXPRESSION_MODES = ("split", "fused2", "scan")
 
 #: the modes whose A + B - C latency phase 7 times: 96 rounds of B=8
-#: bootstraps under tr or ntt would take minutes
-TIMED_EXPRESSION_MODES = ("split", "fused2", "overlap", "overlap2", "scan")
+#: bootstraps under ntt would take minutes
+TIMED_EXPRESSION_MODES = ("split", "fused2", "overlap", "overlap2", "scan",
+                          "tr")
 
 #: the IEACHE_PALLAS routes phase 4 runs, and the modes it runs them under
 ROUTES, ROUTE_MODES = ("0", "interpret", "1"), ("split", "tr")
@@ -224,9 +224,10 @@ EDGE_KEY_WORDS = (-2**31, -1, 2**31 - 1, 0x7F7F7F7F, 0x80808080 - 2**32, 0)
 SMALL_BATCHES = (8, 16)
 
 #: the per-step kernels phase 7 times at the small batches: the split pair
-#: beside the two fused steps, and the direct int32 tile
+#: beside the two fused steps and the tr pair
 SMALL_BATCH_KERNELS = ("rot_diff_decompose", "external_product", "cmux_step",
-                       "cmux_step_overlap", "external_product_tr")
+                       "cmux_step_overlap", "rot_diff_decompose_tr",
+                       "external_product_tr")
 
 #: a ring degree below the tensor-core tile's 64: the kernels refuse it and
 #: the blind rotation takes the plain step
@@ -414,12 +415,14 @@ def extreme_accumulators(p, b, device, rng):
 
 
 def check_mma_kernels(p, device, batches, split_edge=MMA_SPLIT_EDGE, seed=5):
-    """Phase 3, the four kernels on the tensor-core tile once more, at
-    ``p``: external_product on random and extreme operands, with and
-    without acc, and cmux_step and cmux_step_overlap on random and
-    extreme accumulators, at ``batches`` and (random only) at
-    ``split_edge``; blind_rotate_scan over all n steps on a random key
-    and on a key of edge words.  Returns max abs error per kernel."""
+    """Phase 3, the five kernels on the tensor-core tile once more, at
+    ``p``: external_product and external_product_tr on random and extreme
+    operands, with and without acc, and cmux_step, cmux_step_overlap and
+    the tr pair (rot_diff_decompose_tr, then external_product_tr with the
+    accumulator) on random and extreme accumulators, at ``batches`` and
+    (random only) at ``split_edge``; blind_rotate_scan over all n steps on
+    a random key and on a key of edge words.  Returns max abs error per
+    kernel."""
     rng = np.random.RandomState(seed)
     errs = {}
     for b in (*batches, *split_edge):
@@ -435,18 +438,35 @@ def check_mma_kernels(p, device, batches, split_edge=MMA_SPLIT_EDGE, seed=5):
         if b in batches:
             cases += extreme_operands(p, b, device, rng)
             steps += extreme_accumulators(p, b, device, rng)
+        acc_tr = acc.transpose(1, 2).contiguous()
         for name, d, bk_i in cases:
-            for a in (None, acc):
+            d_tr = d.transpose(1, 2).contiguous()
+            for a, a_tr in ((None, None), (acc, acc_tr)):
+                case = f"{p.name} B={b} {name} acc={a is not None}"
                 _compare("external_product",
                          kernels.external_product(d, bk_i, p, acc=a),
                          kernels.external_product_plain(d, bk_i, p, a),
-                         errs, device,
-                         f"{p.name} B={b} {name} acc={a is not None}")
+                         errs, device, case)
+                _compare("external_product_tr",
+                         kernels.external_product_tr(d_tr, bk_i, p, acc=a_tr),
+                         kernels.external_product_tr_plain(d_tr, bk_i, p,
+                                                           a_tr),
+                         errs, device, case)
         for name, a, bara, bk_i in steps:
             want = kernels.cmux_step_plain(a, bara, bk_i, p)
             for kern in ("cmux_step", "cmux_step_overlap"):
                 _compare(kern, getattr(kernels, kern)(a, bara, bk_i, p), want,
                          errs, device, f"{p.name} B={b} {name}")
+            # the tr pair as one step, and its rotation alone
+            a_tr = a.transpose(1, 2).contiguous()
+            d_tr = kernels.rot_diff_decompose_tr(a_tr, bara, p)
+            _compare("rot_diff_decompose_tr", d_tr,
+                     kernels.rot_diff_decompose_tr_plain(a_tr, bara, p), errs,
+                     device, f"{p.name} B={b} {name}")
+            _compare("external_product_tr",
+                     kernels.external_product_tr(d_tr, bk_i, p, acc=a_tr),
+                     want.transpose(1, 2), errs, device,
+                     f"{p.name} B={b} {name} (tr step)")
         if b not in batches:
             continue
         bara = _rand(rng, (b, p.n), 0, 2 * p.N, np.int32, device)
@@ -460,14 +480,15 @@ def check_mma_kernels(p, device, batches, split_edge=MMA_SPLIT_EDGE, seed=5):
                      kernels.blind_rotate_scan_plain(acc, bara, bk, p),
                      errs, device, f"{p.name} B={b} steps={p.n} {name}")
         log(f"phase 3 tensor-core tile: {p.name} ({p.trgsw_rows} rows) "
-            f"B={b} equal (external_product on random and "
-            f"{len(cases) - 1} extreme operand sets, with and without acc; "
-            f"cmux_step and cmux_step_overlap on random and "
-            f"{len(steps) - 1} extreme accumulator sets; scan over {p.n} "
-            f"steps on a random key and on edge key words)")
-    log(f"phase 3 tensor-core tile: {p.name} external_product, cmux_step "
-        f"and cmux_step_overlap equal at "
-        f"B={'/'.join(map(str, split_edge))}, either side of the split")
+            f"B={b} equal (external_product and external_product_tr on "
+            f"random and {len(cases) - 1} extreme operand sets, with and "
+            f"without acc; cmux_step, cmux_step_overlap and the tr pair on "
+            f"random and {len(steps) - 1} extreme accumulator sets; scan "
+            f"over {p.n} steps on a random key and on edge key words)")
+    log(f"phase 3 tensor-core tile: {p.name} external_product, "
+        f"external_product_tr, cmux_step, cmux_step_overlap and the tr pair "
+        f"equal at B={'/'.join(map(str, split_edge))}, either side of the "
+        f"split")
     return errs
 
 
@@ -642,7 +663,7 @@ def small_n_vs_plain(p, device, batch=1, seed=4):
     """Phase 4: the blind rotation at a ring degree the tensor-core
     kernels refuse, under every step mode and under the interpret route,
     against ``plain=True``; launch counts set to 0 just before each and
-    read just after: only tr, whose kernels take the shape, launches."""
+    read just after: no mode's kernels take the shape, none launches."""
     rng = np.random.RandomState(seed)
     acc0 = _rand(rng, (batch, p.k + 1, p.N), -2**31, 2**31, np.int32,
                  device)
@@ -652,7 +673,7 @@ def small_n_vs_plain(p, device, batch=1, seed=4):
     want = blind_rotate(acc0, bara, bk, p, plain=True)
     for mode in MODES:
         takes = kernels.kernels_take(mode, p)
-        if takes != (mode in ("tr", "ntt")):
+        if takes != (mode == "ntt"):
             raise AssertionError(f"kernels_take({mode!r}) at N={p.N}: {takes}")
         for route in ("auto", "interpret"):
             reset_launches()
@@ -1086,7 +1107,7 @@ def main() -> int:
     small_n_vs_plain(SMALL_N_PARAMS, device)
     log(f"phase 4 blind rotation at N={SMALL_N_PARAMS.N} B=1: every step "
         f"mode, under IEACHE_PALLAS unset and interpret, equal to "
-        f"plain=True; only tr launched kernels; IEACHE_PALLAS=1 raises")
+        f"plain=True; no kernel launched; IEACHE_PALLAS=1 raises")
 
     # phases 5 and 6: the main path under each mode, counted from 0
     launches = dict.fromkeys(read_launches(), 0)
@@ -1128,8 +1149,8 @@ def main() -> int:
     for name, t in steps.items():
         log(step_line(name, PROBE_B if name.startswith("rotate_") else batch,
                       t))
-    # the split pair beside the two fused steps and the direct int32 tile
-    # (external_product_tr still runs it) at the batches of A + B - C
+    # the split pair beside the two fused steps and the tr pair at the
+    # batches of A + B - C
     for b in SMALL_BATCHES:
         for name, t in step_times(p, device, b, reps=20,
                                   names=SMALL_BATCH_KERNELS).items():

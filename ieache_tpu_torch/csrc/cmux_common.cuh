@@ -1,9 +1,8 @@
 // Device code shared by the blind rotation's CUDA kernels: the rotation +
 // diff + gadget decomposition of a CMux step, also as a tile of digits in
-// shared memory (decompose_tile: cmux_step.cu, cmux_step_overlap.cu), and
-// the external product's output tile in its direct int32 form (the inner
-// loop of external_product_tr.cu; the other product kernels run the int8
-// tensor-core form of mma_tile.cuh).
+// shared memory (decompose_tile: cmux_step.cu, cmux_step_overlap.cu), the
+// block's barriers, and the constants of the product tile that mma_tile.cuh
+// builds on the int8 tensor cores.
 //
 // Layouts, as in the JAX package's Pallas kernels (pallas_kernels.py):
 //   acc    (k+1, B, N) int32   accumulator, transposed
@@ -12,18 +11,6 @@
 //   bk_i   (rows, k+1, N) int32 one TRGSW step of the bootstrapping key
 // All torus arithmetic is uint32_t: it wraps mod 2^32, where signed
 // overflow in C++ is undefined.
-//
-// Product tile: a 16 (batch) x 256 (coefficient) output tile of one
-// component o, computed by 128 threads (a 32 x 4 grid, each thread a
-// 4 x 8 register tile) as a direct int32 negacyclic convolution,
-//   (d (*) g)[j] = sum_m d[m] * e[N + j - m],  e = concat(-g, g),
-// over digit rows p and digit columns m in chunks of up to 256 columns.
-// A chunk's digits are staged in shared memory widened to int32 by a
-// staging functor (external_product_tr.cu loads them from global memory
-// in its own layout).  Since uint32_t addition is associative and
-// commutative, a tile may also be summed over a sub-range of the
-// (p, chunk) pairs and the partial sums added together in any order,
-// exactly.
 
 #pragma once
 
@@ -32,41 +19,16 @@
 
 namespace ieache {
 
-constexpr int RB = 4;              // batch rows per thread
-constexpr int RJ = 8;              // output coefficients per thread
-constexpr int TX = 32;             // threads along the coefficients
-constexpr int TY = 4;              // threads along the batch
-constexpr int TB = TY * RB;        // batch rows per tile
-constexpr int TJ = TX * RJ;        // coefficients per tile
-constexpr int kTileThreads = TX * TY;
-constexpr int MC_MAX = 256;        // digit columns staged per chunk
-constexpr int PAD = 4;             // zero words before e: the last window
-                                   // advance reads down to e[-4]
+constexpr int TB = 16;             // batch rows of a product tile
+constexpr int kTileThreads = 128;  // threads of a product tile: 4 warps
 
-// Digit columns per staged chunk.
-__host__ __device__ inline int chunk_cols(int n) {
-  return n < MC_MAX ? n : MC_MAX;
-}
-
-// 32-bit words of shared memory the product tile uses: the zero pad,
-// e (2N words) and one staged digit chunk (TB x mc words).
-__host__ __device__ inline int product_smem_words(int n) {
-  return PAD + 2 * n + TB * chunk_cols(n);
-}
-
-// Global loads.  kCg = true reads through L2 only (ld.global.cg): for
+// A global load.  kCg = true reads through L2 only (ld.global.cg): for
 // data that other blocks wrote earlier in the same launch (the scan
 // kernel), which a stale L1 line must not serve.
 template <bool kCg>
 __device__ __forceinline__ uint32_t load_u32(const uint32_t* p) {
   if constexpr (kCg) return __ldcg(reinterpret_cast<const unsigned int*>(p));
   else return *p;
-}
-
-template <bool kCg>
-__device__ __forceinline__ uint4 load_u4(const uint32_t* p) {
-  if constexpr (kCg) return __ldcg(reinterpret_cast<const uint4*>(p));
-  else return *reinterpret_cast<const uint4*>(p);
 }
 
 // (X^a * c - c)[j] + offset for one polynomial c (N a power of two, a in
@@ -183,20 +145,6 @@ __device__ __forceinline__ void decompose_tile(
   }
 }
 
-// Where one thread's 4 x 8 register tile lies.
-struct Tile {
-  int o;        // output component
-  int b0;       // first batch row of the tile
-  int j0;       // this thread's first output coefficient
-  bool active;  // false only for threads past N when N < 256
-};
-
-__device__ __forceinline__ Tile make_tile(int bt, int jt, int o, int n,
-                                          int tx) {
-  const int j_first = jt * TJ + tx * RJ;
-  return Tile{o, bt * TB, j_first < n ? j_first : 0, j_first < n};
-}
-
 // A barrier over the whole block.
 struct BlockSync {
   __device__ __forceinline__ void operator()() const { __syncthreads(); }
@@ -211,105 +159,6 @@ struct TileSync {
                  : "memory");
   }
 };
-
-// sum += the tile's share of sum_p d[p] (*) bk[p, o] over the (p, chunk)
-// pairs c_begin .. c_end-1, pair c = p * (N / mc) + chunk.  Run by the
-// tile's kTileThreads threads (tid = ty * TX + tx); smem holds
-// product_smem_words(n) words.  Every thread calls it with the same range.
-template <class Stage, class Sync>
-__device__ __forceinline__ void product_accumulate(
-    uint32_t* smem, const uint32_t* bk, int kp1, int n, const Tile& t,
-    int c_begin, int c_end, int tid, int ty, const Stage& stage,
-    const Sync& sync, uint32_t (&sum)[RB][RJ]) {
-  uint32_t* es = smem + PAD;         // e = concat(-g, g), 2N words
-  uint32_t* ds = smem + PAD + 2 * n; // digit chunk (TB, mc) as int32
-  const int mc = chunk_cols(n);
-  const int nchunk = n / mc;
-  if (tid < PAD) smem[tid] = 0u;
-
-  int cur_p = -1;
-  uint32_t win[12];   // win[q] = e[N + j0 - m0 - 4 + q] at column group m0
-  for (int c = c_begin; c < c_end; ++c) {
-    const int p = c / nchunk;
-    const int m0c = (c - p * nchunk) * mc;
-    sync();  // the previous chunk's readers of es and ds are done
-    if (p != cur_p) {
-      const uint32_t* g = bk + ((int64_t)p * kp1 + t.o) * n;
-      for (int s = tid; s < n; s += kTileThreads) {
-        const uint32_t gs = g[s];
-        es[s] = 0u - gs;
-        es[n + s] = gs;
-      }
-      cur_p = p;
-    }
-    stage(p, m0c, mc, ds);
-    sync();
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const uint4 w =
-          *reinterpret_cast<const uint4*>(es + n + t.j0 - m0c - 4 + 4 * k);
-      win[4 * k] = w.x;
-      win[4 * k + 1] = w.y;
-      win[4 * k + 2] = w.z;
-      win[4 * k + 3] = w.w;
-    }
-#pragma unroll 2
-    for (int ml = 0; ml < mc; ml += 4) {
-#pragma unroll
-      for (int rb = 0; rb < RB; ++rb) {
-        const uint4 dv =
-            *reinterpret_cast<const uint4*>(ds + (ty * RB + rb) * mc + ml);
-        const uint32_t dd[4] = {dv.x, dv.y, dv.z, dv.w};
-#pragma unroll
-        for (int s = 0; s < 4; ++s)
-#pragma unroll
-          for (int r = 0; r < RJ; ++r) sum[rb][r] += dd[s] * win[r - s + 4];
-      }
-      // slide the window to the next four columns
-      const int m0 = m0c + ml;
-#pragma unroll
-      for (int q = 11; q >= 4; --q) win[q] = win[q - 4];
-      const uint4 w =
-          *reinterpret_cast<const uint4*>(es + n + t.j0 - m0 - 8);
-      win[0] = w.x;
-      win[1] = w.y;
-      win[2] = w.z;
-      win[3] = w.w;
-    }
-  }
-}
-
-__device__ __forceinline__ void zero_sum(uint32_t (&sum)[RB][RJ]) {
-#pragma unroll
-  for (int rb = 0; rb < RB; ++rb)
-#pragma unroll
-    for (int r = 0; r < RJ; ++r) sum[rb][r] = 0u;
-}
-
-// out[o, b, j0 .. j0+7] = acc[...] (when acc is not null) + sum.
-template <bool kCg>
-__device__ __forceinline__ void store_tile(const uint32_t (&sum)[RB][RJ],
-                                           const Tile& t, int ty,
-                                           const uint32_t* acc,
-                                           uint32_t* out, int batch, int n) {
-  if (!t.active) return;
-#pragma unroll
-  for (int rb = 0; rb < RB; ++rb) {
-    const int b = t.b0 + ty * RB + rb;
-    if (b >= batch) continue;
-    const int64_t base = ((int64_t)t.o * batch + b) * n + t.j0;
-    uint4 lo = make_uint4(sum[rb][0], sum[rb][1], sum[rb][2], sum[rb][3]);
-    uint4 hi = make_uint4(sum[rb][4], sum[rb][5], sum[rb][6], sum[rb][7]);
-    if (acc != nullptr) {
-      const uint4 a0 = load_u4<kCg>(acc + base);
-      const uint4 a1 = load_u4<kCg>(acc + base + 4);
-      lo.x += a0.x; lo.y += a0.y; lo.z += a0.z; lo.w += a0.w;
-      hi.x += a1.x; hi.y += a1.y; hi.z += a1.z; hi.w += a1.w;
-    }
-    *reinterpret_cast<uint4*>(out + base) = lo;
-    *reinterpret_cast<uint4*>(out + base + 4) = hi;
-  }
-}
 
 // Opt a kernel in to more than 48 KB of dynamic shared memory.
 template <class Kernel>

@@ -1,7 +1,8 @@
-// The external product's output tile on the int8 tensor cores: the second
-// form of the tile, beside the direct int32 convolution
-// (ieache::product_accumulate in cmux_common.cuh).  external_product.cu,
-// blind_rotate_scan.cu, cmux_step.cu and cmux_step_overlap.cu run this one.
+// The external product's output tile on the int8 tensor cores, which every
+// product kernel runs: external_product.cu, blind_rotate_scan.cu,
+// cmux_step.cu and cmux_step_overlap.cu as below; external_product_tr.cu
+// builds the same planes and windows with the roles of the two operands
+// swapped (its note says how).
 //
 // The function, for one output component o, as a matrix product:
 //   out[b, j] = sum_p sum_m d[p, b, m] * T_p[m, j],  T_p[m, j] = e_p[N + j - m],
@@ -51,8 +52,8 @@
 //   sum, as sum_v (uint32_t)S_v << 8v.  Each S_v is exact in s32 while
 //   rows * N * 2^14 < 2^31; the launches refuse rows * N >= 2^17.
 // * A block is 4 warps side by side along N: a 16 x T tile, T = min(N,
-//   256), NI = T / 32 (the same tile as the direct form's, so the split of
-//   a tile's sum over (p, chunk) pairs carries over).  Digits stream in
+//   256), NI = T / 32; a launch may split a tile's sum over its (p, chunk)
+//   pairs (split_for) and add the parts atomically.  Digits stream in
 //   chunks of T columns through a ring of 4 shared buffers (16-byte
 //   cp.async.cg, rows past the batch zero-filled, 3 chunks in flight);
 //   rows are padded by 16 bytes so that ldmatrix's 8 rows fall on 8

@@ -43,7 +43,7 @@ kernel modes:
 Every route and mode returns the same arrays, for any batch.  Where
 the mode's kernels refuse the parameter set's shape
 (:func:`~ieache_tpu_torch.ops.kernels.kernels_take`: a ring degree
-below 64 under the tensor-core modes, N % 8 != 0 under ``tr``), ``auto``
+below 64 under every kernel mode, all on the tensor-core tile), ``auto``
 and ``interpret`` take :func:`external_product_step`, as the JAX package
 takes its XLA step where its kernels cannot run, and ``1`` raises.  The
 two-limb compat gadget has no kernel, as on the TPU: it takes

@@ -30,7 +30,13 @@ through the kernels of the step mode ``IEACHE_PALLAS_STEP`` selects:
   ``rot_diff_decompose_pallas_tr``) then :func:`external_product_tr`
   (``csrc/external_product_tr.cu``, replaces
   ``external_product_pallas_tr``), the split pair in the transposed
-  layout.
+  layout: the rotation through a shared-memory slab of 16 batch lanes,
+  or a gather at small batches (:func:`rot_diff_decompose_tr_slab_model`,
+  :func:`rot_tr_slab_banks`),
+  the product on the same tensor-core tile with the Toeplitz tile as the
+  MMA's A operand and the digits staged through a transpose
+  (:func:`mma_toeplitz_tile_a`, :func:`tr_stage_model`,
+  :func:`external_product_tr_mma_model`).
 
 :func:`rotate_lane` and :func:`rotate_sublane` (``csrc/rotate_probe.cu``,
 replacing the two inline kernels of ``tools/transposed_probe.py``) are
@@ -65,7 +71,7 @@ from ieache_tpu_torch.core.poly import (
 )
 from ieache_tpu_torch.ops import _build
 from ieache_tpu_torch.ops import blind_rotate as br
-from ieache_tpu_torch.ops.decompose import _offset
+from ieache_tpu_torch.ops.decompose import _offset, gadget_decompose
 from ieache_tpu_torch.params import TFHEParams
 
 
@@ -127,7 +133,7 @@ def _rot_diff_decompose_launch(wrapper, entry: str, plain,
         return plain(acc, bara, params)
 
     rows = params.trgsw_rows
-    _refuse(kernels_refusal("tr", rows, n))
+    _refuse(kernels_refusal("tr", rows, n) if tr else rotation_refusal(n))
     out = torch.empty((rows, n, b) if tr else (rows, b, n), dtype=torch.int8,
                       device=acc.device)
     if b == 0:
@@ -183,7 +189,7 @@ SMEM_BLOCK_BYTES = 232448
 #: digit tiles a block of each tensor-core step mode keeps in shared
 #: memory: none where the digits stream from device memory, one under
 #: fused2, the overlap kernel's two stages
-_DIGIT_TILES = {"split": 0, "scan": 0, "fused2": 1, "overlap": 2,
+_DIGIT_TILES = {"split": 0, "scan": 0, "tr": 0, "fused2": 1, "overlap": 2,
                 "overlap2": 2}
 
 
@@ -202,17 +208,15 @@ def digit_tile_bytes(rows: int, n: int) -> int:
 
 def kernels_refusal(mode: str, rows: int, n: int) -> str | None:
     """Why the kernels of step mode ``mode`` refuse ``rows`` TRGSW rows
-    at ring degree ``n``, or None where they take the shape.  The
-    tensor-core modes (split, fused2, overlap, overlap2, scan) need N a
-    power of two of at least 64, rows * N below :data:`MMA_MAX_TERMS`
-    and, where a block keeps digit tiles in shared memory, room for
-    them; ``tr`` (and both rotation kernels) N % 8 == 0; ``ntt`` runs no
-    kernel."""
+    at ring degree ``n``, or None where they take the shape.  Every mode
+    with kernels runs its products on the tensor-core tile, which needs N
+    a power of two of at least 64 and rows * N below
+    :data:`MMA_MAX_TERMS`; where a block keeps digit tiles in shared
+    memory (fused2, overlap) it needs room for them, and under ``tr`` the
+    rotation's slab (:func:`rot_tr_slab_bytes`) must fit a block; ``ntt``
+    runs no kernel."""
     if mode == "ntt":
         return None
-    if mode == "tr":
-        return None if n % 8 == 0 else (
-            f"the rotation and transposed kernels need N % 8 == 0, got N={n}")
     tiles = _DIGIT_TILES[mode]
     if n < 64 or n & (n - 1):
         return (f"the tensor-core external product needs N a power of two "
@@ -226,7 +230,18 @@ def kernels_refusal(mode: str, rows: int, n: int) -> str | None:
         return (f"the tensor-core external product's {tiles} digit tile(s) "
                 f"of rows={rows}, N={n} need {need} bytes of shared memory, "
                 f"a block has {SMEM_BLOCK_BYTES}")
+    if mode == "tr" and rot_tr_slab_bytes(n) > SMEM_BLOCK_BYTES:
+        return (f"the tr rotation's slab of N={n} rows x {TR_SLAB_LANES} "
+                f"lanes needs {rot_tr_slab_bytes(n)} bytes of shared memory, "
+                f"a block has {SMEM_BLOCK_BYTES}")
     return None
+
+
+def rotation_refusal(n: int) -> str | None:
+    """Why ``rot_diff_decompose`` (the split mode's rotation) refuses ring
+    degree ``n``, or None: it takes N % 8 == 0."""
+    return None if n % 8 == 0 else (
+        f"the rotation kernel needs N % 8 == 0, got N={n}")
 
 
 def kernels_take(mode: str, params: TFHEParams) -> bool:
@@ -336,6 +351,245 @@ def external_product_mma_model(d: torch.Tensor, bk_i: torch.Tensor,
             for v in range(TORUS_LIMBS):
                 out[o, :, jb:jb + t] += sums[v] << (8 * v)
     return out if acc is None else acc + out
+
+
+# The same tile in the transposed (k+1, N, B) layout (csrc/external_product
+# _tr.cu): the Toeplitz limb tile is the MMA's A operand (16 coefficients x
+# 32 digit columns), the digits its B operand (32 digit columns x 8 batch
+# lanes), staged through a transpose.
+
+#: batch lanes of a tr tile: two of the MMA's 8-lane n-tiles
+TR_TILE_LANES = 16
+
+#: where the A registers a0..a3 of m16n8k32 lie against a0, in diagonals of
+#: the Toeplitz tile (units of 8): a1 holds the 8 coefficients below a0's,
+#: a2 the 16 digit columns right of them, a3 both
+MMA_A_DIAGONALS = (0, -1, 2, 1)
+
+
+def mma_a_window_index(ni: int, mt: int, r: int) -> int:
+    """The entry of a warp's window of NI + 2 plane words (entry i holds
+    diagonal 4 kseg - NI + 1 + i of k-step kseg) that A register ``r`` of
+    the warp's m-tile ``mt`` (16 coefficients from 16 mt) takes."""
+    return ni - 1 - 2 * mt + MMA_A_DIAGONALS[r]
+
+
+def mma_toeplitz_tile_a(planes: torch.Tensor, n: int,
+                        mcols: int) -> torch.Tensor:
+    """The Toeplitz limb tile as ``external_product_tr``'s MMAs see it, its
+    A operand gathered from :func:`mma_planes` through the window of
+    :func:`mma_a_window_index`: int8 (4 limbs, T, mcols), entry [v, jl,
+    ml] = T_v[ml, jl].  Warp w owns coefficients T/4 w .. T/4 (w + 1) - 1
+    as NI/2 m-tiles; thread lane = 4 grp + t4 reads, for m-tile mt,
+    k-step kseg and register r, word ``(T - 8 NI w) / 4 + t4 - 1 - grp // 4
+    + 2 d`` of copy ``3 - grp % 4``, d the window entry's diagonal: byte q
+    is the operand at coefficient jl = T/4 w + 16 mt + 8 (r % 2) + grp,
+    digit column ml = 32 kseg + 16 (r // 2) + 4 t4 + q."""
+    t = min(n, MMA_TILE_COLS)
+    ni = t // 32
+    dev = planes.device
+    warp, mt, grp, kseg, r, t4, q = torch.meshgrid(
+        torch.arange(4, device=dev), torch.arange(ni // 2, device=dev),
+        torch.arange(8, device=dev), torch.arange(mcols // 32, device=dev),
+        torch.arange(4, device=dev), torch.arange(4, device=dev),
+        torch.arange(4, device=dev), indexing="ij")
+    entry = (ni - 1 - 2 * mt
+             + torch.tensor(MMA_A_DIAGONALS, device=dev)[r])
+    diagonal = 4 * kseg - ni + 1 + entry
+    word = (t - 8 * ni * warp) // 4 + t4 - 1 - grp // 4 + 2 * diagonal
+    copy = 3 - grp % 4
+    jl = (t // 4) * warp + 16 * mt + 8 * (r % 2) + grp
+    ml = 32 * kseg + 16 * (r // 2) + 4 * t4 + q
+    tile = torch.zeros((TORUS_LIMBS, t, mcols), dtype=torch.int8, device=dev)
+    tile[:, jl.reshape(-1), ml.reshape(-1)] = \
+        planes[:, copy.reshape(-1), (4 * word + q).reshape(-1)]
+    return tile
+
+
+def tr_raw_offset(m) -> int:
+    """Byte offset of digit column m's 16 lanes in a raw tr stage: 16-byte
+    rows as they lie in device memory, 16 bytes of padding after every 8,
+    so that the transpose's reads fall on 32 distinct banks."""
+    return 16 * m + 16 * (m >> 3)
+
+
+def tr_transpose_reads(t: int) -> torch.Tensor:
+    """The 32-bit words of the raw stage that the transpose reads, as
+    (item x, row mi) -> word: item x (thread x mod 128) takes lanes
+    4 (x % 4) .. + 3 of digit columns 4 (x // 4) .. + 3, one word a
+    column."""
+    x = torch.arange(t)[:, None]
+    mi = torch.arange(4)[None, :]
+    return tr_raw_offset(4 * (x // 4) + mi) // 4 + x % 4
+
+
+def tr_stage_model(d: torch.Tensor, p: int, m0c: int, b0: int,
+                   t: int) -> torch.Tensor:
+    """The chunk of digits ``external_product_tr`` stages for digit row p,
+    columns m0c .. m0c + t - 1 and lanes b0 .. b0 + 15 of d (rows, N, B)
+    int8: copied as it lies into a raw stage (:func:`tr_raw_offset`; lanes
+    past the batch zero), then item x of :func:`tr_transpose_reads`
+    writes its 4 x 4 bytes transposed, byte r of column word mi to lane
+    4 (x % 4) + r, column 4 (x // 4) + mi.  Returns the (16, t + 16)
+    int8 buffer ldmatrix reads (row = lane, padding zero)."""
+    nb = min(TR_TILE_LANES, d.shape[2] - b0)
+    raw = torch.zeros(tr_raw_offset(t), dtype=torch.int8, device=d.device)
+    rows = torch.arange(t, device=d.device)
+    at = tr_raw_offset(rows)[:, None] + torch.arange(nb, device=d.device)
+    raw[at] = d[p, m0c:m0c + t, b0:b0 + nb]
+    words = raw.reshape(-1, 4)[tr_transpose_reads(t).to(d.device)]
+    x = torch.arange(t, device=d.device)
+    out = torch.zeros((TR_TILE_LANES, t + DIGIT_ROW_PAD), dtype=torch.int8,
+                      device=d.device)
+    for mi in range(4):
+        for r in range(4):
+            out[4 * (x % 4) + r, 4 * (x // 4) + mi] = words[:, mi, r]
+    return out
+
+
+def external_product_tr_mma_model(d: torch.Tensor, bk_i: torch.Tensor,
+                                  params: TFHEParams,
+                                  acc: torch.Tensor | None = None,
+                                  sms: int = 132) -> torch.Tensor:
+    """``external_product_tr``'s arithmetic in plain ops, tile by tile:
+    a T-coefficient x 16-lane tile of each component, its (p, chunk) sum
+    split over parts as the launch splits it on a card of ``sms`` SMs,
+    the planes of each key polynomial built per segment of up to
+    :data:`MMA_SEG_CHUNKS` chunks of the part, the A tiles from
+    :func:`mma_toeplitz_tile_a`, the digits from :func:`tr_stage_model`,
+    one int32 sum per limb, folded as sum_v S_v << 8v (wrapping) and
+    added to the output.  Same arguments and result as
+    :func:`external_product_tr_plain`."""
+    rows, kp1, n = bk_i.shape
+    _refuse(kernels_refusal("tr", rows, n))
+    t = min(n, MMA_TILE_COLS)
+    nchunk, b = n // t, d.shape[2]
+    nbt = -(-b // TR_TILE_LANES)
+    nchunks = rows * nchunk
+    split = mma_split_for(nbt * nchunk * kp1, nchunks, sms)
+    out = torch.zeros((kp1, n, b), dtype=torch.int32, device=d.device)
+    for o in range(kp1):
+        for jb in range(0, n, t):
+            for b0 in range(0, b, TR_TILE_LANES):
+                nb = min(TR_TILE_LANES, b - b0)
+                for q in range(split):
+                    c, c_end = q * nchunks // split, (q + 1) * nchunks // split
+                    sums = torch.zeros((TORUS_LIMBS, t, TR_TILE_LANES),
+                                       dtype=torch.int32, device=d.device)
+                    while c < c_end:
+                        p, ch0 = c // nchunk, c % nchunk
+                        nseg = min(c_end - c, nchunk - ch0, MMA_SEG_CHUNKS)
+                        tile = mma_toeplitz_tile_a(
+                            mma_planes(bk_i[p, o], jb, ch0 * t, nseg * t), n,
+                            nseg * t).to(torch.int32)
+                        for i in range(nseg):
+                            staged = tr_stage_model(d, p, (ch0 + i) * t, b0,
+                                                    t)[:, :t]
+                            sums += torch.einsum(
+                                "vjm,bm->vjb", tile[:, :, i * t:(i + 1) * t],
+                                staged.to(torch.int32))
+                        c += nseg
+                    for v in range(TORUS_LIMBS):
+                        out[o, jb:jb + t, b0:b0 + nb] += \
+                            sums[v, :, :nb] << (8 * v)
+    return out if acc is None else acc + out
+
+
+# The rotation of the tr step (csrc/rot_diff_decompose_tr.cu): a block
+# holds all N rows of 16 batch lanes of one polynomial in shared memory; a
+# small batch gathers from device memory instead.
+
+#: batch lanes of a rotation slab
+TR_SLAB_LANES = 16
+
+#: blocks a slab from which the rotation gathers: each moves 64 bytes a
+#: row of the slab, the gather 16 sectors of 32 bytes and 64 bytes
+TR_GATHER_SPLITS = 16
+
+
+def rot_tr_slab_bytes(n: int) -> int:
+    """Shared memory of a rotation block: the (N, 16) int32 slab."""
+    return n * TR_SLAB_LANES * 4
+
+
+def rot_tr_splits(blocks: int, n: int, sms: int = 132) -> int:
+    """``rot_splits`` of ``csrc/rot_diff_decompose_tr.cu``, which must
+    agree with it: how many blocks share a slab, each loading all of it
+    and computing N / splits of its rows.  1 when the launch's ``blocks``
+    slabs reach ``sms``, else the smallest power of two that does, at
+    most N / 16 (one row of a block's threads).  From
+    :data:`TR_GATHER_SPLITS` the kernel gathers instead."""
+    splits = 1
+    while blocks * splits < sms and splits < n // 16:
+        splits *= 2
+    return splits
+
+
+def rot_tr_slab_banks(j0: int, bara: torch.Tensor, n: int,
+                      lanes: int = TR_SLAB_LANES) -> tuple:
+    """The shared-memory banks a warp's 32 lanes read: lanes 0 .. 15 row
+    j0, 16 .. 31 row j0 + 1 (with 16-lane slabs), lane's batch lane b
+    with amount bara[b].  Returns (banks of the rotated reads, banks of
+    the plain reads), each (32,): word row * lanes + b of the slab."""
+    lane = torch.arange(32)
+    b, j = lane % lanes, j0 + lane // lanes
+    i = (j - bara.to(torch.int64)[b]) % (2 * n)
+    row = torch.where(i < n, i, i - n)
+    return (row * lanes + b) % 32, (j * lanes + b) % 32
+
+
+def rot_diff_decompose_tr_slab_model(acc: torch.Tensor, bara: torch.Tensor,
+                                     params: TFHEParams,
+                                     sms: int = 132) -> torch.Tensor:
+    """``rot_diff_decompose_tr``'s work in plain ops, block by block: per
+    polynomial u and slab of 16 lanes the (N, 16) slab (lanes past the
+    batch zero), shared by :func:`rot_tr_splits` blocks that each compute
+    a run of rows; coefficient j of lane b reads slab row (j - bara_b)
+    mod N (negated past N) and row j.  From :data:`TR_GATHER_SPLITS`
+    blocks a slab, every coefficient reads both words from ``acc``
+    itself.  Same arguments and result as
+    :func:`rot_diff_decompose_tr_plain`; every output row is written
+    once."""
+    kp1, n, b = acc.shape
+    w = TR_SLAB_LANES
+    splits = rot_tr_splits(-(-b // w) * kp1, n, sms)
+    out = torch.zeros((params.trgsw_rows, n, b), dtype=torch.int8,
+                      device=acc.device)
+    if splits >= TR_GATHER_SPLITS:
+        j = torch.arange(n, device=acc.device)[:, None]
+        i = (j - bara.to(torch.int64)[None, :]) % (2 * n)      # (N, B)
+        col = torch.arange(b, device=acc.device)
+        for u in range(kp1):
+            word = acc[u, i % n, col]
+            digits = gadget_decompose(torch.where(i < n, word, -word)
+                                      - acc[u], params.bg_bit, params.l)
+            for jl in range(params.l):
+                out[u * params.l + jl] = digits[..., jl].to(torch.int8)
+        return out
+    written = torch.zeros((kp1, n, b), dtype=torch.int32, device=acc.device)
+    lane = torch.arange(w, device=acc.device)
+    for u in range(kp1):
+        for b0 in range(0, b, w):
+            nb = min(w, b - b0)
+            slab = torch.zeros((n, w), dtype=torch.int32, device=acc.device)
+            slab[:, :nb] = acc[u, :, b0:b0 + nb]
+            a = torch.zeros(w, dtype=torch.int64, device=acc.device)
+            a[:nb] = bara[b0:b0 + nb].to(torch.int64)
+            for s in range(splits):
+                j = torch.arange(s * n // splits, (s + 1) * n // splits,
+                                 device=acc.device)[:, None]
+                i = (j - a[None, :]) % (2 * n)
+                rot = torch.where(i < n, slab[i % n, lane], -slab[i % n, lane])
+                digits = gadget_decompose(rot - slab[j, lane], params.bg_bit,
+                                          params.l)          # (rows j, w, l)
+                for jl in range(params.l):
+                    out[u * params.l + jl, j[:, 0], b0:b0 + nb] = \
+                        digits[:, :nb, jl].to(torch.int8)
+                written[u, j[:, 0], b0:b0 + nb] += 1
+    if not bool((written == 1).all()):
+        raise AssertionError("the rotation blocks do not write every row "
+                             "once")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -751,8 +1005,9 @@ def rot_diff_decompose_tr_plain(acc: torch.Tensor, bara: torch.Tensor,
 def rot_diff_decompose_tr(acc: torch.Tensor, bara: torch.Tensor,
                           params: TFHEParams) -> torch.Tensor:
     """acc (k+1, N, B) int32, bara (B,) int32 in [0, 2N) -> (rows, N, B)
-    int8 digits of X^bara·acc - acc; the kernel on CUDA tensors, the
-    plain twin on CPU."""
+    int8 digits of X^bara·acc - acc; the kernel on CUDA tensors (which
+    raises ``ValueError`` for a shape ``kernels_refusal("tr", ...)``
+    refuses), the plain twin on CPU."""
     return _rot_diff_decompose_launch(
         rot_diff_decompose_tr, "ieache_rot_diff_decompose_tr",
         rot_diff_decompose_tr_plain, acc, bara, params, tr=True)
@@ -779,8 +1034,9 @@ def external_product_tr(d: torch.Tensor, bk_i: torch.Tensor,
                         acc: torch.Tensor | None = None) -> torch.Tensor:
     """acc + sum_p d[p] ⊛ bk_i[p, o] in the transposed layout, exact mod
     2^32: d (rows, N, B) int8, bk_i (rows, k+1, N) int32, acc (k+1, N, B)
-    int32 or None -> (k+1, N, B) int32; the kernel on CUDA tensors, the
-    plain twin on CPU."""
+    int32 or None -> (k+1, N, B) int32; the kernel on CUDA tensors (which
+    raises ``ValueError`` for a shape ``kernels_refusal("tr", ...)``
+    refuses), the plain twin on CPU."""
     return _external_product_launch(
         external_product_tr, "ieache_external_product_tr",
         external_product_tr_plain, d, bk_i, params, acc, tr=True)

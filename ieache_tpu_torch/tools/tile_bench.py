@@ -1,6 +1,7 @@
-"""Times of the four kernels on the tensor-core tile, by batch.
+"""Times of the kernels on the tensor-core tile, by batch.
 
-``external_product`` (ms per call with the accumulator fused),
+``external_product`` and ``external_product_tr`` (ms per call with the
+accumulator fused), ``rot_diff_decompose_tr`` (ms per call),
 ``cmux_step`` and ``cmux_step_overlap`` (ms per step; each the median of
 three CUDA-graph replays of 50 calls) and ``blind_rotate_scan`` (ms per
 whole rotation of n steps: the median of three runs of 3 calls between
@@ -17,9 +18,9 @@ the comparison.  Run from the root of a checkout, on a CUDA device:
 
     python -m ieache_tpu_torch.tools.tile_bench
 
-Env: TB_PRODUCT_B (comma list, default ``8,16,1024``), TB_STEP_B
-(``8,16,1024``), TB_SCAN_B (``8,1024``), TB_PARAMS (ieache_110_l2, or
-ieache_110), TB_CHECK (1).
+Env: TB_PRODUCT_B (comma list, default ``8,16,1024``), TB_STEP_B (the
+two fused steps and the tr pair, ``8,16,1024``), TB_SCAN_B (``8,1024``),
+TB_PARAMS (ieache_110_l2, or ieache_110), TB_CHECK (1).
 """
 
 from __future__ import annotations
@@ -78,12 +79,14 @@ def step_inputs(p, b: int, device, rng):
 def run(p, product_b, scan_b, device, check: bool = True,
         timed: bool = True, step_b=()) -> dict:
     """The record: ``external_product_ms``, ``cmux_step_ms``,
-    ``cmux_step_overlap_ms`` and ``blind_rotate_scan_ms`` by batch.
+    ``cmux_step_overlap_ms``, ``blind_rotate_scan_ms``,
+    ``rot_diff_decompose_tr_ms`` and ``external_product_tr_ms`` by batch.
     ``check`` holds each kernel against its twin first and raises where
     they differ; ``timed=False`` (the CPU rehearsal) only checks."""
     rng = np.random.RandomState(0)
     rec = {"params": p.name, "external_product_ms": {}, "cmux_step_ms": {},
-           "cmux_step_overlap_ms": {}, "blind_rotate_scan_ms": {}}
+           "cmux_step_overlap_ms": {}, "blind_rotate_scan_ms": {},
+           "rot_diff_decompose_tr_ms": {}, "external_product_tr_ms": {}}
     for b in product_b:
         d, bk_i, acc = product_inputs(p, b, device, rng)
         if check and not torch.equal(
@@ -98,17 +101,29 @@ def run(p, product_b, scan_b, device, check: bool = True,
                 for _ in range(3))
     for b in step_b:
         acc, bara, bk_i = step_inputs(p, b, device, rng)
-        for name in ("cmux_step", "cmux_step_overlap"):
-            kern = getattr(kernels, name)
-            if check and not torch.equal(
-                    kern(acc, bara, bk_i, p),
-                    kernels.cmux_step_plain(acc, bara, bk_i, p)):
+        acc_tr = acc.transpose(1, 2).contiguous()            # (k+1, N, B)
+        d_tr = kernels.rot_diff_decompose_tr_plain(acc_tr, bara, p)
+        calls = {
+            "cmux_step": (lambda: kernels.cmux_step(acc, bara, bk_i, p),
+                          lambda: kernels.cmux_step_plain(acc, bara, bk_i, p)),
+            "cmux_step_overlap": (
+                lambda: kernels.cmux_step_overlap(acc, bara, bk_i, p),
+                lambda: kernels.cmux_step_plain(acc, bara, bk_i, p)),
+            "rot_diff_decompose_tr": (
+                lambda: kernels.rot_diff_decompose_tr(acc_tr, bara, p),
+                lambda: d_tr),
+            "external_product_tr": (
+                lambda: kernels.external_product_tr(d_tr, bk_i, p,
+                                                    acc=acc_tr),
+                lambda: kernels.external_product_tr_plain(d_tr, bk_i, p,
+                                                          acc_tr))}
+        for name, (kern, plain) in calls.items():
+            if check and not torch.equal(kern(), plain()):
                 raise AssertionError(f"{name} differs from its twin at "
                                      f"B={b}")
             if timed:
                 rec[name + "_ms"][b] = statistics.median(
-                    graph_ms(lambda: kern(acc, bara, bk_i, p), 50)
-                    for _ in range(3))
+                    graph_ms(kern, 50) for _ in range(3))
     for b in scan_b:
         acc, bara, bk = scan_inputs(p, b, device, rng)
         if check and b <= SCAN_CHECK_MAX_B and not torch.equal(

@@ -146,16 +146,17 @@ def test_bounds_are_the_larger_of_bytes_and_operations():
 
 @pytest.mark.parametrize("rows", [4, 6])
 def test_tensor_core_tile_phase_passes_on_cpu_twins(rows):
-    """Phase 3's second pass over the four kernels on the tensor-core
-    tile (extreme operands and accumulators, 4 and 6 TRGSW rows, a batch
-    either side of the split), on the twins."""
+    """Phase 3's second pass over the five kernels on the tensor-core
+    tile and the tr rotation (extreme operands and accumulators, 4 and 6
+    TRGSW rows, a batch either side of the split), on the twins."""
     cs = _chip_smoke()
     dev = torch.device("cpu")
     p = dataclasses.replace(P.TEST_TINY, l=rows // 2, name=f"tiny_{rows}rows")
     assert p.trgsw_rows == rows
     errs = cs.check_mma_kernels(p, dev, (1, 5, 8), split_edge=(16, 17))
     assert errs == {"external_product": 0, "blind_rotate_scan": 0,
-                    "cmux_step": 0, "cmux_step_overlap": 0}
+                    "cmux_step": 0, "cmux_step_overlap": 0,
+                    "external_product_tr": 0, "rot_diff_decompose_tr": 0}
     # the extreme accumulators decompose to what their names say
     at = {name: cs.kernels.rot_diff_decompose_plain(acc, bara, p)
           for name, acc, bara, _ in cs.extreme_accumulators(
@@ -231,10 +232,11 @@ def test_tile_bench_checks_on_cpu_twins():
     dev = torch.device("cpu")
     p = P.TEST_TINY
     rec = tile_bench.run(p, [1, 8], [5], dev, check=True, timed=False,
-                         step_b=[3, 17])
+                         step_b=[3, 16, 17])
     assert rec == {"params": p.name, "external_product_ms": {},
                    "cmux_step_ms": {}, "cmux_step_overlap_ms": {},
-                   "blind_rotate_scan_ms": {}}
+                   "blind_rotate_scan_ms": {}, "rot_diff_decompose_tr_ms": {},
+                   "external_product_tr_ms": {}}
     acc, bara, bk_i = tile_bench.step_inputs(p, 3, dev,
                                              np.random.RandomState(0))
     assert acc.shape == (p.k + 1, 3, p.N) and bara.shape == (3,)

@@ -295,8 +295,8 @@ SMALL_N = P.TFHEParams(n=8, N=32, k=1, bg_bit=8, l=2, ks_basebit=4, ks_t=4,
 @pytest.mark.parametrize("mode", list(MODES))
 def test_small_n_takes_the_plain_step_on_the_card(cuda, mode, route):
     """At N=32 the blind rotation on CUDA tensors equals plain=True under
-    every step mode; the tensor-core modes launch nothing (their kernels
-    refuse the shape, and the plain step runs), tr launches its own."""
+    every step mode; no mode launches anything (every mode's kernels
+    refuse the shape, and the plain step runs; ntt has no kernel)."""
     from ieache_tpu_torch.ops.blind_rotate import blind_rotate
 
     p = SMALL_N
@@ -312,7 +312,7 @@ def test_small_n_takes_the_plain_step_on_the_card(cuda, mode, route):
     torch.cuda.synchronize()
     assert got.is_cuda and torch.equal(got, want)
     takes = kernels.kernels_take(mode, p)
-    assert takes == (mode in ("tr", "ntt"))
+    assert takes == (mode == "ntt")
     assert _launched(counts) == (set(MODES[mode])
                                  if takes and route == "auto" else set())
     if not takes:
@@ -381,6 +381,81 @@ def test_tr_kernels_match_plain(cuda, p, b):
         want = kernels.external_product_tr_plain(d, bk_i, p, a)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("p", [P.IEACHE_110_FAST, P.IEACHE_110],
+                         ids=lambda p: p.name)
+@pytest.mark.parametrize("b", [8, 16, 128, 129, 256, 257])
+def test_tr_kernels_extreme_operands(cuda, p, b):
+    """Both tr kernels at 4 and 6 TRGSW rows, either side of where the
+    product's launch splits a tile's sum over blocks (8 and 16 lanes: 8
+    tiles; 256: 128 tiles, still split; 257: 136 tiles, not split) and of
+    where the rotation turns from its gather (up to 128 lanes) to slabs:
+    every limb sum at its ends, the edge key words and random operands,
+    with and without the accumulator; the rotation at the edge
+    amounts."""
+    rng = np.random.RandomState(800 + b)
+    shape_d, shape_k = (p.trgsw_rows, p.N, b), (p.trgsw_rows, p.k + 1, p.N)
+    acc = _rand(rng, (p.k + 1, p.N, b), -2**31, 2**31, np.int32, cuda)
+
+    def full(shape, value, dtype):
+        return torch.full(shape, value, dtype=dtype, device=cuda)
+
+    cases = [
+        (full(shape_d, -128, torch.int8), full(shape_k, LIMBS_LO, torch.int32)),
+        (full(shape_d, 127, torch.int8), full(shape_k, LIMBS_HI, torch.int32)),
+        (full(shape_d, -128, torch.int8), full(shape_k, LIMBS_HI, torch.int32)),
+        (_rand(rng, shape_d, -128, 128, np.int8, cuda), _edge_key(shape_k, cuda)),
+        (_rand(rng, shape_d, -128, 128, np.int8, cuda),
+         _rand(rng, shape_k, -2**31, 2**31, np.int32, cuda)),
+    ]
+    for i, (d, bk_i) in enumerate(cases):
+        for a in (None, acc):
+            before = kernels.external_product_tr.launches
+            got = kernels.external_product_tr(d, bk_i, p, acc=a)
+            assert kernels.external_product_tr.launches == before + 1
+            want = kernels.external_product_tr_plain(d, bk_i, p, a)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (i, a is not None)
+    for amount in (0, p.N, 2 * p.N - 1):
+        bara = torch.full((b,), amount, dtype=torch.int32, device=cuda)
+        got = kernels.rot_diff_decompose_tr(acc, bara, p)
+        want = kernels.rot_diff_decompose_tr_plain(acc, bara, p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), amount
+
+
+def test_tr_kernels_refuse_shapes_over_their_bounds(cuda):
+    """N below the tensor-core tile's 64, rows * N >= 2^17, and a slab
+    over a block's shared memory (N = 4096): both tr wrappers raise on
+    CUDA tensors and launch nothing; the C entry points refuse the
+    first."""
+    counts = [w.launches for w in WRAPPERS.values()]
+    for p in (dataclasses.replace(P.TEST_TINY, N=32, name="n32"),
+              dataclasses.replace(P.IEACHE_110_FAST, k=63, name="rows128"),
+              dataclasses.replace(P.IEACHE_110_FAST, N=4096, name="n4096")):
+        rows, kp1, n = p.trgsw_rows, p.k + 1, p.N
+        acc = torch.zeros((kp1, n, 1), dtype=torch.int32, device=cuda)
+        bara = torch.zeros((1,), dtype=torch.int32, device=cuda)
+        d = torch.zeros((rows, n, 1), dtype=torch.int8, device=cuda)
+        bk_i = torch.zeros((rows, kp1, n), dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError):
+            kernels.rot_diff_decompose_tr(acc, bara, p)
+        with pytest.raises(ValueError):
+            kernels.external_product_tr(d, bk_i, p, acc=acc)
+    assert _launched(counts) == set()
+    lib = kernels._build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    acc = torch.zeros((2, 32, 1), dtype=torch.int32, device=cuda)
+    d = torch.zeros((4, 32, 1), dtype=torch.int8, device=cuda)
+    out = torch.empty_like(acc)
+    assert lib.ieache_external_product_tr(
+        d.data_ptr(), acc.data_ptr(), None, out.data_ptr(), 4, 2, 1, 32,
+        stream) != 0
+    assert lib.ieache_rot_diff_decompose_tr(
+        acc.data_ptr(), acc.data_ptr(), d.data_ptr(), 2, 1, 32, 8, 2, 0,
+        stream) != 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("p", PARAMS, ids=lambda p: p.name)

@@ -26,7 +26,7 @@ from ieache_tpu_torch.ops import kernels
 N32 = P.TFHEParams(n=8, N=32, k=1, bg_bit=8, l=2, ks_basebit=4, ks_t=4,
                    lwe_noise_scale=0, tlwe_noise_scale=0, name="n32")
 
-#: N % 8 != 0: the rotation and transposed kernels refuse it too
+#: N % 8 != 0: even split's rotation kernel refuses it
 N4 = dataclasses.replace(N32, N=4, name="n4")
 
 TILE_MODES = ("split", "fused2", "overlap", "overlap2", "scan")
@@ -60,14 +60,13 @@ def _case(p, b, seed):
 
 @pytest.mark.parametrize("mode", tbr.STEP_MODES)
 def test_predicate_by_mode_and_ring_degree(mode):
-    """The tensor-core modes take N a power of two from 64 with
-    rows * N < 2^17, tr takes N % 8 == 0, ntt has no kernel to refuse."""
+    """Every mode with kernels runs its products on the tensor-core
+    tile, which takes N a power of two from 64 with rows * N < 2^17 (tr
+    also its rotation's slab); ntt has no kernel to refuse."""
     takes = {n: kernels.kernels_take(mode, dataclasses.replace(N32, N=n))
              for n in (4, 32, 64, 1024)}
-    if mode in TILE_MODES:
+    if mode in TILE_MODES + ("tr",):
         assert takes == {4: False, 32: False, 64: True, 1024: True}
-    elif mode == "tr":
-        assert takes == {4: False, 32: True, 64: True, 1024: True}
     else:
         assert all(takes.values())
     assert kernels.kernels_take(mode, P.IEACHE_110_FAST)
@@ -133,7 +132,7 @@ def test_blind_rotate_at_small_n_matches_jax(p, mode, route, monkeypatch):
 
 @pytest.mark.parametrize("mode", TILE_MODES + ("tr",))
 def test_pallas_1_raises_where_the_kernels_refuse(mode, monkeypatch):
-    p = N4 if mode == "tr" else N32
+    p = N32
     acc0, bara, bk = _case(p, 1, 7)
     monkeypatch.setenv("IEACHE_PALLAS_STEP", mode)
     monkeypatch.setenv("IEACHE_PALLAS", "1")
