@@ -29,8 +29,10 @@ prints no result line:
    integer kernels of the blind rotation and the rotation probe to
    exact equality, at IEACHE_110_FAST and the main path's batches
    (B=1024 for NAND, 8 and 16 for the rounds of ``A + B - C``), at
-   ragged B in {1, 5, 1056} and at rotation amounts {0, N, 2N-1,
-   random}; the scan kernel over all n=500 steps; the five kernels on the
+   ragged B in {1, 5, 1056} and at rotation amounts {0, 1, 2, 3, N,
+   N+1, 2N-1, random} (every residue of the amount mod 4, on which the
+   split rotation's runs of aligned quads turn); the scan kernel over
+   all n=500 steps; the five kernels on the
    int8 tensor-core tile (external_product, blind_rotate_scan, cmux_step,
    cmux_step_overlap, external_product_tr) and the tr rotation once more
    at IEACHE_110_FAST and at IEACHE_110 (6 TRGSW rows), B in {1, 5, 8,
@@ -41,7 +43,11 @@ prints no result line:
    the per-step kernels also at B = 256 and 257, either side of where
    their launches start to split a tile's sum over blocks;
    the rotation probe's
-   kernels at its B=2048 and at B=5; mm_s8 (exact) and mm_bf16 at the
+   kernels at its B=2048 and at B=5 and 16 (the sublane kernel's slab
+   and its gather); the split rotation at every run length and block
+   size and the sublane rotation by slab and by gather, whatever their
+   launch policies pick, at B in {8, 256, 1024}, and both on an
+   accumulator that is only 4-byte aligned; mm_s8 (exact) and mm_bf16 at the
    matmul probe's (1024, 1024, 1024) with g in {1, 512} (the int32 sum
    wraps with extreme operands) and at four smaller shapes with k up
    to 4096, so that each type runs its three kernels, mm_bf16 to within
@@ -78,9 +84,10 @@ prints no result line:
    latency of ``A + B - C`` (host clock, ``torch.cuda.synchronize``
    fences; one repeat for a mode slower than 3 s); ms per call of each
    per-step kernel beside its twin (CUDA events around a CUDA-graph
-   replay, and around a plain Python loop), at B=1024 and, for the
-   split pair, the two fused step kernels and the tr pair, at B=8 and
-   B=16 too; ms per whole rotation
+   replay, and around a plain Python loop), at B=1024 (the probe's
+   rotations at B=2048) and, for the split pair, the two fused step
+   kernels, the tr pair and the sublane rotation (its gather), at B=8
+   and B=16 too; ms per whole rotation
    of the scan kernel and its twin at B=8 and B=1024 (CUDA events
    around the call); the rotation probe (``transposed_probe``, its
    launch counts reset just before and read just after: the probe
@@ -125,14 +132,18 @@ from ieache_tpu_torch.ops.blind_rotate import STEP_MODES, blind_rotate
 from ieache_tpu_torch.tools import (
     mosaic_mm_probe,
     step_bench,
+    tile_bench,
     transposed_probe,
 )
 from ieache_tpu_torch.tools._common import (
     card_line,
     card_state,
+    COLD_BYTES,
+    cold_copies,
     environ,
     events_ms,
     graph_ms,
+    graph_ms_cold,
     require_cuda,
 )
 
@@ -224,10 +235,25 @@ EDGE_KEY_WORDS = (-2**31, -1, 2**31 - 1, 0x7F7F7F7F, 0x80808080 - 2**32, 0)
 SMALL_BATCHES = (8, 16)
 
 #: the per-step kernels phase 7 times at the small batches: the split pair
-#: beside the two fused steps and the tr pair
+#: beside the two fused steps and the tr pair; and the probe's sublane
+#: rotation, whose launch gathers there
 SMALL_BATCH_KERNELS = ("rot_diff_decompose", "external_product", "cmux_step",
                        "cmux_step_overlap", "rot_diff_decompose_tr",
-                       "external_product_tr")
+                       "external_product_tr", "rotate_sublane")
+
+
+#: the rotations phase 7 also times with the L2 cold: (name, whether its
+#: accumulator is (k+1, N, B), whether it runs at the probe's batch)
+COLD_KERNELS = (("rot_diff_decompose", False, False),
+                ("rot_diff_decompose_tr", True, False),
+                ("rotate_lane", False, True),
+                ("rotate_sublane", True, True))
+
+
+def rot_amounts(n):
+    """The fixed rotation amounts of phase 3 beside random ones: every
+    residue mod 4 (0, 1, 2, 3), X^N = -1 and one past it, and 2N - 1."""
+    return (0, 1, 2, 3, n, n + 1, 2 * n - 1)
 
 #: a ring degree below the tensor-core tile's 64: the kernels refuse it and
 #: the blind rotation takes the plain step
@@ -281,7 +307,8 @@ def _compare(name, got, want, errs, device, case):
                              f"max abs err {err}")
 
 
-def check_kernels(p, device, batches, probe_batches=(PROBE_B, 5), seed=0):
+def check_kernels(p, device, batches, probe_batches=(PROBE_B, 5, 16),
+                  seed=0):
     """Phase 3: each kernel against its plain twin; returns max abs
     error per kernel (0 when all equal)."""
     rng = np.random.RandomState(seed)
@@ -290,9 +317,10 @@ def check_kernels(p, device, batches, probe_batches=(PROBE_B, 5), seed=0):
         return _rand(rng, shape, lo, hi, dtype, device)
 
     def amounts(b):
-        """(name, bara (B,)): random amounts, then 0, N and 2N-1."""
+        """(name, bara (B,)): random amounts, then 0, 1, 2, 3, N, N+1 and
+        2N-1."""
         yield "random", rand((b,), 0, 2 * p.N, np.int32)
-        for a in (0, p.N, 2 * p.N - 1):
+        for a in rot_amounts(p.N):
             yield a, torch.full((b,), a, dtype=torch.int32, device=device)
 
     errs = {}
@@ -340,7 +368,8 @@ def check_kernels(p, device, batches, probe_batches=(PROBE_B, 5), seed=0):
                  kernels.blind_rotate_scan(acc, bara_n, bk, p),
                  kernels.blind_rotate_scan_plain(acc, bara_n, bk, p),
                  errs, device, f"B={b} steps={p.n}")
-        log(f"phase 3 kernels: B={b} equal (rot amounts random/0/N/2N-1 "
+        log(f"phase 3 kernels: B={b} equal (rot amounts "
+            f"random/0/1/2/3/N/N+1/2N-1 "
             f"for both rotations, cmux_step, cmux_step_overlap and the tr "
             f"step; both external products with and without acc; scan "
             f"over {p.n} steps)")
@@ -354,7 +383,51 @@ def check_kernels(p, device, batches, probe_batches=(PROBE_B, 5), seed=0):
             _compare("rotate_sublane", kernels.rotate_sublane(acc_tr, bara),
                      kernels.rotate_sublane_plain(acc_tr, bara), errs,
                      device, case)
-        log(f"phase 3 probe kernels: B={b} equal (amounts random/0/N/2N-1)")
+        log(f"phase 3 probe kernels: B={b} equal (amounts "
+            f"random/0/1/2/3/N/N+1/2N-1)")
+    return errs
+
+
+def check_rotation_launches(p, device, batches=(8, 256, 1024), seed=6):
+    """Phase 3, the two redesigned rotations on every path their launches
+    can take, against their twins: ``rot_diff_decompose`` at both run
+    lengths and ``rotate_sublane`` by its slab and by its
+    gather (``tile_bench.rotation_variants``: uncounted launches of the C
+    entry points), at the amounts of :func:`rot_amounts` and random ones;
+    then both wrappers on an accumulator that is only 4-byte aligned (no
+    16-byte loads or copies).  Returns max abs error per kernel."""
+    rng = np.random.RandomState(seed)
+    errs = {"rot_diff_decompose": 0, "rotate_sublane": 0}
+    for b in batches:
+        acc = _rand(rng, (p.k + 1, b, p.N), -2**31, 2**31, np.int32, device)
+        acc_tr = acc.transpose(1, 2).contiguous()
+        for amount in ("random", *rot_amounts(p.N)):
+            bara = (_rand(rng, (b,), 0, 2 * p.N, np.int32, device)
+                    if amount == "random" else
+                    torch.full((b,), amount, dtype=torch.int32,
+                               device=device))
+            for name, (kern, plain) in tile_bench.rotation_variants(
+                    p, acc, bara, acc_tr).items():
+                kernel, shape = name.split(" ", 1)
+                _compare(kernel, kern(), plain(), errs, device,
+                         f"B={b} bara={amount} launch {shape}")
+        for x, kern, plain, args in (
+                (acc, kernels.rot_diff_decompose,
+                 kernels.rot_diff_decompose_plain, (p,)),
+                (acc_tr, kernels.rotate_sublane, kernels.rotate_sublane_plain,
+                 ())):
+            # the same words one word into a larger allocation
+            off = torch.empty(x.numel() + 1, dtype=torch.int32,
+                              device=device)[1:].view(x.shape)
+            off.copy_(x)
+            bara = _rand(rng, (b,), 0, 2 * p.N, np.int32, device)
+            _compare(kern.__name__, kern(off, bara, *args),
+                     plain(x, bara, *args), errs, device,
+                     f"B={b} acc 4-byte aligned")
+        log(f"phase 3 rotation launches: B={b} equal (rot_diff_decompose at "
+            f"runs {kernels.ROT_RUNS}, rotate_sublane by "
+            f"slab and gather, amounts random/0/1/2/3/N/N+1/2N-1; both on "
+            f"a 4-byte aligned accumulator)")
     return errs
 
 
@@ -841,9 +914,9 @@ def external_product_ops(p, batch, steps=1):
             * steps)
 
 
-def step_calls(p, device, batch):
+def step_calls(p, device, batch, probe_b=PROBE_B):
     """The per-step kernels' calls at B=``batch`` (the probe's kernels
-    at B=PROBE_B): name -> (kernel call, twin call, input tensors,
+    at B=``probe_b``): name -> (kernel call, twin call, input tensors,
     operations of the call)."""
     rng = np.random.RandomState(1)
     acc = _rand(rng, (p.k + 1, batch, p.N), -2**31, 2**31, np.int32, device)
@@ -852,10 +925,10 @@ def step_calls(p, device, batch):
                  device)
     d = kernels.rot_diff_decompose(acc, bara, p)
     acc_tr, d_tr = (x.transpose(1, 2).contiguous() for x in (acc, d))
-    probe = _rand(rng, (p.k + 1, PROBE_B, p.N), -2**31, 2**31, np.int32,
+    probe = _rand(rng, (p.k + 1, probe_b, p.N), -2**31, 2**31, np.int32,
                   device)
     probe_tr = probe.transpose(1, 2).contiguous()
-    probe_bara = _rand(rng, (PROBE_B,), 0, 2 * p.N, np.int32, device)
+    probe_bara = _rand(rng, (probe_b,), 0, 2 * p.N, np.int32, device)
     ep_ops = external_product_ops(p, batch)
     return {
         "rot_diff_decompose": (
@@ -894,17 +967,18 @@ def step_calls(p, device, batch):
     }
 
 
-def step_times(p, device, batch, reps, names=None):
+def step_times(p, device, batch, reps, names=None, probe_b=PROBE_B):
     """Phase 7: ms per call of each per-step kernel (of ``names`` only,
     when given) and of its plain twin at the main-path shapes
-    (:func:`step_calls`), on a CUDA ``device``: ``ms``/``plain_ms`` on
+    (:func:`step_calls`; the probe's at B=``probe_b``), on a CUDA
+    ``device``: ``ms``/``plain_ms`` on
     the device (CUDA graph replay), ``host_ms``/``plain_host_ms`` per
     call of a Python loop (launch cost included), and the call's bound
     (:func:`bound_ms`; a rotation's few integer operations per
     coefficient have no tensor-core form and are not counted)."""
     times = {}
-    for name, (kern, plain, inputs, ops) in step_calls(p, device,
-                                                       batch).items():
+    for name, (kern, plain, inputs, ops) in step_calls(
+            p, device, batch, probe_b).items():
         if names is not None and name not in names:
             continue
         bound, by = bound_ms((*inputs, kern()), ops, "int8")
@@ -914,6 +988,57 @@ def step_times(p, device, batch, reps, names=None):
                        "plain_ms": graph_ms(plain, reps),
                        "bound_ms": bound, "bound_by": by, "library_ms": None}
     return times
+
+
+def cold_calls(p, device, batch, probe_b=PROBE_B, cycle=COLD_BYTES):
+    """The rotations of :data:`COLD_KERNELS` at B=``batch`` (the probe's
+    at B=``probe_b``), each on :func:`cold_copies` copies of its
+    accumulator (``cycle`` bytes of them): name -> (B, the calls, one per
+    copy, the input tensors of one call)."""
+    rng = np.random.RandomState(8)
+    wrappers = {
+        "rot_diff_decompose": lambda a, t: kernels.rot_diff_decompose(a, t, p),
+        "rot_diff_decompose_tr":
+            lambda a, t: kernels.rot_diff_decompose_tr(a, t, p),
+        "rotate_lane": kernels.rotate_lane,
+        "rotate_sublane": kernels.rotate_sublane}
+    out = {}
+    for name, tr, probe in COLD_KERNELS:
+        b = probe_b if probe else batch
+        shape = (p.k + 1, p.N, b) if tr else (p.k + 1, b, p.N)
+        acc = _rand(rng, shape, -2**31, 2**31, np.int32, device)
+        bara = _rand(rng, (b,), 0, 2 * p.N, np.int32, device)
+        copies = [acc] + [acc.clone() for _ in range(
+            cold_copies(acc.numel() * 4, cycle) - 1)]
+        fn = wrappers[name]
+        out[name] = (b, [lambda a=a, fn=fn, t=bara: fn(a, t)
+                         for a in copies], (acc, bara))
+    return out
+
+
+def cold_times(p, device, batch, probe_b=PROBE_B):
+    """Phase 7: ms per call of the rotations of :data:`COLD_KERNELS` with
+    the L2 cold (:func:`graph_ms_cold` through :func:`cold_calls`, two
+    cycles of the copies), beside the bound of their bytes at the HBM
+    rate.  name -> {"b", "copies", "ms", "bound_ms"}."""
+    times = {}
+    for name, (b, calls, inputs) in cold_calls(p, device, batch,
+                                               probe_b).items():
+        bound, _ = bound_ms((*inputs, calls[0]()), 0, "int8")
+        times[name] = {"b": b, "copies": len(calls),
+                       "ms": graph_ms_cold(calls, 2 * len(calls)),
+                       "bound_ms": bound}
+        del calls
+    return times
+
+
+def cold_line(name, t):
+    """Phase 7's line for one rotation's time with the L2 cold."""
+    return (f"phase 7 {name} B={t['b']} L2 cold: kernel {t['ms']:.4f} "
+            f"ms/call (graph replay through {t['copies']} copies of the "
+            f"accumulator, every output kept); bound {t['bound_ms']:.4f} "
+            f"ms (bytes at the HBM rate), {t['bound_ms'] / t['ms']:.0%} of "
+            f"it")
 
 
 def step_line(name, b, t):
@@ -1053,6 +1178,8 @@ def main() -> int:
     # phase 3: kernels against their plain twins; 8 and 16 are the
     # batches of the A + B - C rounds below
     errs = check_kernels(p, device, [batch, 8, 16, 1, 5, 1056])
+    for name, err in check_rotation_launches(p, device).items():
+        errs[name] = max(errs[name], err)
     for mma_p in MMA_PARAMS:
         for name, err in check_mma_kernels(mma_p, device,
                                            MMA_BATCHES).items():
@@ -1150,11 +1277,15 @@ def main() -> int:
         log(step_line(name, PROBE_B if name.startswith("rotate_") else batch,
                       t))
     # the split pair beside the two fused steps and the tr pair at the
-    # batches of A + B - C
+    # batches of A + B - C, and the sublane rotation's gather
     for b in SMALL_BATCHES:
         for name, t in step_times(p, device, b, reps=20,
-                                  names=SMALL_BATCH_KERNELS).items():
+                                  names=SMALL_BATCH_KERNELS,
+                                  probe_b=b).items():
             log(step_line(name, b, t))
+    # the rotations again with the L2 cold: their bytes from HBM
+    for name, t in cold_times(p, device, batch).items():
+        log(cold_line(name, t))
     for b in (8, batch):
         t = scan_times(p, device, b, reps=2)
         log(f"phase 7 blind_rotate_scan B={b}: kernel {t['ms']:.3f} ms, "

@@ -11,18 +11,34 @@
 //
 // Bound on the H100: memory.  Each output coefficient reads two int32
 // words of the accumulator and writes l bytes; at B=1024, N=1024, k=1,
-// l=2 a step reads 8 MB and writes 4 MB, and does a handful of integer
-// operations per byte moved.
+// l=2 a step reads 8 MB and writes 4 MB (0.0038 ms at 3.35 TB/s), and
+// does a handful of integer operations per byte moved.
 //
 // Design: the TPU kernel builds X^bara as eleven conditional static
 // rolls (a barrel shifter), because per-lane gathers are slow there.
-// Here coefficient j of X^a * c is read directly: c_i with
-// i = (j - a) mod 2N when i < N, else -c_{i-N}.  Consecutive threads
-// take consecutive j, so both reads and every digit row's writes are
-// coalesced.  One block covers up to 256 coefficients of one (u, b)
-// polynomial; the grid is (B, N / threads, k+1), so any B launches
-// whole blocks and no ragged edge or batch padding exists.  All
-// wrapping arithmetic is uint32_t (signed overflow is undefined in C++).
+// Here a thread takes a run of R = 4 or 8 consecutive coefficients of
+// one (u, b) polynomial (rot_diff_run, cmux_common.cuh): its plain words
+// as R / 4 aligned 16-byte loads, its rotated words as R / 4 + 1 aligned
+// 16-byte loads shifted by an amount that is the same for the whole
+// polynomial, every load in flight before any arithmetic; then, for each
+// digit row, the run's R digit bytes packed by byte permutes
+// (digit_word) into one R-byte store.  Consecutive threads take
+// consecutive runs, so every load and store is coalesced.  The run
+// length comes from the caller (ops/kernels.py:rot_launch, the one place
+// the policy lives): runs of 8 at the throughput batches, where runs of
+// 4 would need more threads than the SMs hold at once, runs of 4 below.
+// Runs of 16 (one 16-byte store a digit row) were slower than runs of 8
+// at every batch on the H100, with more registers and fewer threads, and
+// blocks of 32, 64 or 256 threads lost to or tied with blocks of 128
+// (PERF.md §6), so a block has kThreads.  The grid covers
+// (B * N / R runs, k+1): N / R is a power of two, so a thread finds
+// its lane and run by a shift and a mask, with no division before its
+// first load (the small batches are latency-bound); any B launches.  An
+// accumulator that is not 16-byte aligned takes four 4-byte loads a quad.
+// All wrapping arithmetic is uint32_t (signed overflow is undefined in
+// C++).
+
+#include <climits>
 
 #include "cmux_common.cuh"
 
@@ -30,32 +46,72 @@ using namespace ieache;
 
 namespace {
 
-__global__ void rot_diff_decompose_kernel(
+constexpr int kThreads = 128;
+
+// R digit bytes (R / 4 words) to dst, one R-byte store.
+template <int R>
+__device__ __forceinline__ void store_run(int8_t* dst, const uint32_t* w) {
+  if constexpr (R == 8)
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+  else
+    *reinterpret_cast<uint32_t*>(dst) = w[0];
+}
+
+// Thread t of grid row u takes run t of component u: lane t >> log_per
+// (N / R = 2^log_per runs a polynomial), coefficients R * (t mod N / R)
+// onwards.
+template <int R, bool kVec>
+__global__ void __launch_bounds__(kThreads) rot_diff_decompose_kernel(
     const uint32_t* __restrict__ acc, const int32_t* __restrict__ bara,
     int8_t* __restrict__ out, int batch, int n, int bg_bit, int l,
-    uint32_t offset) {
-  const int b = blockIdx.x;
-  const int u = blockIdx.z;
-  const int j = blockIdx.y * blockDim.x + threadIdx.x;
-  const uint32_t v = rot_diff<false>(acc + ((int64_t)u * batch + b) * n,
-                                     (uint32_t)bara[b], j, n, offset);
+    uint32_t offset, int runs, int log_per) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= runs) return;
+  const int u = blockIdx.y, b = t >> log_per;
+  const int j0 = (t & ((1 << log_per) - 1)) * R;
+  uint32_t v[R];
+  rot_diff_run<R, kVec, false>(acc + ((int64_t)u * batch + b) * n,
+                               (uint32_t)bara[b], j0, n, offset, v);
   for (int jl = 0; jl < l; ++jl) {
-    out[((int64_t)(u * l + jl) * batch + b) * n + j] =
-        gadget_digit(v, jl, bg_bit);
+    uint32_t w[R / 4];
+#pragma unroll
+    for (int g = 0; g < R / 4; ++g) w[g] = digit_word(v + 4 * g, jl, bg_bit);
+    store_run<R>(out + ((int64_t)(u * l + jl) * batch + b) * n + j0, w);
   }
+}
+
+template <int R>
+cudaError_t launch(const void* acc, const void* bara, void* out, int kp1,
+                   int batch, int n, int bg_bit, int l, uint32_t offset,
+                   cudaStream_t stream) {
+  const int runs = batch * (n / R), log_per = __builtin_ctz(n / R);
+  const dim3 grid((runs + kThreads - 1) / kThreads, kp1);
+  if (((uintptr_t)acc & 15) == 0)
+    rot_diff_decompose_kernel<R, true><<<grid, kThreads, 0, stream>>>(
+        (const uint32_t*)acc, (const int32_t*)bara, (int8_t*)out, batch, n,
+        bg_bit, l, offset, runs, log_per);
+  else
+    rot_diff_decompose_kernel<R, false><<<grid, kThreads, 0, stream>>>(
+        (const uint32_t*)acc, (const int32_t*)bara, (int8_t*)out, batch, n,
+        bg_bit, l, offset, runs, log_per);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// `run`: coefficients a thread (4 or 8).  N a power of two of at least 8.
 extern "C" int ieache_rot_diff_decompose(
     const void* acc, const void* bara, void* out, int kp1, int batch, int n,
-    int bg_bit, int l, uint32_t offset, void* stream) {
-  const int threads = n < 256 ? n : 256;
-  const dim3 grid(batch, n / threads, kp1);
-  rot_diff_decompose_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)acc, (const int32_t*)bara, (int8_t*)out, batch, n,
-      bg_bit, l, offset);
-  return (int)cudaGetLastError();
+    int bg_bit, int l, uint32_t offset, int run, void* stream) {
+  if (n < 8 || (n & (n - 1)) != 0 || (run != 4 && run != 8) ||
+      kp1 > 65535 || (int64_t)batch * (n / run) > INT_MAX - kThreads)
+    return (int)cudaErrorInvalidValue;
+  if (kp1 == 0 || batch == 0) return (int)cudaSuccess;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(run == 4 ? launch<4>(acc, bara, out, kp1, batch, n, bg_bit,
+                                     l, offset, s)
+                        : launch<8>(acc, bara, out, kp1, batch, n, bg_bit,
+                                    l, offset, s));
 }
 
 extern "C" const char* ieache_error_string(int code) {

@@ -18,27 +18,27 @@
 // (k+1, N, B) they read one coefficient row of 32 batch lanes, each lane at
 // its own rotated row: a gather, one 32-byte sector per 4-byte word.
 //
-// Design: one thread per output coefficient, the innermost axis fastest,
-// so the store is coalesced in both layouts; coefficient j of X^a * c is
-// c_i with i = (j - a) mod 2N when i < N, else -c_{i-N}, read directly
-// (the TPU's barrel shifter exists because it has no per-lane gather).
-// Any B; N a power of two, at least 8.
+// Design.  Lane kernel: one thread per output coefficient, the innermost
+// axis fastest, so the load and the store are coalesced; coefficient j of
+// X^a * c is c_i with i = (j - a) mod 2N when i < N, else -c_{i-N}, read
+// directly (the TPU's barrel shifter exists because it has no per-lane
+// gather).  Sublane kernel: the slab of rot_slab.cuh, as the tr step's
+// rotation has it: a block copies all N rows of 16 lanes of a polynomial
+// into shared memory by cp.async, then each thread reads its rotated word
+// from there and stores it, a warp two 64-byte pieces of a row.  The
+// caller's `splits` (ops/kernels.py:rot_tr_route) shares a slab between
+// blocks below one slab an SM, or takes the gather (one thread per output
+// word, the store coalesced) at small batches and where a slab does not fit
+// a block's shared memory (N >= 4096).  Any B; N a power of two, at least
+// 8.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "rot_slab.cuh"
+
+using namespace ieache;
 
 namespace {
 
 constexpr int kLaneThreads = 256;  // lane kernel: coefficients per block
-constexpr int kLanes = 32;         // sublane kernel: batch lanes per block
-constexpr int kRows = 8;           // sublane kernel: coefficients per block
-
-__device__ __forceinline__ uint32_t rotated(const uint32_t* c, int64_t stride,
-                                            uint32_t a, int j, int n) {
-  const uint32_t i = ((uint32_t)j - a) & (uint32_t)(2 * n - 1);
-  return i < (uint32_t)n ? c[(int64_t)i * stride]
-                         : 0u - c[(int64_t)(i - n) * stride];
-}
 
 __global__ void rotate_lane_kernel(const uint32_t* __restrict__ acc,
                                    const int32_t* __restrict__ bara,
@@ -47,19 +47,42 @@ __global__ void rotate_lane_kernel(const uint32_t* __restrict__ acc,
   const int b = blockIdx.x, u = blockIdx.z;
   const int j = blockIdx.y * blockDim.x + threadIdx.x;
   const int64_t row = ((int64_t)u * batch + b) * n;
-  out[row + j] = rotated(acc + row, 1, (uint32_t)bara[b], j, n);
+  out[row + j] = column_rotated(acc + row, 1, (uint32_t)bara[b], j, n);
 }
 
-__global__ void __launch_bounds__(kLanes* kRows) rotate_sublane_kernel(
+// Slab blockIdx.x / splits of polynomial blockIdx.y, rows
+// N / splits * (blockIdx.x % splits) onwards.
+__global__ void __launch_bounds__(kSlabThreads) rotate_sublane_kernel(
     const uint32_t* __restrict__ acc, const int32_t* __restrict__ bara,
-    uint32_t* __restrict__ out, int batch, int n) {
-  const int b = blockIdx.x * kLanes + threadIdx.x;
-  const int j = blockIdx.y * kRows + threadIdx.y;
+    uint32_t* __restrict__ out, int batch, int n, int splits, int vec) {
+  extern __shared__ __align__(16) uint32_t slab[];  // (N, kSlabLanes)
+  const int tid = threadIdx.x, u = blockIdx.y;
+  const int s = blockIdx.x % splits, b0 = (blockIdx.x / splits) * kSlabLanes;
+  load_slab(acc, slab, u, b0, batch, n, vec);
+
+  const int bl = tid & (kSlabLanes - 1), b = b0 + bl;
+  if (b >= batch) return;  // no barrier follows
+  const uint32_t a = (uint32_t)bara[b];
+  const int rows = n / splits, j_end = (s + 1) * rows;
+  uint32_t* dst = out + (int64_t)u * n * batch + b;
+  for (int j = s * rows + tid / kSlabLanes; j < j_end;
+       j += kSlabThreads / kSlabLanes)
+    dst[(int64_t)j * batch] = slab_rotated(slab, a, j, n, bl);
+}
+
+// The gather: thread (b, j) of block (x, y, u) computes coefficient j of
+// lane b of polynomial u from device memory.
+__global__ void __launch_bounds__(kGatherLanes* kGatherRows)
+    rotate_sublane_gather(const uint32_t* __restrict__ acc,
+                          const int32_t* __restrict__ bara,
+                          uint32_t* __restrict__ out, int batch, int n) {
+  const int b = blockIdx.x * kGatherLanes + threadIdx.x;
+  const int j = blockIdx.y * kGatherRows + threadIdx.y;
   const int u = blockIdx.z;
   if (b >= batch) return;
   const int64_t col = (int64_t)u * n * batch + b;
   out[col + (int64_t)j * batch] =
-      rotated(acc + col, batch, (uint32_t)bara[b], j, n);
+      column_rotated(acc + col, batch, (uint32_t)bara[b], j, n);
 }
 
 }  // namespace
@@ -74,12 +97,23 @@ extern "C" int ieache_rotate_lane(const void* acc, const void* bara,
   return (int)cudaGetLastError();
 }
 
+// `splits`: blocks a slab, or 0 for the gather (rot_slab.cuh).
 extern "C" int ieache_rotate_sublane(const void* acc, const void* bara,
                                      void* out, int kp1, int batch, int n,
-                                     void* stream) {
-  const dim3 block(kLanes, kRows);
-  const dim3 grid((batch + kLanes - 1) / kLanes, n / kRows, kp1);
-  rotate_sublane_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)acc, (const int32_t*)bara, (uint32_t*)out, batch, n);
+                                     int splits, void* stream) {
+  if (!slab_splits_ok(n, splits)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (splits == 0) {
+    rotate_sublane_gather<<<gather_grid(kp1, batch, n), gather_block(), 0,
+                            st>>>((const uint32_t*)acc, (const int32_t*)bara,
+                                  (uint32_t*)out, batch, n);
+    return (int)cudaGetLastError();
+  }
+  const cudaError_t err = allow_smem(rotate_sublane_kernel, slab_bytes(n));
+  if (err != cudaSuccess) return (int)err;
+  rotate_sublane_kernel<<<slab_grid(kp1, batch, splits), kSlabThreads,
+                          slab_bytes(n), st>>>(
+      (const uint32_t*)acc, (const int32_t*)bara, (uint32_t*)out, batch, n,
+      splits, slab_vec(acc, batch));
   return (int)cudaGetLastError();
 }

@@ -102,17 +102,21 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     lib = ctypes.CDLL(build())
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.ieache_rot_diff_decompose,
-               lib.ieache_rot_diff_decompose_tr):
-        fn.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, ctypes.c_uint32,
-                       vp]
-        fn.restype = i32
+    # the rotations' launch shapes come last but for the stream: split's
+    # run, the tr rotation's and the sublane kernel's splits
+    lib.ieache_rot_diff_decompose.argtypes = [
+        vp, vp, vp, i32, i32, i32, i32, i32, ctypes.c_uint32, i32, vp]
+    lib.ieache_rot_diff_decompose_tr.argtypes = [
+        vp, vp, vp, i32, i32, i32, i32, i32, ctypes.c_uint32, i32, vp]
+    lib.ieache_rot_diff_decompose.restype = i32
+    lib.ieache_rot_diff_decompose_tr.restype = i32
     for fn in (lib.ieache_external_product, lib.ieache_external_product_tr):
         fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
         fn.restype = i32
-    for fn in (lib.ieache_rotate_lane, lib.ieache_rotate_sublane):
-        fn.argtypes = [vp, vp, vp, i32, i32, i32, vp]
-        fn.restype = i32
+    lib.ieache_rotate_lane.argtypes = [vp, vp, vp, i32, i32, i32, vp]
+    lib.ieache_rotate_sublane.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
+    lib.ieache_rotate_lane.restype = i32
+    lib.ieache_rotate_sublane.restype = i32
     for fn in (lib.ieache_cmux_step, lib.ieache_cmux_step_overlap):
         fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
                        ctypes.c_uint32, vp]

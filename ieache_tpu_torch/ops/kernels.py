@@ -6,7 +6,10 @@ through the kernels of the step mode ``IEACHE_PALLAS_STEP`` selects:
 
 * ``split``: :func:`rot_diff_decompose` (``csrc/rot_diff_decompose.cu``,
   replaces ``rot_diff_decompose_pallas``), the digits of
-  X^bara·acc - acc, then :func:`external_product`
+  X^bara·acc - acc, a run of coefficients a thread from aligned 16-byte
+  loads, launched as :func:`rot_launch` says
+  (:func:`rot_diff_decompose_run_model` is its plain model), then
+  :func:`external_product`
   (``csrc/external_product.cu``, replaces ``external_product_pallas_t``)
   with the accumulator fused, on the int8 tensor cores
   (``csrc/mma_tile.cuh``; :func:`mma_planes`, :func:`mma_toeplitz_tile`
@@ -30,8 +33,9 @@ through the kernels of the step mode ``IEACHE_PALLAS_STEP`` selects:
   ``rot_diff_decompose_pallas_tr``) then :func:`external_product_tr`
   (``csrc/external_product_tr.cu``, replaces
   ``external_product_pallas_tr``), the split pair in the transposed
-  layout: the rotation through a shared-memory slab of 16 batch lanes,
-  or a gather at small batches (:func:`rot_diff_decompose_tr_slab_model`,
+  layout: the rotation through a shared-memory slab of 16 batch lanes
+  (``csrc/rot_slab.cuh``), or a gather at small batches, as
+  :func:`rot_tr_route` says (:func:`rot_diff_decompose_tr_slab_model`,
   :func:`rot_tr_slab_banks`),
   the product on the same tensor-core tile with the Toeplitz tile as the
   MMA's A operand and the digits staged through a transpose
@@ -41,7 +45,9 @@ through the kernels of the step mode ``IEACHE_PALLAS_STEP`` selects:
 :func:`rotate_lane` and :func:`rotate_sublane` (``csrc/rotate_probe.cu``,
 replacing the two inline kernels of ``tools/transposed_probe.py``) are
 one negacyclic rotation in each layout, timed by
-:mod:`ieache_tpu_torch.tools.transposed_probe`.
+:mod:`ieache_tpu_torch.tools.transposed_probe`; the sublane kernel runs
+on the tr rotation's slab or gather, by the same :func:`rot_tr_route`
+(:func:`rot_tr_slab_model`).
 
 :func:`mm_s8` and :func:`mm_bf16` (``csrc/mm_probe.cu``, replacing the
 inline kernel of ``tools/mosaic_mm_probe.py``) are a bare tensor-core
@@ -61,6 +67,8 @@ it picks kernels.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -118,12 +126,19 @@ def rot_diff_decompose_plain(acc: torch.Tensor, bara: torch.Tensor,
     return d.transpose(0, 1).to(torch.int8).contiguous()
 
 
-def _rot_diff_decompose_launch(wrapper, entry: str, plain,
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device, which the launch policies read."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _rot_diff_decompose_launch(wrapper, entry: str, plain, policy,
                                acc: torch.Tensor, bara: torch.Tensor,
                                params: TFHEParams, tr: bool) -> torch.Tensor:
     """Both rotation wrappers' body: the digits, (rows, N, B) when ``tr``
-    else (rows, B, N), from the C entry point ``entry`` on CUDA tensors,
-    counted on ``wrapper``, or from ``plain`` on CPU tensors."""
+    else (rows, B, N), from the C entry point ``entry`` launched as
+    ``policy(B, k+1, N, SMs)`` says on CUDA tensors, counted on
+    ``wrapper``, or from ``plain`` on CPU tensors."""
     _require_single_limb(params)
     kp1, b, n = params.k + 1, bara.numel(), params.N
     _check(acc, "acc", torch.int32, (kp1, n, b) if tr else (kp1, b, n),
@@ -132,8 +147,23 @@ def _rot_diff_decompose_launch(wrapper, entry: str, plain,
     if not acc.is_cuda:
         return plain(acc, bara, params)
 
+    _refuse(kernels_refusal("tr", params.trgsw_rows, n) if tr
+            else rotation_refusal(n))
+    out = _rot_diff_decompose_entry(entry, acc, bara, params, tr,
+                                    policy(b, kp1, n, _sm_count(acc.device)))
+    wrapper.launches += 1
+    return out
+
+
+def _rot_diff_decompose_entry(entry: str, acc: torch.Tensor,
+                              bara: torch.Tensor, params: TFHEParams,
+                              tr: bool, launch) -> torch.Tensor:
+    """One launch of a rotation's C entry point on checked CUDA tensors,
+    with the launch shape ``launch`` (a tuple of ints the entry takes
+    after the offset), uncounted: the wrappers' launch, and the one
+    ``tools/tile_bench.py`` times other shapes through."""
+    kp1, b, n = params.k + 1, bara.numel(), params.N
     rows = params.trgsw_rows
-    _refuse(kernels_refusal("tr", rows, n) if tr else rotation_refusal(n))
     out = torch.empty((rows, n, b) if tr else (rows, b, n), dtype=torch.int8,
                       device=acc.device)
     if b == 0:
@@ -141,10 +171,10 @@ def _rot_diff_decompose_launch(wrapper, entry: str, plain,
     lib, stream = _launch_context(acc)
     code = getattr(lib, entry)(
         acc.data_ptr(), bara.data_ptr(), out.data_ptr(), kp1, b, n,
-        params.bg_bit, params.l, _offset(params.bg_bit, params.l), stream,
+        params.bg_bit, params.l, _offset(params.bg_bit, params.l), *launch,
+        stream,
     )
     _build.check(lib, code, entry)
-    wrapper.launches += 1
     return out
 
 
@@ -154,7 +184,12 @@ def rot_diff_decompose(acc: torch.Tensor, bara: torch.Tensor,
     int8 digits; the kernel on CUDA tensors, the plain twin on CPU."""
     return _rot_diff_decompose_launch(
         rot_diff_decompose, "ieache_rot_diff_decompose",
-        rot_diff_decompose_plain, acc, bara, params, tr=False)
+        rot_diff_decompose_plain, _split_launch, acc, bara, params, tr=False)
+
+
+def _split_launch(batch: int, kp1: int, n: int, sms: int) -> tuple:
+    """The split rotation's launch arguments: (:func:`rot_launch`,)."""
+    return (rot_launch(batch, kp1, n, sms),)
 
 
 rot_diff_decompose.launches = 0
@@ -239,9 +274,136 @@ def kernels_refusal(mode: str, rows: int, n: int) -> str | None:
 
 def rotation_refusal(n: int) -> str | None:
     """Why ``rot_diff_decompose`` (the split mode's rotation) refuses ring
-    degree ``n``, or None: it takes N % 8 == 0."""
+    degree ``n``, or None: it takes N % 8 == 0 (N a power of two, as
+    every parameter set has it, so N >= 8 and a run of 4 or 8 fits)."""
     return None if n % 8 == 0 else (
         f"the rotation kernel needs N % 8 == 0, got N={n}")
+
+
+# The split step's rotation (csrc/rot_diff_decompose.cu): a thread takes a
+# run of consecutive coefficients of one polynomial; its launch policy and
+# a plain model of its work.
+
+#: the run lengths of a thread, longest first: one 8- or 4-byte store a
+#: digit row (runs of 16 lost to runs of 8 at every batch on the H100:
+#: PERF.md §6)
+ROT_RUNS = (8, 4)
+
+#: threads of the kernel's block, fixed in the ``.cu`` (``kThreads``;
+#: blocks of 32, 64 and 256 lost or tied: PERF.md §6)
+ROT_THREADS = 128
+
+#: threads an SM of the H100 holds at once
+SM_THREADS = 2048
+
+
+def rot_launch(batch: int, kp1: int, n: int, sms: int = 132) -> int:
+    """The run (coefficients a thread) of ``csrc/rot_diff_decompose.cu``'s
+    launch, which takes it as it is: runs of 8 once runs of 4 would need
+    more threads than the ``sms`` SMs hold at once (the throughput
+    batches: B > 528 at k = 1, N = 1024), else runs of 4 (more threads,
+    each with fewer loads to wait for, spread over more SMs).  N >= 8, so
+    a run of 8 always fits."""
+    return 8 if kp1 * batch * n // 4 > sms * SM_THREADS else 4
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 words as int64 in [0, 2^32)."""
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+def byte_perm(x: torch.Tensor, y: torch.Tensor, sel: int) -> torch.Tensor:
+    """``__byte_perm(x, y, sel)`` on words held as int64 in [0, 2^32):
+    byte k of the result is byte ``(sel >> 4k) & 7`` of the eight bytes
+    y:x (x the low four)."""
+    out = torch.zeros_like(x)
+    for k in range(4):
+        m = (sel >> (4 * k)) & 7
+        src = x if m < 4 else y
+        out |= ((src >> (8 * (m % 4))) & 0xFF) << (8 * k)
+    return out
+
+
+def digit_word_model(v: torch.Tensor, jl: int, bg_bit: int) -> torch.Tensor:
+    """``digit_word`` of ``cmux_common.cuh``: v (..., 4) words as int64 in
+    [0, 2^32) -> the (...) words whose byte s is digit jl of v[..., s];
+    with Bg = 2^8 by three byte permutes and a xor, else digit by
+    digit."""
+    if bg_bit == 8:
+        pick = (3 - jl) | ((7 - jl) << 4)
+        return byte_perm(byte_perm(v[..., 0], v[..., 1], pick),
+                         byte_perm(v[..., 2], v[..., 3], pick),
+                         0x5410) ^ 0x80808080
+    shift = 32 - (jl + 1) * bg_bit
+    digit = ((v >> shift) & ((1 << bg_bit) - 1)) - (1 << (bg_bit - 1))
+    return sum((digit[..., s] & 0xFF) << (8 * s) for s in range(4))
+
+
+def rot_diff_decompose_run_model(acc: torch.Tensor, bara: torch.Tensor,
+                                 params: TFHEParams, sms: int = 132,
+                                 run: int | None = None
+                                 ) -> torch.Tensor:
+    """``rot_diff_decompose``'s work in plain ops, thread by thread, for
+    runs of ``run`` coefficients (by default :func:`rot_launch` on a card
+    of ``sms`` SMs) in blocks of :data:`ROT_THREADS`: thread t of grid row
+    u (the (B N / R runs, k+1) grid) takes run t of component u, lane
+    t >> log2(N / R), coefficients R (t & (N / R - 1)) onwards; its
+    rotated words are the R / 4 + 1 aligned quads of e = (c, -c) from
+    i0 & ~3 (i0 = (j0 - bara) mod 2N; the last one read only when
+    s = i0 & 3 is not 0), each negated whole, shifted down by s in two
+    selects (by 2, then by 1); each digit row's R bytes are packed by
+    :func:`digit_word_model` and stored as one run.  Same arguments and
+    result as :func:`rot_diff_decompose_plain`; every output byte is
+    written once."""
+    kp1, b, n = acc.shape
+    run = rot_launch(b, kp1, n, sms) if run is None else run
+    if run not in ROT_RUNS or run > n:
+        raise ValueError(f"no launch of run {run} at N={n}")
+    dev = acc.device
+    per = n // run
+    log_per = per.bit_length() - 1
+    blocks = -(-b * per // ROT_THREADS)
+    row = torch.arange(blocks * ROT_THREADS, device=dev)
+    row = row[row < b * per]                    # the threads that have a run
+    u = torch.arange(kp1, device=dev).repeat_interleave(len(row))
+    t = row.repeat(kp1)
+    lane, j0 = t >> log_per, (t & (per - 1)) * run
+    poly = u * b + lane
+    c = _u32(acc.reshape(kp1 * b, n))
+    mask2n = 2 * n - 1
+    i0 = (j0 - bara.to(torch.int64)[lane]) & mask2n
+    s = i0 & 3
+    q = ((i0 & ~3)[:, None] + 4 * torch.arange(run // 4 + 1, device=dev)) \
+        & mask2n                                                # (t, Q+1)
+    hi = q >= n
+    idx = torch.where(hi, q - n, q)[..., None] + torch.arange(4, device=dev)
+    quads = c[poly[:, None, None], idx]                         # (t, Q+1, 4)
+    quads[:, -1] *= (s != 0)[:, None]           # read only when s != 0
+    w = torch.where(hi[..., None], (-quads) & 0xFFFFFFFF, quads) \
+        .reshape(len(t), run + 4)
+    k = torch.arange(run + 2, device=dev)
+    w = torch.where((s & 2 != 0)[:, None], w[:, k + 2], w[:, k])
+    k = torch.arange(run, device=dev)
+    w = torch.where((s & 1 != 0)[:, None], w[:, k + 1], w[:, k])
+    cols = j0[:, None] + k
+    v = (w - c[poly[:, None], cols] + _offset(params.bg_bit, params.l)) \
+        & 0xFFFFFFFF                                            # (t, R)
+    out = torch.zeros((params.trgsw_rows, b, n), dtype=torch.int8,
+                      device=dev)
+    written = torch.zeros(out.shape, dtype=torch.int32, device=dev)
+    shifts = 8 * torch.arange(4, device=dev)
+    for jl in range(params.l):
+        words = digit_word_model(v.reshape(len(t), run // 4, 4), jl,
+                                 params.bg_bit)                 # (t, R/4)
+        digits = ((words[..., None] >> shifts) & 0xFF).reshape(len(t), run)
+        p = (u * params.l + jl)[:, None]
+        out[p, lane[:, None], cols] = \
+            (digits - ((digits & 0x80) << 1)).to(torch.int8)
+        written[p, lane[:, None], cols] += 1
+    if not bool((written == 1).all()):
+        raise AssertionError("the rotation's runs do not write every digit "
+                             "once")
+    return out
 
 
 def kernels_take(mode: str, params: TFHEParams) -> bool:
@@ -495,9 +657,11 @@ def external_product_tr_mma_model(d: torch.Tensor, bk_i: torch.Tensor,
     return out if acc is None else acc + out
 
 
-# The rotation of the tr step (csrc/rot_diff_decompose_tr.cu): a block
-# holds all N rows of 16 batch lanes of one polynomial in shared memory; a
-# small batch gathers from device memory instead.
+# The rotations in the (k+1, N, B) layout (csrc/rot_slab.cuh: the tr step's,
+# csrc/rot_diff_decompose_tr.cu, and the probe's sublane kernel,
+# csrc/rotate_probe.cu): a block holds all N rows of 16 batch lanes of one
+# polynomial in shared memory; a small batch gathers from device memory
+# instead.
 
 #: batch lanes of a rotation slab
 TR_SLAB_LANES = 16
@@ -513,16 +677,26 @@ def rot_tr_slab_bytes(n: int) -> int:
 
 
 def rot_tr_splits(blocks: int, n: int, sms: int = 132) -> int:
-    """``rot_splits`` of ``csrc/rot_diff_decompose_tr.cu``, which must
-    agree with it: how many blocks share a slab, each loading all of it
-    and computing N / splits of its rows.  1 when the launch's ``blocks``
-    slabs reach ``sms``, else the smallest power of two that does, at
-    most N / 16 (one row of a block's threads).  From
-    :data:`TR_GATHER_SPLITS` the kernel gathers instead."""
+    """How many blocks share a slab, each loading all of it and computing
+    N / splits of its rows: 1 when the launch's ``blocks`` slabs reach
+    ``sms``, else the smallest power of two that does, at most N / 16
+    (one row of a block's threads).  From :data:`TR_GATHER_SPLITS` the
+    rotations gather instead (:func:`rot_tr_route`)."""
     splits = 1
     while blocks * splits < sms and splits < n // 16:
         splits *= 2
     return splits
+
+
+def rot_tr_route(batch: int, kp1: int, n: int, sms: int = 132) -> int:
+    """The ``splits`` both slab kernels' launches take as they are:
+    :func:`rot_tr_splits` of the launch's slabs, or 0, the gather, from
+    :data:`TR_GATHER_SPLITS` blocks a slab on and where the slab does not
+    fit a block's shared memory (:data:`SMEM_BLOCK_BYTES`)."""
+    if rot_tr_slab_bytes(n) > SMEM_BLOCK_BYTES:
+        return 0
+    splits = rot_tr_splits(-(-batch // TR_SLAB_LANES) * kp1, n, sms)
+    return 0 if splits >= TR_GATHER_SPLITS else splits
 
 
 def rot_tr_slab_banks(j0: int, bara: torch.Tensor, n: int,
@@ -538,35 +712,29 @@ def rot_tr_slab_banks(j0: int, bara: torch.Tensor, n: int,
     return (row * lanes + b) % 32, (j * lanes + b) % 32
 
 
-def rot_diff_decompose_tr_slab_model(acc: torch.Tensor, bara: torch.Tensor,
-                                     params: TFHEParams,
-                                     sms: int = 132) -> torch.Tensor:
-    """``rot_diff_decompose_tr``'s work in plain ops, block by block: per
-    polynomial u and slab of 16 lanes the (N, 16) slab (lanes past the
-    batch zero), shared by :func:`rot_tr_splits` blocks that each compute
-    a run of rows; coefficient j of lane b reads slab row (j - bara_b)
-    mod N (negated past N) and row j.  From :data:`TR_GATHER_SPLITS`
-    blocks a slab, every coefficient reads both words from ``acc``
-    itself.  Same arguments and result as
-    :func:`rot_diff_decompose_tr_plain`; every output row is written
-    once."""
+def rot_tr_slab_model(acc: torch.Tensor, bara: torch.Tensor,
+                      sms: int = 132, splits: int | None = None
+                      ) -> torch.Tensor:
+    """X^bara·acc on acc (k+1, N, B) int32 as both slab kernels compute
+    it, block by block, launched with ``splits`` (by default
+    :func:`rot_tr_route` on a card of ``sms`` SMs): per polynomial u and
+    slab of 16 lanes the (N, 16) slab (lanes past the batch zero), shared
+    by ``splits`` blocks that each compute a run of rows;
+    coefficient j of lane b reads slab row (j - bara_b) mod N (negated
+    past N).  With ``splits`` 0 (the gather) every coefficient reads its
+    word from ``acc`` itself.  Same result as :func:`rotate_sublane_plain`; every
+    output row is written once."""
     kp1, n, b = acc.shape
     w = TR_SLAB_LANES
-    splits = rot_tr_splits(-(-b // w) * kp1, n, sms)
-    out = torch.zeros((params.trgsw_rows, n, b), dtype=torch.int8,
-                      device=acc.device)
-    if splits >= TR_GATHER_SPLITS:
+    if splits is None:
+        splits = rot_tr_route(b, kp1, n, sms)
+    if splits == 0:
         j = torch.arange(n, device=acc.device)[:, None]
         i = (j - bara.to(torch.int64)[None, :]) % (2 * n)      # (N, B)
-        col = torch.arange(b, device=acc.device)
-        for u in range(kp1):
-            word = acc[u, i % n, col]
-            digits = gadget_decompose(torch.where(i < n, word, -word)
-                                      - acc[u], params.bg_bit, params.l)
-            for jl in range(params.l):
-                out[u * params.l + jl] = digits[..., jl].to(torch.int8)
-        return out
-    written = torch.zeros((kp1, n, b), dtype=torch.int32, device=acc.device)
+        word = acc[:, i % n, torch.arange(b, device=acc.device)]
+        return torch.where(i < n, word, -word)
+    out = torch.zeros_like(acc)
+    written = torch.zeros_like(acc)
     lane = torch.arange(w, device=acc.device)
     for u in range(kp1):
         for b0 in range(0, b, w):
@@ -580,16 +748,26 @@ def rot_diff_decompose_tr_slab_model(acc: torch.Tensor, bara: torch.Tensor,
                                  device=acc.device)[:, None]
                 i = (j - a[None, :]) % (2 * n)
                 rot = torch.where(i < n, slab[i % n, lane], -slab[i % n, lane])
-                digits = gadget_decompose(rot - slab[j, lane], params.bg_bit,
-                                          params.l)          # (rows j, w, l)
-                for jl in range(params.l):
-                    out[u * params.l + jl, j[:, 0], b0:b0 + nb] = \
-                        digits[:, :nb, jl].to(torch.int8)
+                out[u, j[:, 0], b0:b0 + nb] = rot[:, :nb]
                 written[u, j[:, 0], b0:b0 + nb] += 1
     if not bool((written == 1).all()):
         raise AssertionError("the rotation blocks do not write every row "
                              "once")
     return out
+
+
+def rot_diff_decompose_tr_slab_model(acc: torch.Tensor, bara: torch.Tensor,
+                                     params: TFHEParams,
+                                     sms: int = 132) -> torch.Tensor:
+    """``rot_diff_decompose_tr``'s work in plain ops: the rotated words of
+    :func:`rot_tr_slab_model` (each block also reads the plain word from
+    its slab: the same word of ``acc``), less ``acc``, decomposed.  Same
+    arguments and result as :func:`rot_diff_decompose_tr_plain`."""
+    rotated = rot_tr_slab_model(acc, bara, sms)
+    digits = gadget_decompose(rotated - acc, params.bg_bit, params.l)
+    return digits.permute(0, 3, 1, 2).reshape(params.trgsw_rows,
+                                              *acc.shape[1:]) \
+        .to(torch.int8)
 
 
 # ---------------------------------------------------------------------------
@@ -1010,7 +1188,12 @@ def rot_diff_decompose_tr(acc: torch.Tensor, bara: torch.Tensor,
     refuses), the plain twin on CPU."""
     return _rot_diff_decompose_launch(
         rot_diff_decompose_tr, "ieache_rot_diff_decompose_tr",
-        rot_diff_decompose_tr_plain, acc, bara, params, tr=True)
+        rot_diff_decompose_tr_plain, _tr_launch, acc, bara, params, tr=True)
+
+
+def _tr_launch(batch: int, kp1: int, n: int, sms: int) -> tuple:
+    """The tr rotations' launch arguments: (:func:`rot_tr_route`,)."""
+    return (rot_tr_route(batch, kp1, n, sms),)
 
 
 rot_diff_decompose_tr.launches = 0
@@ -1065,7 +1248,8 @@ def rotate_sublane_plain(acc: torch.Tensor,
 def _rotate_launch(wrapper, entry: str, plain, acc: torch.Tensor,
                    bara: torch.Tensor, lanes_last: bool) -> torch.Tensor:
     """Both rotation wrappers' body: acc (k+1, B, N), or (k+1, N, B)
-    when ``lanes_last``, rotated by bara (B,) int32 in [0, 2N)."""
+    when ``lanes_last``, rotated by bara (B,) int32 in [0, 2N); the
+    sublane kernel launched as :func:`rot_tr_route` says."""
     kp1 = acc.shape[0] if acc.dim() == 3 else -1
     b = bara.numel()
     n = acc.shape[1 if lanes_last else 2] if acc.dim() == 3 else -1
@@ -1077,14 +1261,27 @@ def _rotate_launch(wrapper, entry: str, plain, acc: torch.Tensor,
     if not acc.is_cuda:
         return plain(acc, bara)
 
+    launch = (rot_tr_route(b, kp1, n, _sm_count(acc.device)),) \
+        if lanes_last else ()
+    out = _rotate_entry(entry, acc, bara, n, launch)
+    wrapper.launches += 1
+    return out
+
+
+def _rotate_entry(entry: str, acc: torch.Tensor, bara: torch.Tensor, n: int,
+                  launch: tuple) -> torch.Tensor:
+    """One launch of a probe rotation's C entry point on checked CUDA
+    tensors with the launch arguments ``launch``, uncounted: the
+    wrappers' launch, and the one ``tools/tile_bench.py`` times the
+    sublane kernel's other route through."""
     out = torch.empty_like(acc)
+    kp1, b = acc.shape[0], bara.numel()
     if b == 0 or kp1 == 0:
         return out
     lib, stream = _launch_context(acc)
     code = getattr(lib, entry)(acc.data_ptr(), bara.data_ptr(),
-                               out.data_ptr(), kp1, b, n, stream)
+                               out.data_ptr(), kp1, b, n, *launch, stream)
     _build.check(lib, code, entry)
-    wrapper.launches += 1
     return out
 
 

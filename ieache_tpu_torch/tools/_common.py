@@ -1,6 +1,6 @@
 """What the port's tools and ``chip_smoke.py`` share: the card check,
 the card's line and state, the parameter sets by name, an environment
-override, and the two timers.
+override, and the timers.
 
 A timer needs a CUDA device; it never falls back to the CPU's clock.
 """
@@ -104,3 +104,40 @@ def graph_ms(fn, reps: int, replays: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * replays)
+
+
+#: the bytes a cold timing cycles through: four times the H100's 50 MB L2
+COLD_BYTES = 4 * 50 * 10**6
+
+
+def cold_copies(nbytes: int, cycle: int = COLD_BYTES) -> int:
+    """How many copies of a call's ``nbytes`` of input a cold timing
+    needs so that one cycle through them reads ``cycle`` bytes."""
+    return max(2, -(-cycle // nbytes))
+
+
+def graph_ms_cold(calls, reps: int) -> float:
+    """Device ms per call with the L2 cold: ``reps`` calls captured in
+    one CUDA graph that cycles through ``calls`` (each on its own copy
+    of the inputs, :func:`cold_copies` of them) and keeps every output,
+    so that no call finds its inputs, or the memory it writes, in the
+    L2 from an earlier call; replayed once between two CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [calls[i % len(calls)]() for i in range(reps)]
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del outs
+    return start.elapsed_time(end) / reps

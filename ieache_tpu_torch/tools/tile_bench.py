@@ -1,7 +1,8 @@
 """Times of the kernels on the tensor-core tile, by batch.
 
 ``external_product`` and ``external_product_tr`` (ms per call with the
-accumulator fused), ``rot_diff_decompose_tr`` (ms per call),
+accumulator fused), the rotations ``rot_diff_decompose``,
+``rot_diff_decompose_tr`` and ``rotate_sublane`` (ms per call),
 ``cmux_step`` and ``cmux_step_overlap`` (ms per step; each the median of
 three CUDA-graph replays of 50 calls) and ``blind_rotate_scan`` (ms per
 whole rotation of n steps: the median of three runs of 3 calls between
@@ -14,12 +15,20 @@ run it on two copies of the package within one call, and on a copy with
 a part of the kernel taken out (the build of the byte planes, the MMAs,
 the atomic adds, ``decompose_tile``, a phase of the scan kernel) to see
 that part's share; such a copy computes garbage, so ``TB_CHECK=0`` skips
-the comparison.  Run from the root of a checkout, on a CUDA device:
+the comparison.  At each step batch it also times the launch shapes the
+two rotations' policies did not pick, through the uncounted entry the
+wrappers launch by: ``rot_diff_decompose`` at both run lengths
+(``rot_diff_decompose_launch_ms``, "run R"; the policy's pick is
+``ops/kernels.py:rot_launch``) and ``rotate_sublane``
+by its slab and by its gather (``rotate_sublane_route_ms``; the pick is
+``rot_tr_route``), each held against its twin first.  Run from the root
+of a checkout, on a CUDA device:
 
     python -m ieache_tpu_torch.tools.tile_bench
 
 Env: TB_PRODUCT_B (comma list, default ``8,16,1024``), TB_STEP_B (the
-two fused steps and the tr pair, ``8,16,1024``), TB_SCAN_B (``8,1024``),
+two fused steps, the tr pair and the two rotations, ``8,16,1024``),
+TB_SCAN_B (``8,1024``),
 TB_PARAMS (ieache_110_l2, or ieache_110), TB_CHECK (1).
 """
 
@@ -76,17 +85,57 @@ def step_inputs(p, b: int, device, rng):
                   device))
 
 
+def rotation_variants(p, acc, bara, acc_tr) -> dict:
+    """The launch shapes :func:`run` times beside the policies' picks:
+    name -> (kernel call, twin call), ``rot_diff_decompose`` by "run R"
+    and ``rotate_sublane`` by "slab, splits s" and "gather".  On
+    CUDA tensors each is an uncounted launch of the C entry point; on CPU
+    tensors the plain model of that launch (``rot_diff_decompose_run_model``,
+    ``rot_tr_slab_model``)."""
+    kp1, b, n = acc.shape
+    cuda = acc.is_cuda
+    split = kernels.rot_diff_decompose_plain(acc, bara, p)
+    sub = kernels.rotate_sublane_plain(acc_tr, bara)
+    calls = {}
+    for run in kernels.ROT_RUNS:
+        calls[f"rot_diff_decompose run {run}"] = (
+            (lambda run=run: kernels._rot_diff_decompose_entry(
+                "ieache_rot_diff_decompose", acc, bara, p, False, (run,)))
+            if cuda else
+            (lambda run=run: kernels.rot_diff_decompose_run_model(
+                acc, bara, p, run=run)),
+            lambda: split)
+    splits = kernels.rot_tr_splits(-(-b // kernels.TR_SLAB_LANES) * kp1, n)
+    routes = {"gather": 0}
+    if kernels.rot_tr_slab_bytes(n) <= kernels.SMEM_BLOCK_BYTES:
+        routes[f"slab, splits {splits}"] = splits
+    for name, route in routes.items():
+        calls[f"rotate_sublane {name}"] = (
+            (lambda route=route: kernels._rotate_entry(
+                "ieache_rotate_sublane", acc_tr, bara, n, (route,)))
+            if cuda else
+            (lambda route=route: kernels.rot_tr_slab_model(
+                acc_tr, bara, splits=route)),
+            lambda: sub)
+    return calls
+
+
 def run(p, product_b, scan_b, device, check: bool = True,
         timed: bool = True, step_b=()) -> dict:
     """The record: ``external_product_ms``, ``cmux_step_ms``,
     ``cmux_step_overlap_ms``, ``blind_rotate_scan_ms``,
-    ``rot_diff_decompose_tr_ms`` and ``external_product_tr_ms`` by batch.
+    ``rot_diff_decompose_ms``, ``rot_diff_decompose_tr_ms``,
+    ``external_product_tr_ms`` and ``rotate_sublane_ms`` by batch, and
+    the launch variants of :func:`rotation_variants`
+    (``rot_diff_decompose_launch_ms``, ``rotate_sublane_route_ms``).
     ``check`` holds each kernel against its twin first and raises where
     they differ; ``timed=False`` (the CPU rehearsal) only checks."""
     rng = np.random.RandomState(0)
     rec = {"params": p.name, "external_product_ms": {}, "cmux_step_ms": {},
            "cmux_step_overlap_ms": {}, "blind_rotate_scan_ms": {},
-           "rot_diff_decompose_tr_ms": {}, "external_product_tr_ms": {}}
+           "rot_diff_decompose_ms": {}, "rot_diff_decompose_tr_ms": {},
+           "external_product_tr_ms": {}, "rotate_sublane_ms": {},
+           "rot_diff_decompose_launch_ms": {}, "rotate_sublane_route_ms": {}}
     for b in product_b:
         d, bk_i, acc = product_inputs(p, b, device, rng)
         if check and not torch.equal(
@@ -104,6 +153,9 @@ def run(p, product_b, scan_b, device, check: bool = True,
         acc_tr = acc.transpose(1, 2).contiguous()            # (k+1, N, B)
         d_tr = kernels.rot_diff_decompose_tr_plain(acc_tr, bara, p)
         calls = {
+            "rot_diff_decompose": (
+                lambda: kernels.rot_diff_decompose(acc, bara, p),
+                lambda: kernels.rot_diff_decompose_plain(acc, bara, p)),
             "cmux_step": (lambda: kernels.cmux_step(acc, bara, bk_i, p),
                           lambda: kernels.cmux_step_plain(acc, bara, bk_i, p)),
             "cmux_step_overlap": (
@@ -116,14 +168,26 @@ def run(p, product_b, scan_b, device, check: bool = True,
                 lambda: kernels.external_product_tr(d_tr, bk_i, p,
                                                     acc=acc_tr),
                 lambda: kernels.external_product_tr_plain(d_tr, bk_i, p,
-                                                          acc_tr))}
-        for name, (kern, plain) in calls.items():
+                                                          acc_tr)),
+            "rotate_sublane": (
+                lambda: kernels.rotate_sublane(acc_tr, bara),
+                lambda: kernels.rotate_sublane_plain(acc_tr, bara))}
+        variants = rotation_variants(p, acc, bara, acc_tr)
+        for name, (kern, plain) in {**calls, **variants}.items():
             if check and not torch.equal(kern(), plain()):
                 raise AssertionError(f"{name} differs from its twin at "
                                      f"B={b}")
-            if timed:
-                rec[name + "_ms"][b] = statistics.median(
-                    graph_ms(kern, 50) for _ in range(3))
+            if not timed:
+                continue
+            ms = statistics.median(graph_ms(kern, 50) for _ in range(3))
+            if name in calls:
+                rec[name + "_ms"][b] = ms
+            else:
+                kernel, shape = name.split(" ", 1)
+                key = ("rot_diff_decompose_launch_ms"
+                       if kernel == "rot_diff_decompose"
+                       else "rotate_sublane_route_ms")
+                rec[key].setdefault(b, {})[shape] = ms
     for b in scan_b:
         acc, bara, bk = scan_inputs(p, b, device, rng)
         if check and b <= SCAN_CHECK_MAX_B and not torch.equal(

@@ -19,6 +19,7 @@ import torch
 from ieache_tpu_torch import keygen
 from ieache_tpu_torch import params as P
 from ieache_tpu_torch.boot import bootstrap
+from ieache_tpu_torch.ops import kernels
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -65,6 +66,17 @@ def test_phases_pass_on_cpu_twins():
     got, want, _ = cs.run_expression(
         ks, key, cs.expression_inputs(ks, 8, 4, dev), dev)
     assert got == want
+
+
+def test_rotation_launch_phase_passes_on_cpu_models():
+    """Phase 3's check of both redesigned rotations on every launch shape
+    (here their plain models) and on an accumulator only 4-byte aligned,
+    at the residue amounts of rot_amounts."""
+    cs = _chip_smoke()
+    p = P.TEST_TINY
+    assert cs.rot_amounts(p.N) == (0, 1, 2, 3, 64, 65, 127)
+    errs = cs.check_rotation_launches(p, torch.device("cpu"), (1, 5, 24))
+    assert errs == {"rot_diff_decompose": 0, "rotate_sublane": 0}
 
 
 def test_keygen_and_multiply_phases_pass_on_cpu_twins():
@@ -186,9 +198,12 @@ def test_step_calls_and_lines_of_the_timing_phase():
     cs = _chip_smoke()
     dev = torch.device("cpu")
     p = P.TEST_TINY
+    assert "rotate_sublane" in cs.SMALL_BATCH_KERNELS
     for b in cs.SMALL_BATCHES:
-        calls = cs.step_calls(p, dev, b)
+        calls = cs.step_calls(p, dev, b, probe_b=b)
         assert set(cs.SMALL_BATCH_KERNELS) <= set(calls)
+        # the small-batch line of the sublane rotation times it at B=b
+        assert calls["rotate_sublane"][2][0].shape == (p.k + 1, p.N, b)
         for name, (kern, plain, inputs, ops) in calls.items():
             got, want = kern(), plain()
             assert torch.equal(got, want), name
@@ -200,6 +215,39 @@ def test_step_calls_and_lines_of_the_timing_phase():
         "bound_ms": 0.0003, "bound_by": "operations"})
     assert line.startswith("phase 7 external_product B=8: kernel 0.0070 ms")
     assert "bound 0.0003 ms (operations)" in line
+
+
+def test_cold_calls_cycle_copies_of_the_rotations_inputs():
+    """Phase 7's cold timing: each rotation on enough copies of its
+    accumulator that a cycle moves four times the L2, every copy equal
+    to the first and each call equal to the twin; its line gives the
+    share of the bound."""
+    from ieache_tpu_torch.tools._common import COLD_BYTES, cold_copies
+    cs = _chip_smoke()
+    dev = torch.device("cpu")
+    p = P.TEST_TINY
+    calls = cs.cold_calls(p, dev, 8, probe_b=16, cycle=40_000)
+    assert set(calls) == {name for name, _, _ in cs.COLD_KERNELS}
+    twins = {"rot_diff_decompose": kernels.rot_diff_decompose_plain,
+             "rot_diff_decompose_tr": kernels.rot_diff_decompose_tr_plain,
+             "rotate_lane": lambda a, t, p: kernels.rotate_lane_plain(a, t),
+             "rotate_sublane":
+                 lambda a, t, p: kernels.rotate_sublane_plain(a, t)}
+    for name, (b, fns, (acc, bara)) in calls.items():
+        assert b == (16 if name.startswith("rotate_") else 8)
+        assert len(fns) == cold_copies(acc.numel() * 4, 40_000) >= 2
+        assert len(fns) * acc.numel() * 4 >= 40_000
+        want = twins[name](acc, bara, p)
+        for fn in fns:
+            assert torch.equal(fn(), want), name
+    assert cold_copies(16_800_000) == 12 and cold_copies(10**9) == 2
+    assert cold_copies(COLD_BYTES // 4) == 4
+    line = cs.cold_line("rotate_sublane", {"b": 2048, "copies": 12,
+                                           "ms": 0.02, "bound_ms": 0.01})
+    assert line.startswith("phase 7 rotate_sublane B=2048 L2 cold: kernel "
+                           "0.0200 ms/call")
+    assert line.endswith("bound 0.0100 ms (bytes at the HBM rate), 50% "
+                         "of it")
 
 
 def test_profile_gate_runs_on_cpu_twins():
@@ -235,8 +283,20 @@ def test_tile_bench_checks_on_cpu_twins():
                          step_b=[3, 16, 17])
     assert rec == {"params": p.name, "external_product_ms": {},
                    "cmux_step_ms": {}, "cmux_step_overlap_ms": {},
-                   "blind_rotate_scan_ms": {}, "rot_diff_decompose_tr_ms": {},
-                   "external_product_tr_ms": {}}
+                   "blind_rotate_scan_ms": {}, "rot_diff_decompose_ms": {},
+                   "rot_diff_decompose_tr_ms": {},
+                   "external_product_tr_ms": {}, "rotate_sublane_ms": {},
+                   "rot_diff_decompose_launch_ms": {},
+                   "rotate_sublane_route_ms": {}}
+    # the launch variants it times: both run lengths of the split
+    # rotation, the sublane rotation's slab and gather
+    acc, bara, _ = tile_bench.step_inputs(p, 5, dev, np.random.RandomState(1))
+    variants = tile_bench.rotation_variants(
+        p, acc, bara, acc.transpose(1, 2).contiguous())
+    assert set(variants) == {"rot_diff_decompose run 4",
+                             "rot_diff_decompose run 8",
+                             "rotate_sublane gather",
+                             "rotate_sublane slab, splits 4"}
     acc, bara, bk_i = tile_bench.step_inputs(p, 3, dev,
                                              np.random.RandomState(0))
     assert acc.shape == (p.k + 1, 3, p.N) and bara.shape == (3,)

@@ -26,7 +26,7 @@ from ieache_tpu_torch import params as P
 from ieache_tpu_torch.boot import bootstrap
 from ieache_tpu_torch.lwe import encrypt, keygen_device
 from ieache_tpu_torch.ops import kernels
-from ieache_tpu_torch.tools import mosaic_mm_probe
+from ieache_tpu_torch.tools import mosaic_mm_probe, tile_bench
 
 pytestmark = pytest.mark.gpu
 
@@ -453,7 +453,7 @@ def test_tr_kernels_refuse_shapes_over_their_bounds(cuda):
         d.data_ptr(), acc.data_ptr(), None, out.data_ptr(), 4, 2, 1, 32,
         stream) != 0
     assert lib.ieache_rot_diff_decompose_tr(
-        acc.data_ptr(), acc.data_ptr(), d.data_ptr(), 2, 1, 32, 8, 2, 0,
+        acc.data_ptr(), acc.data_ptr(), d.data_ptr(), 2, 1, 32, 8, 2, 0, 0,
         stream) != 0
     torch.cuda.synchronize()
 
@@ -477,6 +477,125 @@ def test_rotate_probe_kernels_match_plain(cuda, p, b):
             want = plain(x, bara)
             torch.cuda.synchronize()
             assert torch.equal(got, want)
+
+
+def _rot_amounts(n):
+    """Every residue of the amount mod 4 and the edges of X^N = -1."""
+    return (0, 1, 2, 3, n - 1, n, n + 1, 2 * n - 1)
+
+
+def _rot_cases(rng, shape, b, n, device):
+    """(name, acc, bara): a random accumulator at the amounts of
+    :func:`_rot_amounts` and random ones, then one of INT32_MIN, -1 and
+    2^31 - 1 in turn at random amounts."""
+    acc = _rand(rng, shape, -2**31, 2**31, np.int32, device)
+    yield "random", acc, _rand(rng, (b,), 0, 2 * n, np.int32, device)
+    for a in _rot_amounts(n):
+        yield a, acc, torch.full((b,), a, dtype=torch.int32, device=device)
+    edge = torch.tensor([-2**31, -1, 2**31 - 1], dtype=torch.int32,
+                        device=device)
+    idx = torch.arange(int(np.prod(shape)), device=device)
+    yield ("INT32_MIN/-1/2^31-1", edge[idx % 3].reshape(shape),
+           _rand(rng, (b,), 0, 2 * n, np.int32, device))
+
+
+@pytest.mark.parametrize("n", [8, 64, 1024, 2048])
+@pytest.mark.parametrize("b", [1, 5, 8, 16, 256, 257, 1024, 1056])
+def test_rot_diff_decompose_kernel_by_batch_and_degree(cuda, b, n):
+    """The split rotation's runs of 4 or 8 coefficients, as its
+    launch policy picks them, at every residue of the amount and on
+    extreme operands."""
+    p = dataclasses.replace(P.IEACHE_110_FAST, N=n, name=f"l2_n{n}")
+    rng = np.random.RandomState(b * n)
+    for amount, acc, bara in _rot_cases(rng, (p.k + 1, b, n), b, n, cuda):
+        before = kernels.rot_diff_decompose.launches
+        got = kernels.rot_diff_decompose(acc, bara, p)
+        assert kernels.rot_diff_decompose.launches == before + 1
+        want = kernels.rot_diff_decompose_plain(acc, bara, p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), amount
+
+
+@pytest.mark.parametrize("n", [8, 1024, 4096])
+@pytest.mark.parametrize("b", [5, 16, 128, 129, 2048])
+def test_rotate_sublane_kernel_by_slab_and_gather(cuda, b, n):
+    """The sublane rotation through its slab, or its gather at small
+    batches and at N = 4096 (whose slab does not fit a block)."""
+    rng = np.random.RandomState(700 + b + n)
+    for amount, acc, bara in _rot_cases(rng, (2, n, b), b, n, cuda):
+        before = kernels.rotate_sublane.launches
+        got = kernels.rotate_sublane(acc, bara)
+        assert kernels.rotate_sublane.launches == before + 1
+        want = kernels.rotate_sublane_plain(acc, bara)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), amount
+
+
+@pytest.mark.parametrize("n,b", [(8, 5), (64, 40), (1024, 8), (1024, 257),
+                                 (2048, 16)])
+def test_rotation_launch_variants_match_plain(cuda, n, b):
+    """Every launch shape of the two rotations, whatever their policies
+    pick: rot_diff_decompose at each run length,
+    rotate_sublane by slab and by gather (uncounted launches)."""
+    p = dataclasses.replace(P.IEACHE_110_FAST, N=n, name=f"l2_n{n}")
+    rng = np.random.RandomState(900 + n + b)
+    counts = [w.launches for w in WRAPPERS.values()]
+    for amount, acc, bara in _rot_cases(rng, (p.k + 1, b, n), b, n, cuda):
+        acc_tr = acc.transpose(1, 2).contiguous()
+        for name, (kern, plain) in tile_bench.rotation_variants(
+                p, acc, bara, acc_tr).items():
+            got = kern()
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain()), (name, amount)
+    assert _launched(counts) == set()
+
+
+@pytest.mark.parametrize("b", [4, 5, 1024])
+def test_rotations_on_an_accumulator_only_4_byte_aligned(cuda, b):
+    """An accumulator one word into its allocation: no 16-byte loads
+    (split) or copies (the slab); the same digits and words."""
+    p = P.IEACHE_110_FAST
+    rng = np.random.RandomState(b)
+    for x, kern, plain, args in (
+            ((p.k + 1, b, p.N), kernels.rot_diff_decompose,
+             kernels.rot_diff_decompose_plain, (p,)),
+            ((p.k + 1, p.N, b), kernels.rotate_sublane,
+             kernels.rotate_sublane_plain, ()),
+            ((p.k + 1, p.N, b), kernels.rot_diff_decompose_tr,
+             kernels.rot_diff_decompose_tr_plain, (p,))):
+        acc = _rand(rng, x, -2**31, 2**31, np.int32, cuda)
+        off = torch.empty(acc.numel() + 1, dtype=torch.int32,
+                          device=cuda)[1:].view(x)
+        off.copy_(acc)
+        assert off.data_ptr() % 16 == 4
+        bara = _rand(rng, (b,), 0, 2 * p.N, np.int32, cuda)
+        got = kern(off, bara, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain(acc, bara, *args)), kern.__name__
+
+
+def test_rotation_entries_refuse_bad_launches(cuda):
+    """The C entry points take the launch shape they are given, and
+    refuse one they cannot run: a run other than 4 or 8, N not a power of
+    two or below 8; splits that do not divide N."""
+    lib = kernels._build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    acc = torch.zeros((2, 1, 64), dtype=torch.int32, device=cuda)
+    bara = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    d = torch.zeros((4, 1, 64), dtype=torch.int8, device=cuda)
+    ptrs = (acc.data_ptr(), bara.data_ptr(), d.data_ptr())
+    for n, run in ((64, 2), (64, 16), (48, 4), (4, 4), (12, 8)):
+        assert lib.ieache_rot_diff_decompose(*ptrs, 2, 1, n, 8, 2, 0, run,
+                                             stream) != 0
+    for run in kernels.ROT_RUNS:
+        assert lib.ieache_rot_diff_decompose(*ptrs, 2, 1, 64, 8, 2, 0, run,
+                                             stream) == 0
+    out = torch.empty_like(acc)
+    for n, splits in ((64, 3), (64, -1), (64, 128), (4, 0)):
+        assert lib.ieache_rotate_sublane(acc.data_ptr(), bara.data_ptr(),
+                                         out.data_ptr(), 2, 1, n, splits,
+                                         stream) != 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("m,k,n,g", [(128, 128, 128, 1), (128, 256, 384, 3),
