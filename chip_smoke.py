@@ -96,7 +96,31 @@ prints no result line:
    ``torch._int_mm`` / bf16 ``torch.matmul`` on the same operands g
    times, and ``step_bench`` over all seven modes, each printing the
    tool's JSON line; the device keygen's seconds beside the host's;
-   ``mul32`` at 32 lanes under split, once.
+   ``mul32`` at 32 lanes under split, once;
+8. the evaluator (``circuits/evaluator.py``), the slice's own main path,
+   at IEACHE_110_FAST on 16-bit operands, 8 lanes: under ``split``,
+   ``fused2`` and ``scan`` (launch counts set to 0 just before each
+   mode's run and read just after: the mode's kernels and no other), with
+   the ripple and the parallel-prefix adder, ``A + B - C`` through
+   ``compute_chain`` (lanes over every sign combination), ``A - B * C``
+   through ``compute_steps``, multiply first, and ``B * C`` through
+   ``compute`` (answer codes 0, 1, 2, 4 and 5 between them), every lane
+   decrypted by ``decrypt_answer`` to the Python result, with the
+   metadata round trips and ``decrypt_answer`` timed apart; one case of
+   ``A + B - C`` and ``A - B * C`` on 6-bit operands (not 16: the plain
+   step takes about half a second a wave) under ``IEACHE_PALLAS=0`` (no
+   launch), its value word equal to split's; the per-lane widening of a
+   chain (7+7 at 4 bits widened to 8 reads 14); the tools' lines from
+   their ``run`` functions: ``bench`` (5 repeats), ``margin_probe``
+   (B=2048; at least 7σ), ``width_bench`` ``mul32`` and ``add256``,
+   ``expr_bench`` ``add_sub`` at B=256, each with 0 errors; and
+   ``chain_memory_analysis`` of ``A * B * C`` at B=64 (it runs the chain
+   between the card's peak-memory counters).  Every batch at which the
+   phase calls a kernel (the lanes of each bootstrap wave: 2 to 2048)
+   is recorded, and at the end of the phase each kernel is held to its
+   plain twin at each of its batches (the rotation and the fused step
+   at the amounts of phase 3, the external product with and without
+   acc, the scan over all n steps).
 
 The next-to-last line is a JSON object with one entry per kernel
 (route, source, the Pallas kernel it replaces, launches in its path,
@@ -112,6 +136,8 @@ in ``.keycache/`` (the JAX package's bench writes the same file).
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import os
 import statistics
@@ -124,16 +150,20 @@ import torch
 from ieache_tpu_torch import files, keygen, prng
 from ieache_tpu_torch import params as P
 from ieache_tpu_torch.boot import bootstrap, gates
-from ieache_tpu_torch.circuits import arith, fused, words
+from ieache_tpu_torch.circuits import arith, evaluator, fused, words
 from ieache_tpu_torch.core.poly import TORUS_LIMBS
 from ieache_tpu_torch.lwe import encrypt, keygen_device
 from ieache_tpu_torch.ops import _build, kernels
 from ieache_tpu_torch.ops.blind_rotate import STEP_MODES, blind_rotate
 from ieache_tpu_torch.tools import (
+    bench,
+    expr_bench,
+    margin_probe,
     mosaic_mm_probe,
     step_bench,
     tile_bench,
     transposed_probe,
+    width_bench,
 )
 from ieache_tpu_torch.tools._common import (
     card_line,
@@ -145,6 +175,7 @@ from ieache_tpu_torch.tools._common import (
     graph_ms,
     graph_ms_cold,
     require_cuda,
+    sync,
 )
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -284,18 +315,13 @@ def read_launches():
     return {name: getattr(kernels, name).launches for name, _, _ in KERNELS}
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _rand(rng, shape, lo, hi, dtype, device):
     return torch.from_numpy(rng.randint(lo, hi, shape, dtype=np.int64)
                             .astype(dtype)).to(device)
 
 
 def _compare(name, got, want, errs, device, case):
-    _sync(device)
+    sync(device)
     if got.shape != want.shape:
         raise AssertionError(f"{name} at {case}: shape {tuple(got.shape)}, "
                              f"plain twin {tuple(want.shape)}")
@@ -305,6 +331,14 @@ def _compare(name, got, want, errs, device, case):
     if not torch.equal(got, want):
         raise AssertionError(f"{name} differs from its plain twin at {case}: "
                              f"max abs err {err}")
+
+
+def bara_cases(rng, p, b, device):
+    """(name, bara (B,)): random amounts, then those of
+    :func:`rot_amounts`."""
+    yield "random", _rand(rng, (b,), 0, 2 * p.N, np.int32, device)
+    for a in rot_amounts(p.N):
+        yield a, torch.full((b,), a, dtype=torch.int32, device=device)
 
 
 def check_kernels(p, device, batches, probe_batches=(PROBE_B, 5, 16),
@@ -317,11 +351,7 @@ def check_kernels(p, device, batches, probe_batches=(PROBE_B, 5, 16),
         return _rand(rng, shape, lo, hi, dtype, device)
 
     def amounts(b):
-        """(name, bara (B,)): random amounts, then 0, 1, 2, 3, N, N+1 and
-        2N-1."""
-        yield "random", rand((b,), 0, 2 * p.N, np.int32)
-        for a in rot_amounts(p.N):
-            yield a, torch.full((b,), a, dtype=torch.int32, device=device)
+        return bara_cases(rng, p, b, device)
 
     errs = {}
     for b in batches:
@@ -580,7 +610,7 @@ def check_mm_kernels(device, cases=MM_CASES):
         a, b = ins["bf16"]
         got = kernels.mm_bf16(a, b, g)
         twin = kernels.mm_bf16_plain(a, b, g)
-        _sync(device)
+        sync(device)
         ref = g * (a.double() @ b.double())
         scale = float(ref.abs().max())
         rel = {name: float((x.double() - ref).abs().max()) / scale
@@ -616,7 +646,7 @@ def keygen_vs_host(host_ks, device):
     t0 = time.perf_counter()
     dev_ks = keygen_device.generate_secret_keyset_device(host_ks.params,
                                                          device)
-    _sync(device)
+    sync(device)
     dt = time.perf_counter() - t0
     for name, got, want in (
             ("lwe_s", dev_ks.lwe_key.s, host_ks.lwe_key.s),
@@ -638,7 +668,7 @@ def encrypt_vs_host(ks, count, device, seed=11):
     t0 = time.perf_counter()
     got = encrypt.encrypt_bits_device(ks, bits, prng.derive(stream, 1),
                                       device)
-    _sync(device)
+    sync(device)
     t1 = time.perf_counter()
     want = encrypt.encrypt_bits(ks, bits, prng.derive(stream, 1), device)
     t2 = time.perf_counter()
@@ -680,7 +710,7 @@ def bootstrap_vs_plain(key, cx, device):
     for mode in MODES:
         with step_mode(mode):
             got = bootstrap.bootstrap(cx, key)
-        _sync(device)
+        sync(device)
         if not torch.equal(got, want):
             raise AssertionError(f"bootstrap under {mode} differs from the "
                                  f"plain path")
@@ -704,7 +734,7 @@ def routes_vs_plain(key, cx, want, device):
                         continue
                     raise AssertionError("IEACHE_PALLAS=1 ran on the CPU")
                 got = bootstrap.bootstrap(cx, key)
-            _sync(device)
+            sync(device)
             launched = {k for k, n in read_launches().items() if n}
             expected = set(MODES[mode]) if route == "1" else set()
             if not torch.equal(got, want) or launched != expected:
@@ -726,7 +756,7 @@ def compat_vs_plain(p, device, batch, seed=3):
                np.int32, device)
     got = blind_rotate(acc0, bara, bk, p)
     want = blind_rotate(acc0, bara, bk, p, plain=True)
-    _sync(device)
+    sync(device)
     if not torch.equal(got, want):
         raise AssertionError(f"{p.name} blind rotation differs from "
                              f"plain=True")
@@ -752,7 +782,7 @@ def small_n_vs_plain(p, device, batch=1, seed=4):
             reset_launches()
             with step_mode(mode), environ("IEACHE_PALLAS", route):
                 got = blind_rotate(acc0, bara, bk, p)
-            _sync(device)
+            sync(device)
             launched = {k for k, n in read_launches().items() if n}
             expected = set(MODES[mode]) if (
                 takes and route == "auto" and device.type == "cuda") else set()
@@ -776,7 +806,7 @@ def run_nand(ks, key, inputs, device):
     x, y, cx, cy = inputs
     t0 = time.perf_counter()
     out = gates.NAND(cx, cy, key)
-    _sync(device)
+    sync(device)
     dt = time.perf_counter() - t0
     if tuple(out.shape) != (len(x), ks.params.n + 1):
         raise AssertionError(f"NAND output shape {tuple(out.shape)}")
@@ -810,7 +840,7 @@ def run_expression(ks, key, inputs, device):
                                       device=device), key.params.n)
     s, _ = arith.ripple_add(ca, cb, zero, key)
     r, _ = arith.ripple_sub(s, cc, key)
-    _sync(device)
+    sync(device)
     dt = time.perf_counter() - t0
     got = words.decrypt_word_signed(ks, r)
     want = [x + y - z for x, y, z in zip(a, b, c)]
@@ -823,7 +853,7 @@ def run_fused_expression(ks, key, inputs, device):
     (a, b, c), (ca, cb, cc) = inputs
     t0 = time.perf_counter()
     r = fused.add_then_sub(ca, cb, cc, key)
-    _sync(device)
+    sync(device)
     dt = time.perf_counter() - t0
     return (words.decrypt_word_signed(ks, r),
             [x + y - z for x, y, z in zip(a, b, c)], dt)
@@ -847,7 +877,7 @@ def run_multiply(ks, key, inputs, latency, device):
     (a, b), (ca, cb) = inputs
     t0 = time.perf_counter()
     r = fused.schoolbook_mul_csa(ca, cb, key, latency=latency)
-    _sync(device)
+    sync(device)
     dt = time.perf_counter() - t0
     return (words.decrypt_word(ks, r), [x * y for x, y in zip(a, b)], dt)
 
@@ -880,17 +910,309 @@ def run_mode(ks, key, mode, nand_in, expr_in, mul_in, device):
     launches = read_launches()
     if errors:
         raise AssertionError(f"NAND under {mode}: decrypt_errors={errors}")
+    check_mode_launches(mode, launches, device)
+    return errors, nand_s, expr_s, nand_launches, launches
+
+
+def check_mode_launches(mode, launches, device):
+    """On a CUDA device the kernels of ``mode`` must have launched and no
+    other; on the CPU (the plain twins) none."""
     if device.type != "cuda":
-        # CPU tensors run the plain twins, which launch nothing
         if any(launches.values()):
             raise AssertionError(f"{mode} on {device}: {launches}")
-        return errors, nand_s, expr_s, nand_launches, launches
+        return
     unlaunched = [k for k in MODES[mode] if not launches[k]]
     stray = [k for k, n in launches.items() if n and k not in MODES[mode]]
     if unlaunched or stray:
         raise AssertionError(f"{mode}: kernels not launched {unlaunched}, "
                              f"launched by another mode {stray}: {launches}")
-    return errors, nand_s, expr_s, nand_launches, launches
+
+
+#: the evaluator phase's adders
+ADDERS = ("ripple", "kogge_stone")
+
+#: the evaluator phase's mul-first tree A - B * C
+A_MINUS_B_TIMES_C = [(evaluator.OP_MUL, ("opnd", 1), ("opnd", 2)),
+                     (evaluator.OP_SUB, ("opnd", 0), ("step", 0))]
+
+
+def evaluator_inputs(pair, width, device, seed=17):
+    """The evaluator phase's operands, 8 lanes each: {expression: (A, B,
+    C values, their operands)}.  ``A + B - C``: the lanes run through
+    every sign combination of A, B and C.  ``A - B * C``: A of both signs
+    against B and C of signs (+, +), (+, -) and (-, +); B and C both
+    negative are left out, since the product's answer code 4 reads as
+    negative inside a chain (the JAX package's evaluator does the same).
+    ``B * C`` (one ``compute``): every sign pair of B and C twice, code 4
+    among them."""
+    rng = np.random.RandomState(seed)
+    stream = prng.key_from_seed_words([seed, width])
+    signs = {
+        "A+B-C": list(itertools.product((1, -1), repeat=3)),
+        "A-B*C": [(sa, sb, sc) for sa in (1, -1)
+                  for sb, sc in ((1, 1), (1, -1), (-1, 1), (1, 1))],
+        "B*C": [(1, sb, sc) for sb, sc in
+                itertools.product((1, -1), repeat=2)] * 2,
+    }
+    lim = {"A+B-C": 1 << (width - 3), "A-B*C": 1 << (width - 1),
+           "B*C": 1 << width}
+    out = {}
+    for i, (name, lanes) in enumerate(signs.items()):
+        vals = [[sgn[k] * int(rng.randint(1, lim[name])) for sgn in lanes]
+                for k in range(3)]
+        out[name] = (vals, [evaluator.encrypt_operand(
+            pair.main, pair.nbit, v, width, prng.derive(stream, 3 * i + k),
+            device) for k, v in enumerate(vals)])
+    return out
+
+
+def meta_seconds(nbit_ks, operands, device):
+    """Seconds of the host round trips of the operands' metadata: each
+    negativity and bit-count word decrypted on the host, as the
+    evaluator does before it plans."""
+    sync(device)
+    t0 = time.perf_counter()
+    for o in operands:
+        for word in (o.neg_word, o.bit_word):
+            evaluator._decrypt_meta_value(nbit_ks, word)
+    return time.perf_counter() - t0
+
+
+def run_evaluator(pair, key, inputs, adder, device,
+                  names=("A+B-C", "A-B*C", "B*C")):
+    """Phase 8 under the current step mode and ``adder``: ``A + B - C``
+    by ``compute_chain``, ``A - B * C`` by ``compute_steps``, ``B * C``
+    by ``compute``, each lane decrypted by ``decrypt_answer`` and held to
+    the Python result.  Returns {expression: record}: the answer's value
+    word and codes, the call's seconds (metadata round trips, the circuit
+    and the answer's metadata), the round trips' seconds and
+    ``decrypt_answer``'s."""
+    cloud = evaluator.CloudEvaluator(key, pair.nbit, adder=adder)
+    recs = {}
+    for name in names:
+        (a, b, c), ops = inputs[name]
+        if name == "A+B-C":
+            op, used = evaluator.OP_SUB, ops
+            call = lambda: cloud.compute_chain(  # noqa: E731
+                [evaluator.OP_ADD, evaluator.OP_SUB], ops)
+            want = [x + y - z for x, y, z in zip(a, b, c)]
+        elif name == "A-B*C":
+            op, used = evaluator.OP_SUB, ops
+            call = lambda: cloud.compute_steps(  # noqa: E731
+                A_MINUS_B_TIMES_C, ops)
+            want = [x - y * z for x, y, z in zip(a, b, c)]
+        else:
+            op, used = evaluator.OP_MUL, ops[1:]
+            call = lambda: cloud.compute(evaluator.OP_MUL, *ops[1:])  # noqa
+            want = [y * z for y, z in zip(b, c)]
+        meta_s = meta_seconds(pair.nbit, used, device)
+        t0 = time.perf_counter()
+        ans, info = call()
+        sync(device)
+        t1 = time.perf_counter()
+        got = evaluator.decrypt_answer(pair.main, pair.nbit, ans, op)
+        t2 = time.perf_counter()
+        if got != want:
+            raise AssertionError(f"{name} ({adder}) decrypted wrong: got "
+                                 f"{got}, want {want}")
+        recs[name] = {"value": ans.value, "codes": info["neg_codes"],
+                      "seconds": t1 - t0, "meta_s": meta_s,
+                      "decrypt_s": t2 - t1}
+    return recs
+
+
+def evaluator_modes(pair, key, inputs, device, modes=EXPRESSION_MODES):
+    """Phase 8 under each of ``modes`` with both adders, launch counts
+    set to 0 just before each mode's run and read just after: its
+    kernels and no other.  Returns ({(mode, adder): records}, {mode:
+    launches}); the answer codes of each run must cover 0, 1, 2, 4, 5."""
+    recs, launches = {}, {}
+    for mode in modes:
+        reset_launches()
+        with step_mode(mode):
+            for adder in ADDERS:
+                recs[mode, adder] = run_evaluator(pair, key, inputs, adder,
+                                                  device)
+        launches[mode] = read_launches()
+        check_mode_launches(mode, launches[mode], device)
+        for adder in ADDERS:
+            codes = set().union(*(r["codes"] for r in
+                                  recs[mode, adder].values()))
+            if codes != {0, 1, 2, 4, 5}:
+                raise AssertionError(f"{mode} {adder}: answer codes {codes}")
+    return recs, launches
+
+
+def evaluator_vs_plain(pair, key, device, width=6):
+    """Phase 8: ``A + B - C`` and ``A - B * C`` (parallel-prefix adder)
+    on ``width``-bit operands, 8 lanes, under split and under
+    ``IEACHE_PALLAS=0``, which launches nothing; the plain path's value
+    words equal to the kernel path's.  The plain step takes about half a
+    second a bootstrap wave here, so its operands are narrower than the
+    modes' 16 bits.  Returns {name: (kernel record, plain record)}."""
+    names = ("A+B-C", "A-B*C")
+    inputs = evaluator_inputs(pair, width, device, seed=23)
+    with step_mode("split"):
+        kernel_recs = run_evaluator(pair, key, inputs, "kogge_stone", device,
+                                    names=names)
+        reset_launches()
+        with environ("IEACHE_PALLAS", "0"):
+            recs = run_evaluator(pair, key, inputs, "kogge_stone", device,
+                                 names=names)
+        launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"IEACHE_PALLAS=0 launched {launches}")
+    for name, rec in recs.items():
+        if not torch.equal(rec["value"], kernel_recs[name]["value"]):
+            raise AssertionError(f"{name}: the plain path's value word "
+                                 f"differs from the kernel path's")
+    return {name: (kernel_recs[name], recs[name]) for name in names}
+
+
+#: the kernels of the evaluator's modes, and where a call's batch lies:
+#: (argument, axis)
+WAVE_KERNELS = {"rot_diff_decompose": (1, 0), "external_product": (0, 1),
+                "cmux_step": (1, 0), "blind_rotate_scan": (1, 0)}
+
+
+class _BatchRecorder:
+    """Stands in for a kernel's wrapper in ``kernels``: adds the batch of
+    each call to ``seen``, then calls the wrapper, whose ``launches`` it
+    reads and sets."""
+
+    def __init__(self, wrapper, arg, axis, seen):
+        self.wrapper, self.arg, self.axis, self.seen = wrapper, arg, axis, seen
+
+    def __call__(self, *args, **kwargs):
+        self.seen.add(args[self.arg].shape[self.axis])
+        return self.wrapper(*args, **kwargs)
+
+    @property
+    def launches(self):
+        return self.wrapper.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.wrapper.launches = n
+
+
+@contextlib.contextmanager
+def recording_batches():
+    """Within the block, every batch at which a kernel of
+    ``WAVE_KERNELS`` is called (the lanes of one bootstrap wave): yields
+    {kernel: set of batches}."""
+    wrappers = {name: getattr(kernels, name) for name in WAVE_KERNELS}
+    seen = {name: set() for name in WAVE_KERNELS}
+    try:
+        for name, (arg, axis) in WAVE_KERNELS.items():
+            setattr(kernels, name, _BatchRecorder(wrappers[name], arg, axis,
+                                                  seen[name]))
+        yield seen
+    finally:
+        for name, wrapper in wrappers.items():
+            setattr(kernels, name, wrapper)
+
+
+def check_wave_kernels(p, device, seen, seed=29):
+    """Phase 8: each kernel of the evaluator's modes against its plain
+    twin at every batch phase 8 called it with (:func:`recording_batches`):
+    the split rotation and the fused step at the amounts of
+    :func:`bara_cases`, the external product with and without acc, the
+    scan over all n steps.  Returns max abs error per kernel."""
+    rng = np.random.RandomState(seed)
+    bk = _rand(rng, (p.n, p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
+               np.int32, device)
+    bk_i = bk[0]
+    errs = {}
+    for name, batches in seen.items():
+        twin = getattr(kernels, name + "_plain")
+        for b in sorted(batches):
+            acc = _rand(rng, (p.k + 1, b, p.N), -2**31, 2**31, np.int32,
+                        device)
+            if name == "external_product":
+                d = _rand(rng, (p.trgsw_rows, b, p.N), -128, 128, np.int8,
+                          device)
+                for a in (None, acc):
+                    _compare(name, kernels.external_product(d, bk_i, p, acc=a),
+                             twin(d, bk_i, p, a), errs, device,
+                             f"B={b} acc={a is not None}")
+            elif name == "blind_rotate_scan":
+                bara = _rand(rng, (b, p.n), 0, 2 * p.N, np.int32, device)
+                _compare(name, kernels.blind_rotate_scan(acc, bara, bk, p),
+                         twin(acc, bara, bk, p), errs, device,
+                         f"B={b} steps={p.n}")
+            else:
+                for amount, bara in bara_cases(rng, p, b, device):
+                    args = (acc, bara) if name == "rot_diff_decompose" \
+                        else (acc, bara, bk_i)
+                    _compare(name, getattr(kernels, name)(*args, p),
+                             twin(*args, p), errs, device,
+                             f"B={b} bara={amount}")
+    return errs
+
+
+def widening_case(pair, key, device):
+    """Phase 8: tests/test_evaluator.py's per-lane widening at full
+    parameters: 7+7 (a magnitude with the top bit set at 4 bits)
+    zero-extends and 3-6 sign-extends to C's 8 bits.  Returns the lanes."""
+    cloud = evaluator.CloudEvaluator(key, pair.nbit)
+    s = prng.key_from_seed_words([0xD1])
+    ops = [evaluator.encrypt_operand(pair.main, pair.nbit, v, w,
+                                     prng.derive(s, i), device)
+           for i, (v, w) in enumerate((([7, 3], 4), ([7, -6], 4),
+                                       ([100, 100], 8)))]
+    ans, _ = cloud.compute_chain([evaluator.OP_ADD, evaluator.OP_ADD], ops)
+    got = evaluator.decrypt_answer(pair.main, pair.nbit, ans,
+                                   evaluator.OP_ADD)
+    if got != [7 + 7 + 100, 3 - 6 + 100]:
+        raise AssertionError(f"the per-lane widening decrypted {got}")
+    return got
+
+
+def chain_memory(pair, key, device, batch=64, width=16, seed=19):
+    """Phase 8: ``chain_memory_analysis`` of ``A * B * C``; on the card
+    every byte count must be positive (on the CPU the fields it cannot
+    measure are -1).  Returns the analysis."""
+    cloud = evaluator.CloudEvaluator(key, pair.nbit)
+    rng = np.random.RandomState(seed)
+    s = prng.key_from_seed_words([seed, batch, width])
+    ops = [evaluator.encrypt_operand(
+        pair.main, pair.nbit, rng.randint(1, 1 << width, batch).tolist(),
+        width, prng.derive(s, i), device) for i in range(3)]
+    steps = [(evaluator.OP_MUL, ("opnd", 0), ("opnd", 1)),
+             (evaluator.OP_MUL, ("step", 0), ("opnd", 2))]
+    ma = cloud.chain_memory_analysis(steps, ops)
+    measured = ("temp_size_in_bytes", "peak_bytes_estimate")
+    for field in ("argument_size_in_bytes", "output_size_in_bytes",
+                  *measured):
+        if device.type == "cuda" or field not in measured:
+            if ma[field] <= 0:
+                raise AssertionError(f"chain_memory_analysis: {ma}")
+        elif ma[field] != -1:
+            raise AssertionError(f"chain_memory_analysis on {device}: {ma}")
+    if cloud.gate_count:
+        raise AssertionError("chain_memory_analysis counted gates")
+    return ma
+
+
+def tool_lines(p, device, bench_b=1024, margin_b=2048, expr_b=256,
+               width_cases=("mul32", "add256"), cases=width_bench.CASES):
+    """Phase 8: the lines of bench (5 repeats), margin_probe, width_bench
+    and expr_bench (``add_sub``) from their ``run`` functions, each with
+    no decrypt error and the margin at least 7σ.  Returns [(tool,
+    line)]."""
+    lines = [("bench", bench.run(p, bench_b, 16, device)),
+             ("margin_probe", margin_probe.run(p, margin_b, 4, device))]
+    lines += [("width_bench", r) for r in width_bench.run(
+        width_cases, p, device, cases=cases)]
+    lines.append(("expr_bench", expr_bench.run("add_sub", p, expr_b, 16,
+                                               device)))
+    for tool, rec in lines:
+        if rec.get("decrypt_errors", rec.get("errors")) != 0:
+            raise AssertionError(f"{tool}: {rec}")
+    if lines[1][1]["value"] < 7:
+        raise AssertionError(f"margin_probe: {lines[1][1]}")
+    return lines
 
 
 def bound_ms(tensors, ops, op_type):
@@ -1330,6 +1652,47 @@ def main() -> int:
     log("phase 7 step_bench: " + json.dumps(summ))
     if not summ["checksums_match"]:
         raise AssertionError("step_bench: the modes' checksums differ")
+
+    # phase 8: the evaluator, this slice's main path, counted per mode;
+    # the batch of every kernel call recorded, for the check against the
+    # twins at the end of the phase
+    t8 = time.perf_counter()
+    pair = keygen_device.generate_gate_keypair_device(p, device)
+    ev_in = evaluator_inputs(pair, 16, device)
+    with recording_batches() as seen:
+        ev_recs, ev_launches = evaluator_modes(pair, key, ev_in, device)
+        for (mode, adder), recs in ev_recs.items():
+            for name, r in recs.items():
+                log(f"phase 8 {name} width 16 B=8 {mode} {adder}: every "
+                    f"lane right, codes {r['codes']}; the call "
+                    f"{r['seconds']:.3f} s (metadata round trips "
+                    f"{r['meta_s'] * 1e3:.2f} ms of it), decrypt_answer "
+                    f"{r['decrypt_s'] * 1e3:.2f} ms")
+        for mode, counts in ev_launches.items():
+            log(f"phase 8 {mode}: launches of the evaluator "
+                f"{ {k: counts[k] for k in MODES[mode]} }, others 0")
+            for k in MODES[mode]:
+                launches[k] += counts[k]
+        for name, (kr, r) in evaluator_vs_plain(pair, key, device).items():
+            log(f"phase 8 {name} width 6 B=8 kogge_stone under "
+                f"IEACHE_PALLAS=0: no launch, value word equal to split's; "
+                f"the call {r['seconds']:.3f} s (split {kr['seconds']:.3f} "
+                f"s)")
+        log(f"phase 8 widening at {p.name}: 7+7 (4 bits) + 100 and 3-6 + "
+            f"100 (8 bits) read {widening_case(pair, key, device)}")
+        log("phase 8 chain_memory_analysis A*B*C width 16 B=64: "
+            + json.dumps(chain_memory(pair, key, device)))
+        for tool, rec in tool_lines(p, device):
+            log(f"phase 8 {tool}: " + json.dumps(rec))
+    t0 = time.perf_counter()
+    for name, err in check_wave_kernels(p, device, seen).items():
+        errs[name] = max(errs[name], err)
+    for name, batches in seen.items():
+        log(f"phase 8 waves: {name} equal to its plain twin at every "
+            f"batch phase 8 called it with, "
+            f"B={'/'.join(map(str, sorted(batches)))}")
+    log(f"phase 8 waves: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 8 evaluator: {time.perf_counter() - t8:.1f} s")
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

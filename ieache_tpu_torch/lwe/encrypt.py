@@ -9,7 +9,8 @@ identical ciphertexts from one stream key.  :func:`encrypt_bits` and
 :func:`encrypt_bits_device` and :func:`decrypt_bits_device` compute on
 the given device with torch ops and are called by name (the JAX
 package's routing by array size and platform is not carried over).  All
-four give the same arrays.
+four give the same arrays.  :func:`phase_of` is the host helper
+of the noise-margin probe.
 """
 
 from __future__ import annotations
@@ -91,3 +92,14 @@ def decrypt_bits_device(keyset: SecretKeySet,
     phase = flat[:, p.n] - kd._dot_bits(flat[:, : p.n],
                                         _key_on(keyset, lwe.device))
     return (phase > 0).to(torch.int32).reshape(lwe.shape[:-1])
+
+
+def phase_of(keyset: SecretKeySet, lwe: torch.Tensor) -> np.ndarray:
+    """Raw phase (b - a.s) of an LWE batch (..., n+1) as host int32, in
+    wrapping int32 as :func:`decrypt_bits` computes it: for noise-margin
+    diagnostics."""
+    p = keyset.params
+    x = lwe.detach().to("cpu", torch.int32).numpy()
+    with np.errstate(over="ignore"):
+        return (x[..., p.n] - x[..., : p.n] @ keyset.lwe_key.s).astype(
+            np.int32)

@@ -1,6 +1,6 @@
 """What the port's tools and ``chip_smoke.py`` share: the card check,
 the card's line and state, the parameter sets by name, an environment
-override, and the timers.
+override, the fields every tool's line carries, and the timers.
 
 A timer needs a CUDA device; it never falls back to the CPU's clock.
 """
@@ -14,6 +14,7 @@ import subprocess
 import torch
 
 from ieache_tpu_torch import params as P
+from ieache_tpu_torch.ops.blind_rotate import step_mode
 
 #: the full-size parameter sets the tools take by name (``*_PARAMS``)
 PARAMS = {"ieache_110": P.IEACHE_110, "ieache_110_l2": P.IEACHE_110_FAST}
@@ -26,6 +27,26 @@ def require_cuda(what: str) -> torch.device:
         raise SystemExit(f"{what}: no CUDA device; this run needs one and "
                          f"does not fall back to the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def sync(device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on
+    the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def line_fields(device) -> dict:
+    """The fields a tool's JSON line adds to the JAX tool's: the backend,
+    the step mode of the blind rotation, the platform, the device's name
+    and the card's name and power limit (None on the CPU)."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    return {"backend": "torch", "step_mode": step_mode(),
+            "platform": "gpu" if on_card else "cpu",
+            "device": torch.cuda.get_device_name(device) if on_card
+            else "cpu",
+            "card": card_line() if on_card else None}
 
 
 def _nvidia_smi(fields: str) -> str:

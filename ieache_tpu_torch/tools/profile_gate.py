@@ -37,12 +37,8 @@ from ieache_tpu_torch.tools._common import (
     card_line,
     environ,
     require_cuda,
+    sync,
 )
-
-
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def profile_call(fn, device, top: int = 6) -> dict:
@@ -53,14 +49,14 @@ def profile_call(fn, device, top: int = 6) -> dict:
     device = torch.device(device)
     on_card = device.type == "cuda"
     fn()
-    _sync(device)
+    sync(device)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if on_card:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
-        _sync(device)
+        sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for evt in prof.key_averages():

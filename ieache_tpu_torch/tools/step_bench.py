@@ -37,6 +37,7 @@ from ieache_tpu_torch.tools._common import (
     card_line,
     environ,
     require_cuda,
+    sync,
 )
 
 
@@ -52,11 +53,6 @@ def make_inputs(p, b: int, steps: int, device, seed: int = 7):
                  for x in (acc.transpose(1, 0, 2), bara.T, bk))
 
 
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def bench_mode(mode: str, p, inputs, iters: int) -> dict:
     """One mode's record on the device ``inputs`` lie on."""
     acc0, bara, bk = inputs
@@ -64,12 +60,12 @@ def bench_mode(mode: str, p, inputs, iters: int) -> dict:
     with environ("IEACHE_PALLAS_STEP", mode):
         t0 = time.perf_counter()
         out = br.blind_rotate(acc0, bara, bk, p)
-        _sync(acc0.device)
+        sync(acc0.device)
         compile_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         for _ in range(iters):
             out = br.blind_rotate(acc0, bara, bk, p)
-        _sync(acc0.device)
+        sync(acc0.device)
         dt = (time.perf_counter() - t0) / max(iters, 1) / steps
     return {"mode": mode, "ms_per_step": dt * 1e3, "compile_s": compile_s,
             "b": b, "steps": steps, "params": p.name,

@@ -19,6 +19,7 @@ import torch
 from ieache_tpu_torch import keygen
 from ieache_tpu_torch import params as P
 from ieache_tpu_torch.boot import bootstrap
+from ieache_tpu_torch.lwe import keygen_device
 from ieache_tpu_torch.ops import kernels
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -346,3 +347,50 @@ def test_refuses_without_cuda():
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert '"ok"' not in proc.stdout
+
+
+def test_evaluator_phase_passes_on_cpu_twins():
+    """Phase 8 rehearsed at TEST_TINY on 8-bit operands: the three
+    expressions under two modes and both adders (every lane right, answer
+    codes 0, 1, 2, 4 and 5, nothing launched on the CPU), the plain path's
+    value words equal to the kernel path's, each kernel against its twin
+    at every batch the modes called it with, the per-lane widening, the
+    memory analysis (-1 where the CPU has no counter) and the tools'
+    lines at small sizes."""
+    cs = _chip_smoke()
+    dev = torch.device("cpu")
+    p = P.TEST_TINY
+    pair = keygen_device.generate_gate_keypair_device(p, dev)
+    key = bootstrap.pack_cloud_key(pair.main.cloud, dev)
+    ev_in = cs.evaluator_inputs(pair, 8, dev)
+    assert [len(v) for vals, _ in ev_in.values() for v in vals] == [8] * 9
+    wrapper = kernels.rot_diff_decompose
+    with cs.recording_batches() as seen:
+        recs, launches = cs.evaluator_modes(pair, key, ev_in, dev,
+                                            modes=("split", "scan"))
+        assert kernels.rot_diff_decompose.launches == wrapper.launches
+    assert kernels.rot_diff_decompose is wrapper
+    # among the waves, 8 (a ripple wave: one bit of 8 lanes) and 64 (a
+    # parallel-prefix wave: 8 bits of 8 lanes); fused2 did not run
+    assert {8, 64} <= seen["rot_diff_decompose"] == seen["external_product"]
+    assert seen["blind_rotate_scan"] == seen["rot_diff_decompose"]
+    assert seen["cmux_step"] == set()
+    assert cs.check_wave_kernels(p, dev, seen) == {
+        name: 0 for name in ("rot_diff_decompose", "external_product",
+                             "blind_rotate_scan")}
+    assert set(recs) == {(m, a) for m in ("split", "scan")
+                         for a in cs.ADDERS}
+    assert not any(n for counts in launches.values()
+                   for n in counts.values())
+    plain = cs.evaluator_vs_plain(pair, key, dev)
+    assert set(plain) == {"A+B-C", "A-B*C"}
+    assert cs.widening_case(pair, key, dev) == [114, 97]
+    ma = cs.chain_memory(pair, key, dev, batch=4, width=4)
+    assert ma["temp_size_in_bytes"] == -1 and ma["output_size_in_bytes"] > 0
+    lines = cs.tool_lines(p, dev, bench_b=16, margin_b=32, expr_b=4,
+                          width_cases=("mul6", "add12"),
+                          cases={"mul6": ("mul", 6, 2),
+                                 "add12": ("add", 12, 4)})
+    assert [t for t, _ in lines] == ["bench", "margin_probe", "width_bench",
+                                     "width_bench", "expr_bench"]
+    assert all(rec["backend"] == "torch" for _, rec in lines)

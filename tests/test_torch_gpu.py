@@ -860,3 +860,136 @@ def test_step_kernels_refuse_digit_tiles_over_shared_memory(cuda, step, rows):
     torch.cuda.synchronize()
     assert torch.equal(got, blind_rotate(acc0, bara, bk, p, plain=True))
     assert _launched(counts) == set()
+
+
+#: the evaluator's cases on the card: ``A - B * C`` (multiply first, then
+#: a chained subtract) with the parallel-prefix adder, 8 lanes, A of both
+#: signs against B > 0 and C of both signs (B and C both negative read as
+#: negative inside a chain, the JAX package's quirk): (params, width, A,
+#: B, C).  "cpu" is held word for word to the port on the CPU, whose
+#: kernels' plain twins take about 10 s for it at TEST_SMALL_NOISY;
+#: "plain" at IEACHE_110_FAST to IEACHE_PALLAS=0 on the card (about half
+#: a second a bootstrap wave)
+EV_CASES = {
+    "cpu": (P.TEST_SMALL_NOISY, 6, [25, -31, 7, -13, 30, -2, 11, -20],
+            [3, 5, 31, 1, 17, 9, 2, 14], [7, -4, 1, -31, 12, -9, 30, -5]),
+    "plain": (P.IEACHE_110_FAST, 4, [5, -7, 3, -1, 7, -4, 2, -6],
+              [3, 5, 7, 1, 6, 2, 4, 7], [7, -4, 1, -7, 3, -5, 6, -2]),
+}
+
+
+def _evaluator_answer(case, device):
+    """``A - B * C`` of ``EV_CASES[case]`` by compute_steps on
+    ``device``, keys from the device keygen: (answer, decrypted lanes,
+    the Python result)."""
+    from ieache_tpu_torch.circuits import evaluator as ev
+
+    p, width, *vals = EV_CASES[case]
+    pair = keygen_device.generate_gate_keypair_device(p, device)
+    cloud = ev.CloudEvaluator(bootstrap.pack_cloud_key(pair.main.cloud,
+                                                       device), pair.nbit,
+                              adder="kogge_stone")
+    s = prng.key_from_seed_words([0xE5])
+    steps = [(ev.OP_MUL, ("opnd", 1), ("opnd", 2)),
+             (ev.OP_SUB, ("opnd", 0), ("step", 0))]
+    with _env("IEACHE_DETERMINISTIC", "1"):
+        ops = [ev.encrypt_operand(pair.main, pair.nbit, v, width,
+                                  prng.derive(s, i), device)
+               for i, v in enumerate(vals)]
+        ans, _ = cloud.compute_steps(steps, ops)
+    return (ans, ev.decrypt_answer(pair.main, pair.nbit, ans, ev.OP_SUB),
+            [x - y * z for x, y, z in zip(*vals)])
+
+
+def _same_answer(got, want):
+    from ieache_tpu_torch.circuits import evaluator as ev
+
+    assert isinstance(got, ev.Operand)
+    for field in ("neg_word", "bit_word", "value", "carry_word"):
+        assert torch.equal(getattr(got, field).cpu(),
+                           getattr(want, field).cpu()), field
+
+
+@pytest.fixture(scope="module")
+def evaluator_on_cpu():
+    """The port's answer to case "cpu" on the CPU, under split: the
+    kernels' plain twins."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    with _step_mode("split"):
+        return _evaluator_answer("cpu", torch.device("cpu"))
+
+
+@pytest.mark.parametrize("mode", ["split", "fused2", "scan"])
+def test_evaluator_on_the_card_matches_the_cpu(cuda, evaluator_on_cpu, mode):
+    """The evaluator under each mode of its main path on the card: every
+    word of the answer equal to the port's on the CPU, the lanes right,
+    the mode's kernels launched and no other."""
+    counts = [w.launches for w in WRAPPERS.values()]
+    with _step_mode(mode):
+        ans, lanes, want = _evaluator_answer("cpu", cuda)
+    assert _launched(counts) == set(MODES[mode])
+    ref, ref_lanes, _ = evaluator_on_cpu
+    assert lanes == ref_lanes == want
+    _same_answer(ans, ref)
+
+
+@pytest.fixture(scope="module")
+def evaluator_plain_on_card():
+    """The answer to case "plain" on the card under IEACHE_PALLAS=0,
+    which launches no kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    counts = [w.launches for w in WRAPPERS.values()]
+    with _step_mode("split"), _env("IEACHE_PALLAS", "0"):
+        out = _evaluator_answer("plain", torch.device("cuda"))
+    assert _launched(counts) == set()
+    return out
+
+
+@pytest.mark.parametrize("mode", ["split", "fused2", "scan"])
+def test_evaluator_on_the_card_matches_the_plain_step(
+        cuda, evaluator_plain_on_card, mode):
+    """At IEACHE_110_FAST each mode's kernels give the plain step's
+    answer on the card, every word, and the lanes decrypt right."""
+    counts = [w.launches for w in WRAPPERS.values()]
+    with _step_mode(mode):
+        ans, lanes, want = _evaluator_answer("plain", cuda)
+    assert _launched(counts) == set(MODES[mode])
+    ref, ref_lanes, _ = evaluator_plain_on_card
+    assert lanes == ref_lanes == want
+    _same_answer(ans, ref)
+
+
+def test_chain_memory_analysis_on_the_card(cuda):
+    """On the card the audit runs the chain: every byte count positive,
+    the argument and output sizes those the CPU counts, the output size
+    that of the word the chain returns, no gate counted."""
+    from ieache_tpu_torch.circuits import evaluator as ev
+
+    p = P.TEST_SMALL_NOISY
+    results = {}
+    for device in (torch.device("cpu"), cuda):
+        pair = keygen_device.generate_gate_keypair_device(p, device)
+        cloud = ev.CloudEvaluator(bootstrap.pack_cloud_key(pair.main.cloud,
+                                                           device), pair.nbit)
+        s = prng.key_from_seed_words([0xE6])
+        ops = [ev.encrypt_operand(pair.main, pair.nbit, [3, 5, 7], 4,
+                                  prng.derive(s, i), device)
+               for i in range(3)]
+        steps = [(ev.OP_MUL, ("opnd", 0), ("opnd", 1)),
+                 (ev.OP_MUL, ("step", 0), ("opnd", 2))]
+        results[device.type] = cloud.chain_memory_analysis(steps, ops)
+        assert cloud.gate_count == 0
+    # the output size from the plan against the result the chain returns
+    result = ev._chain_exec(*cloud._chain_args(steps, ops, False)[0])
+    on_card, on_cpu = results["cuda"], results["cpu"]
+    assert on_card.keys() == on_cpu.keys()
+    for field in ("temp_size_in_bytes", "argument_size_in_bytes",
+                  "output_size_in_bytes", "peak_bytes_estimate"):
+        assert on_card[field] > 0, on_card
+    for field in ("argument_size_in_bytes", "output_size_in_bytes"):
+        assert on_card[field] == on_cpu[field]
+    assert on_cpu["temp_size_in_bytes"] == -1
+    assert on_card["output_size_in_bytes"] == result.numel() * 4 \
+        == 3 * 12 * (p.n + 1) * 4

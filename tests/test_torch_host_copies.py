@@ -296,6 +296,19 @@ _SEALED = textwrap.dedent("""
     cb = words.encrypt_word(ks, b, 4, prng.derive(s, 3), "cpu")
     prod = words.decrypt_word(ks, fused.schoolbook_mul_csa(ca, cb, key))
     assert prod == [u * v for u, v in zip(a, b)], prod
+    new = ("circuits.evaluator", "tools.bench", "tools.margin_probe",
+           "tools.width_bench", "tools.expr_bench")
+    assert {"ieache_tpu_torch." + m for m in new} <= set(names), names
+    from ieache_tpu_torch.circuits import evaluator as ev
+    pair = keygen_device.generate_gate_keypair_device(p, "cpu")
+    cloud = ev.CloudEvaluator(bootstrap.pack_cloud_key(pair.main.cloud,
+                                                       "cpu"), pair.nbit)
+    ops = [ev.encrypt_operand(pair.main, pair.nbit, v, 4, prng.derive(s, i),
+                              "cpu")
+           for i, v in enumerate(([3, -2], [5, 2], [-4, 6]))]
+    ans, _ = cloud.compute_chain([ev.OP_ADD, ev.OP_SUB], ops)
+    got = ev.decrypt_answer(pair.main, pair.nbit, ans, ev.OP_SUB)
+    assert got == [3 + 5 + 4, -2 + 2 - 6], got
     assert not any(m.split(".")[0] in REFUSED for m in sys.modules)
     print("SEALED-OK", len(names))
 """)
@@ -303,8 +316,10 @@ _SEALED = textwrap.dedent("""
 
 def test_port_imports_nothing_of_the_jax_package():
     """With ieache_tpu, jax and jaxlib refused by a meta-path hook,
-    every submodule of the port and chip_smoke import, and a TEST_TINY
-    device keygen, NAND and 4-bit multiply run and decrypt right."""
+    every submodule of the port (the evaluator and the tools that drive
+    it among them) and chip_smoke import, and a TEST_TINY device keygen,
+    NAND, 4-bit multiply and ``A + B - C`` through the evaluator run and
+    decrypt right."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _SEALED], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
