@@ -120,7 +120,30 @@ prints no result line:
    is recorded, and at the end of the phase each kernel is held to its
    plain twin at each of its batches (the rotation and the fused step
    at the amounts of phase 3, the external product with and without
-   acc, the scan over all n steps).
+   acc, the scan over all n steps);
+9. the protocol (``mp/``, ``tools/e2e_bench.py``), the slice's own main
+   path, at IEACHE_110_FAST: ``A + B - C`` and ``A - B * C`` on 16-bit
+   operands, 8 lanes (every sign combination; no product of two
+   negatives inside the chain), through the six-role flow in process
+   (``mp/sim.py``: SAE key fan-out, BER job, operand pulls from the
+   clients, the Cloud evaluating on the card, Output decrypting on the
+   host) under ``split`` and ``scan``, launch counts set to 0 just
+   before each flow and read just after (the mode's kernels and no
+   other), every lane decrypted to the Python result, the Cloud's and
+   the Output's spans printed; e2e_bench's expressions and operands (one
+   lane at width 32) through the same flow under scan; then
+   ``e2e_bench.run``: keygen, three clients and the Cloud as ``python -m
+   ieache_tpu_torch.cli.main serve`` processes (the Cloud on the card
+   under split and ``IEACHE_PALLAS=1``, so that a step that reaches no
+   kernel raises; its spans carry its launches: split's kernels and no
+   other), Output in this process, each expression cold and warm, every
+   ``decrypt_ok`` true, its JSON line printed.  The keysets e2e_bench's
+   keygen role loads are written to ``.keycache/`` from phase 8's
+   device keygen where absent.  Every batch at which the in-process
+   flows call a kernel is recorded (the lanes of a wave do not depend on
+   the step mode, so the width-32 flow's are the Cloud process's), and
+   split's and scan's kernels are held to their twins at each that
+   phase 8 did not hold them at.
 
 The next-to-last line is a JSON object with one entry per kernel
 (route, source, the Pallas kernel it replaces, launches in its path,
@@ -153,10 +176,12 @@ from ieache_tpu_torch.boot import bootstrap, gates
 from ieache_tpu_torch.circuits import arith, evaluator, fused, words
 from ieache_tpu_torch.core.poly import TORUS_LIMBS
 from ieache_tpu_torch.lwe import encrypt, keygen_device
+from ieache_tpu_torch.mp import sim
 from ieache_tpu_torch.ops import _build, kernels
 from ieache_tpu_torch.ops.blind_rotate import STEP_MODES, blind_rotate
 from ieache_tpu_torch.tools import (
     bench,
+    e2e_bench,
     expr_bench,
     margin_probe,
     mosaic_mm_probe,
@@ -307,12 +332,12 @@ def step_mode(mode):
 
 
 def reset_launches():
-    for name, _, _ in KERNELS:
+    for name in kernels.WRAPPERS:
         getattr(kernels, name).launches = 0
 
 
 def read_launches():
-    return {name: getattr(kernels, name).launches for name, _, _ in KERNELS}
+    return kernels.launch_counts()
 
 
 def _rand(rng, shape, lo, hi, dtype, device):
@@ -1215,6 +1240,186 @@ def tool_lines(p, device, bench_b=1024, margin_b=2048, expr_b=256,
     return lines
 
 
+#: phase 9's expressions through the protocol: (name, postfix)
+PROTOCOL_EXPRESSIONS = (("A+B-C", "AB+C-"), ("A-B*C", "ABC*-"))
+
+#: the step modes of phase 9's in-process flows
+PROTOCOL_MODES = ("split", "scan")
+
+#: e2e_bench in phase 9: the JAX tool's geometry, one lane at width 32
+E2E_WIDTH, E2E_BATCH = 32, 1
+
+#: the spans each role of a flow must have recorded
+CLOUD_SPANS = ("job_receive", "data_request", "compute_chain", "answer_ship")
+OUTPUT_SPANS = ("user_input_processing", "answer_wait", "verify")
+
+
+def protocol_values(width, seed=31):
+    """Phase 9's operands, 8 lanes an expression: {name: {letter:
+    values}}.  ``A + B - C`` over every sign combination of A, B and C;
+    ``A - B * C`` with A of both signs against B and C of signs (+, +),
+    (+, -), (-, +), (+, +): a product of two negatives (code 4) reads as
+    negative inside a chain, in both packages."""
+    rng = np.random.RandomState(seed)
+    signs = {
+        "A+B-C": list(itertools.product((1, -1), repeat=3)),
+        "A-B*C": [(sa, sb, sc) for sa in (1, -1)
+                  for sb, sc in ((1, 1), (1, -1), (-1, 1), (1, 1))],
+    }
+    lim = {"A+B-C": 1 << (width - 3), "A-B*C": 1 << (width - 1)}
+    return {name: {letter: [sgn[k] * int(rng.randint(1, lim[name]))
+                            for sgn in lanes]
+                   for k, letter in enumerate("ABC")}
+            for name, lanes in signs.items()}
+
+
+def span_seconds(spans, names):
+    """{span name: seconds summed over ``spans``}, each of ``names`` at
+    least once."""
+    got = {}
+    for sp in spans:
+        got[sp["name"]] = got.get(sp["name"], 0.0) + sp["seconds"]
+    missing = [n for n in names if n not in got]
+    if missing:
+        raise AssertionError(f"spans {missing} missing: {sorted(got)}")
+    return {n: got[n] for n in names}
+
+
+def protocol_flow(pair, p, postfix, values, width, mode, device):
+    """Phase 9: one six-role flow in process (``mp/sim.py``: SAE key
+    fan-out, BER job, operand pulls, the Cloud on ``device``, Output's
+    decryption) under ``mode``, launch counts set to 0 just before and
+    read just after: the mode's kernels and no other; every lane
+    decrypted to the Python result.  Returns a record: the flow's and the
+    key plane's seconds, the Cloud's and the Output's spans, launches."""
+    reset_launches()
+    with step_mode(mode):
+        t0 = time.perf_counter()
+        res = sim.run_full_flow(postfix, values, width, p, pair=pair,
+                                device=device)
+        secs = time.perf_counter() - t0
+    launches = read_launches()
+    check_mode_launches(mode, launches, device)
+    want = e2e_bench.expected(postfix, values)
+    if res.values != want:
+        raise AssertionError(f"{postfix} under {mode} decrypted "
+                             f"{res.values}, want {want}")
+    return {"seconds": secs, "key_exchange_s": res.key_exchange_s,
+            "cloud": span_seconds(res.cloud_spans, CLOUD_SPANS),
+            "output": span_seconds(res.output_spans, OUTPUT_SPANS),
+            "launches": launches}
+
+
+def protocol_flows(pair, p, device, width=16, modes=PROTOCOL_MODES):
+    """Phase 9's in-process flows: each expression under each mode.
+    Returns {(mode, name): record}."""
+    values = protocol_values(width)
+    return {(mode, name): protocol_flow(pair, p, postfix, values[name],
+                                        width, mode, device)
+            for mode in modes for name, postfix in PROTOCOL_EXPRESSIONS}
+
+
+def e2e_replica(pair, p, device, mode="scan", width=E2E_WIDTH,
+                batch=E2E_BATCH):
+    """Phase 9: e2e_bench's expressions and operands (one lane at width
+    32) through the in-process flow under ``mode``, counted like
+    :func:`protocol_flow`.  A wave's lanes, and so the batches of the
+    kernel calls, do not depend on the step mode: recorded here, they
+    are the batches of the Cloud process's calls in e2e_bench, which
+    this process cannot record.  Returns {postfix: record}."""
+    vals = e2e_bench.operand_values(width, batch)
+    return {postfix: protocol_flow(pair, p, postfix, vals, width, mode,
+                                   device)
+            for _, postfix in PROTOCOL_EXPRESSIONS}
+
+
+def ensure_e2e_keycache(pair, p, keycache):
+    """The keysets e2e_bench's keygen role loads from ``keycache``
+    (``serve --keycache``: ``<name>_.iek``, ``<name>_nbit.iek``), written
+    from ``pair`` where absent; ``pair`` is the host keygen's, array for
+    array (the keygen phase)."""
+    os.makedirs(keycache, exist_ok=True)
+    for tag, ks in (("", pair.main), ("nbit", pair.nbit)):
+        path = os.path.join(keycache, f"{p.name}_{tag}.iek")
+        if not os.path.exists(path):
+            files.save_secret_keyset(path, ks)
+
+
+def e2e_line(p, device, keycache, mode="split", width=E2E_WIDTH,
+             batch=E2E_BATCH, logdir=e2e_bench.LOGDIR, pallas="1"):
+    """Phase 9: ``e2e_bench.run`` with the Cloud process on ``device``
+    under ``mode`` and ``IEACHE_PALLAS=pallas`` (under 1, a step that
+    does not reach a kernel raises there; None leaves it unset, for the
+    CPU's twins), the expressions of
+    :data:`PROTOCOL_EXPRESSIONS` cold and warm at width 32, one lane:
+    every ``decrypt_ok`` true, and the Cloud process's launches (its
+    spans carry them) the mode's kernels and no other.  Returns the
+    tool's record."""
+    with step_mode(mode):
+        rec = e2e_bench.run(p.name, batch, width,
+                            [pf for _, pf in PROTOCOL_EXPRESSIONS], device,
+                            timeout=900, keycache=keycache, logdir=logdir,
+                            cloud_env={"IEACHE_PALLAS": pallas}
+                            if pallas else None)
+    if rec["decrypt_errors"] or not all(r["decrypt_ok"] for r in rec["runs"]):
+        raise AssertionError(f"e2e_bench: {rec['runs']}")
+    launches = {name: rec["cloud_launches"].get(name, 0)
+                for name, _, _ in KERNELS}
+    check_mode_launches(mode, launches, torch.device(device))
+    span_seconds(rec["cloud_spans"], CLOUD_SPANS)
+    span_seconds(rec["output_spans"], OUTPUT_SPANS)
+    return rec
+
+
+def protocol_phase(pair, p, device, seen, errs, launches):
+    """Phase 9, the protocol: the six-role flow in process under each of
+    :data:`PROTOCOL_MODES` (counted from 0 per flow), e2e_bench's shapes
+    in process, then e2e_bench's OS processes with the Cloud on
+    ``device``; the batches of the in-process flows recorded, and split's
+    and scan's kernels held to their twins at each that ``seen`` (phase
+    8's record) lacks.  Adds the launches to ``launches`` and the
+    largest errors to ``errs``."""
+    t9 = time.perf_counter()
+    with recording_batches() as seen9:
+        for (mode, name), r in protocol_flows(pair, p, device).items():
+            log(f"phase 9 {name} width 16 B=8 {mode} in process: every "
+                f"lane right, {r['seconds']:.3f} s the flow (key plane "
+                f"{r['key_exchange_s']:.3f} s); Cloud spans "
+                + json.dumps({k: round(v, 4) for k, v in r["cloud"].items()})
+                + "; Output spans "
+                + json.dumps({k: round(v, 4) for k, v in r["output"].items()})
+                + f"; launches { {k: r['launches'][k] for k in MODES[mode]} }"
+                f", others 0")
+            for k in MODES[mode]:
+                launches[k] += r["launches"][k]
+        for postfix, r in e2e_replica(pair, p, device).items():
+            log(f"phase 9 {postfix} width {E2E_WIDTH} B={E2E_BATCH} scan in "
+                f"process (e2e_bench's shapes): every lane right, "
+                f"{r['seconds']:.3f} s the flow, compute_chain "
+                f"{r['cloud']['compute_chain']:.3f} s")
+            for k in MODES["scan"]:
+                launches[k] += r["launches"][k]
+    keycache = os.path.join(ROOT, ".keycache")
+    ensure_e2e_keycache(pair, p, keycache)
+    e2e = e2e_line(p, device, keycache)
+    log("phase 9 e2e_bench: " + json.dumps(e2e))
+    for k, n in e2e["cloud_launches"].items():
+        launches[k] += n
+    t0 = time.perf_counter()
+    every = set().union(*seen9.values())
+    fresh = {name: every - seen.get(name, set())
+             for name in ("rot_diff_decompose", "external_product",
+                          "blind_rotate_scan")}
+    for name, err in check_wave_kernels(p, device, fresh).items():
+        errs[name] = max(errs[name], err)
+    log(f"phase 9 waves: split's and scan's kernels equal to their twins "
+        f"at every batch phase 9 called a kernel with, "
+        f"B={'/'.join(map(str, sorted(every)))} (those phase 8 had not: "
+        + json.dumps({k: sorted(v) for k, v in fresh.items()})
+        + f"), {time.perf_counter() - t0:.1f} s")
+    log(f"phase 9 protocol: {time.perf_counter() - t9:.1f} s")
+
+
 def bound_ms(tensors, ops, op_type):
     """The least ms the card could take for a call: the bytes of
     ``tensors`` (each input read once, each output written once) over
@@ -1693,6 +1898,9 @@ def main() -> int:
             f"B={'/'.join(map(str, sorted(batches)))}")
     log(f"phase 8 waves: {time.perf_counter() - t0:.1f} s")
     log(f"phase 8 evaluator: {time.perf_counter() - t8:.1f} s")
+
+    # phase 9: the protocol, this slice's main path
+    protocol_phase(pair, p, device, seen, errs, launches)
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

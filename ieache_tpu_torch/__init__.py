@@ -15,6 +15,9 @@ arithmetic is exact mod 2^32).
   (:mod:`ieache_tpu_torch.ops.blind_rotate`);
 * :mod:`ieache_tpu_torch.tools` holds the measurement tools, each run
   with ``python -m``;
+* :mod:`ieache_tpu_torch.mp` and :mod:`ieache_tpu_torch.cli` are the
+  six-role protocol and its CLI (``python -m ieache_tpu_torch.cli.main``),
+  with the Cloud's evaluation on the device it is given;
 * the host modules are the port's own copies, each pinned to its
   original by a CPU test and re-exported here: :mod:`.params`,
   :mod:`.utils.prng`, :mod:`.lwe.types`, :mod:`.lwe.keygen` and

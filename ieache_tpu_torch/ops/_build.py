@@ -20,6 +20,7 @@ import glob
 import os
 import shutil
 import subprocess
+import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -97,9 +98,19 @@ def build() -> str:
     return LIB_PATH
 
 
-@functools.cache
+_lock = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
+    """The loaded kernel library, built first if needed: one build,
+    whichever thread asks first (the Cloud role launches from its
+    listener threads)."""
+    with _lock:
+        return _load()
+
+
+@functools.cache
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     # the rotations' launch shapes come last but for the stream: split's

@@ -1387,3 +1387,15 @@ def mm_bf16(a: torch.Tensor, b: torch.Tensor, g: int = 1) -> torch.Tensor:
 
 
 mm_bf16.launches = 0
+
+
+#: every wrapper that counts its launches
+WRAPPERS = ("rot_diff_decompose", "external_product", "cmux_step",
+            "cmux_step_overlap", "blind_rotate_scan", "rot_diff_decompose_tr",
+            "external_product_tr", "rotate_lane", "rotate_sublane", "mm_s8",
+            "mm_bf16")
+
+
+def launch_counts() -> dict:
+    """{wrapper: its launches so far} for each of :data:`WRAPPERS`."""
+    return {name: globals()[name].launches for name in WRAPPERS}

@@ -2,7 +2,8 @@
 evaluator's and the gate batch's (:mod:`~ieache_tpu_torch.tools.bench`,
 :mod:`~ieache_tpu_torch.tools.margin_probe`,
 :mod:`~ieache_tpu_torch.tools.width_bench`,
-:mod:`~ieache_tpu_torch.tools.expr_bench`) and the kernels' and the
+:mod:`~ieache_tpu_torch.tools.expr_bench`), the protocol's end to end
+(:mod:`~ieache_tpu_torch.tools.e2e_bench`) and the kernels' and the
 blind rotation's (:mod:`~ieache_tpu_torch.tools.step_bench`,
 :mod:`~ieache_tpu_torch.tools.tile_bench`,
 :mod:`~ieache_tpu_torch.tools.profile_gate`,

@@ -15,6 +15,7 @@ import torch
 
 from ieache_tpu_torch import params as P
 from ieache_tpu_torch.ops.blind_rotate import step_mode
+from ieache_tpu_torch.utils.trace import sync  # noqa: F401  (the tools' fence)
 
 #: the full-size parameter sets the tools take by name (``*_PARAMS``)
 PARAMS = {"ieache_110": P.IEACHE_110, "ieache_110_l2": P.IEACHE_110_FAST}
@@ -27,13 +28,6 @@ def require_cuda(what: str) -> torch.device:
         raise SystemExit(f"{what}: no CUDA device; this run needs one and "
                          f"does not fall back to the CPU")
     return torch.device("cuda", torch.cuda.current_device())
-
-
-def sync(device) -> None:
-    """Wait for the work queued on ``device`` (nothing to wait for on
-    the CPU)."""
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def line_fields(device) -> dict:

@@ -394,3 +394,46 @@ def test_evaluator_phase_passes_on_cpu_twins():
     assert [t for t, _ in lines] == ["bench", "margin_probe", "width_bench",
                                      "width_bench", "expr_bench"]
     assert all(rec["backend"] == "torch" for _, rec in lines)
+
+
+def test_protocol_phase_passes_on_cpu_twins(tmp_path):
+    """Phase 9 rehearsed at TEST_TINY: the in-process flows under split
+    and scan on 6-bit operands (every lane right, the Cloud's and the
+    Output's spans, nothing launched on the CPU), e2e_bench's shapes at
+    8 bits, the keysets written for e2e_bench's keygen role, e2e_bench's
+    OS processes with every decrypt_ok, and each kernel against its twin
+    at every batch the flows called it with.  Under IEACHE_PALLAS=1 the
+    Cloud process's kernels cannot run on the CPU: the job fails, and
+    the failure reaches this process."""
+    cs = _chip_smoke()
+    dev = torch.device("cpu")
+    p = P.TEST_TINY
+    pair = keygen_device.generate_gate_keypair_device(p, dev)
+    with cs.recording_batches() as seen:
+        flows = cs.protocol_flows(pair, p, dev, width=6)
+        replica = cs.e2e_replica(pair, p, dev, width=8, batch=1)
+    assert set(flows) == {(m, n) for m in cs.PROTOCOL_MODES
+                          for n, _ in cs.PROTOCOL_EXPRESSIONS}
+    for rec in [*flows.values(), *replica.values()]:
+        assert set(rec["cloud"]) == set(cs.CLOUD_SPANS)
+        assert set(rec["output"]) == set(cs.OUTPUT_SPANS)
+        assert not any(rec["launches"].values())
+        assert 0 < rec["key_exchange_s"] < rec["seconds"]
+    every = set().union(*seen.values())
+    assert {1, 8} <= every
+    assert cs.check_wave_kernels(p, dev, {
+        name: every for name in ("rot_diff_decompose", "external_product",
+                                 "blind_rotate_scan")}) == {
+        name: 0 for name in ("rot_diff_decompose", "external_product",
+                             "blind_rotate_scan")}
+    keycache = str(tmp_path / "keycache")
+    cs.ensure_e2e_keycache(pair, p, keycache)
+    assert sorted(os.listdir(keycache)) == [f"{p.name}_.iek",
+                                            f"{p.name}_nbit.iek"]
+    rec = cs.e2e_line(p, dev, keycache, width=8, batch=1,
+                      logdir=str(tmp_path / "logs"), pallas=None)
+    assert [r["decrypt_ok"] for r in rec["runs"]] == [True] * 4
+    assert rec["cloud_launches"] == {}
+    with pytest.raises(RuntimeError, match="IEACHE_PALLAS=1"):
+        cs.e2e_line(p, dev, keycache, width=8, batch=1,
+                    logdir=str(tmp_path / "logs1"))

@@ -32,11 +32,7 @@ pytestmark = pytest.mark.gpu
 
 PARAMS = [P.TEST_TINY, P.TEST_SMALL_NOISY, P.IEACHE_110_FAST]
 
-WRAPPERS = {name: getattr(kernels, name) for name in (
-    "rot_diff_decompose", "external_product", "cmux_step",
-    "cmux_step_overlap", "blind_rotate_scan", "rot_diff_decompose_tr",
-    "external_product_tr", "rotate_lane", "rotate_sublane", "mm_s8",
-    "mm_bf16")}
+WRAPPERS = {name: getattr(kernels, name) for name in kernels.WRAPPERS}
 
 #: mm_bf16 against a float64 product, relative to its largest |o|
 MM_BF16_RTOL = 1e-2
@@ -993,3 +989,96 @@ def test_chain_memory_analysis_on_the_card(cuda):
     assert on_cpu["temp_size_in_bytes"] == -1
     assert on_card["output_size_in_bytes"] == result.numel() * 4 \
         == 3 * 12 * (p.n + 1) * 4
+
+
+# ---------------------------------------------------------------------------
+# the protocol: the six-role flow and the CLI with the Cloud on the card
+# ---------------------------------------------------------------------------
+
+#: A + B - C through the in-process flow: params, width, client values
+FLOW_CASE = (P.TEST_SMALL_NOISY, 6, {"A": [30, -7, 12, 1], "B": [12, 20, -9, 2],
+                                     "C": [50, 3, 4, -30]})
+
+
+def _flow_blobs(device):
+    """``A + B - C`` through ``mp/sim.py`` with the clients and the Cloud
+    on ``device`` under IEACHE_DETERMINISTIC=1: (the lanes, every operand
+    and answer blob in the order the flow wrote them)."""
+    from ieache_tpu_torch.mp import sim, wire
+
+    p, width, values = FLOW_CASE
+    blobs = []
+    real = wire.operand_to_bytes
+
+    def recording(*args):
+        blob = real(*args)
+        blobs.append(blob)
+        return blob
+
+    wire.operand_to_bytes = recording
+    try:
+        with _env("IEACHE_DETERMINISTIC", "1"), _step_mode("split"):
+            res = sim.run_full_flow("AB+C-", values, width, p,
+                                    pair=keygen.generate_gate_keypair(p),
+                                    device=device)
+    finally:
+        wire.operand_to_bytes = real
+    return res, blobs
+
+
+def test_protocol_flow_on_the_card_matches_the_cpu(cuda):
+    """The six-role flow with the clients and the Cloud on the card: the
+    lanes right, split's kernels launched (the Cloud's spans carry them),
+    and every operand blob and the answer blob byte for byte those of
+    the same flow on the CPU."""
+    counts = [w.launches for w in WRAPPERS.values()]
+    res, blobs = _flow_blobs(cuda)
+    assert _launched(counts) == set(MODES["split"])
+    (chain,) = [s for s in res.cloud_spans if s["name"] == "compute_chain"]
+    assert set(chain["launches"]) == set(MODES["split"])
+    ref, ref_blobs = _flow_blobs(torch.device("cpu"))
+    values = FLOW_CASE[2]
+    assert res.values == ref.values == [
+        a + b - c for a, b, c in zip(values["A"], values["B"], values["C"])]
+    assert len(blobs) == len(ref_blobs) == 4
+    assert blobs == ref_blobs
+
+
+def test_cli_cloud_on_the_card_reads_files_made_on_the_cpu(cuda, tmp_path):
+    """keygen, fixtures and encrypt on the CPU; ``cloud --device cuda``
+    evaluates them on the card into an answer file byte for byte that of
+    ``cloud --device cpu`` (IEACHE_DETERMINISTIC=1), and verify reads
+    it."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, IEACHE_DETERMINISTIC="1",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    d = str(tmp_path)
+
+    def cli(*args):
+        r = subprocess.run(
+            [sys.executable, "-m", "ieache_tpu_torch.cli.main", *args],
+            cwd=d, env=env, capture_output=True, text=True, timeout=600)
+        assert r.returncode == 0, r.stdout + r.stderr
+        return r.stdout
+
+    cli("keygen", "--params", "test_tiny", "--out", d)
+    for name, value in (("a", 1000), ("b", -234)):
+        cli("fixtures", "--width", "32", "--value", str(value),
+            "--out", os.path.join(d, f"{name}.txt"))
+        cli("encrypt", "--keys", d, "--values", os.path.join(d, f"{name}.txt"),
+            "--out", os.path.join(d, f"{name}.data"), "--seed", "7",
+            "--device", "cpu")
+    answers = {}
+    for device in ("cuda", "cpu"):
+        out = os.path.join(d, f"answer_{device}.data")
+        cli("cloud", os.path.join(d, "a.data"), os.path.join(d, "b.data"),
+            "--keys", d, "--op", "2", "--out", out, "--device", device)
+        with open(out, "rb") as f:
+            answers[device] = f.read()
+    assert answers["cuda"] == answers["cpu"]
+    got = cli("verify", "--keys", d, "--answer",
+              os.path.join(d, "answer_cuda.data"), "--op", "2")
+    assert "Answer: 1234" in got

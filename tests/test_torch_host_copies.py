@@ -309,6 +309,20 @@ _SEALED = textwrap.dedent("""
     ans, _ = cloud.compute_chain([ev.OP_ADD, ev.OP_SUB], ops)
     got = ev.decrypt_answer(pair.main, pair.nbit, ans, ev.OP_SUB)
     assert got == [3 + 5 + 4, -2 + 2 - 6], got
+    protocol = ("codec.ber", "codec.schema", "codec.asn_schema", "utils.log",
+                "utils.trace", "native.lib", "mp.config", "mp.keywrap",
+                "mp.liveness", "mp.supervisor", "mp.dragonfly",
+                "mp.transport", "mp.wire", "mp.scheduler", "mp.nodes",
+                "mp.sim", "cli.convert", "cli.fixtures", "cli.main",
+                "tools.e2e_bench")
+    assert {"ieache_tpu_torch." + m for m in protocol} <= set(names), names
+    from ieache_tpu_torch.codec import asn_schema
+    from ieache_tpu_torch.mp import dragonfly, sim
+    assert asn_schema.load_module()["DataUserInput"]
+    assert dragonfly._native_ec_mul() is not None  # the port's own build
+    res = sim.run_full_flow("AB+C-", {"A": [3, -2], "B": [5, 2],
+                                      "C": [-4, 6]}, 4, p, device="cpu")
+    assert res.values == [3 + 5 + 4, -2 + 2 - 6], res.values
     assert not any(m.split(".")[0] in REFUSED for m in sys.modules)
     print("SEALED-OK", len(names))
 """)
@@ -316,10 +330,12 @@ _SEALED = textwrap.dedent("""
 
 def test_port_imports_nothing_of_the_jax_package():
     """With ieache_tpu, jax and jaxlib refused by a meta-path hook,
-    every submodule of the port (the evaluator and the tools that drive
-    it among them) and chip_smoke import, and a TEST_TINY device keygen,
-    NAND, 4-bit multiply and ``A + B - C`` through the evaluator run and
-    decrypt right."""
+    every submodule of the port (the evaluator, the tools that drive it,
+    the codec, the native binding, the protocol and the CLI among them)
+    and chip_smoke import, and a TEST_TINY device keygen, NAND, 4-bit
+    multiply, ``A + B - C`` through the evaluator and through the
+    six-role flow (SAE on the port's native scalar multiplication) run
+    and decrypt right."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _SEALED], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
