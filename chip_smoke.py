@@ -143,7 +143,26 @@ prints no result line:
    flows call a kernel is recorded (the lanes of a wave do not depend on
    the step mode, so the width-32 flow's are the Cloud process's), and
    split's and scan's kernels are held to their twins at each that
-   phase 8 did not hold them at.
+   phase 8 did not hold them at;
+10. distribution and the key plane (``dist/``), the slice's own main
+   path, at world size 1 on NCCL (one card gives one rank): this
+   process joins a one-rank group; ``make_sharded_bootstrap`` and
+   ``make_sharded_bootstrap_sp`` on (1, 1) meshes on the phase-5 NAND
+   inputs, each equal to the unsharded ``bootstrap`` with 0 decrypt
+   errors and no kernel launched (the tp and sp steps are plain ops, as
+   in the JAX package); ``A + B - C`` (phase 8's operands) through
+   ``dist/batch.py`` (key replicated, operands sharded, answer
+   gathered) under split, its value word equal to phase 8's, split's
+   kernels launched and no other; a one-stage pipelined chain at pp=1,
+   ``n_micro=2``, equal to ``chain_unpipelined``; the kernels held to
+   their twins at the batches these called them with; then
+   ``dryrun_multichip(1)`` on a rank process of its own (every decrypt
+   assert; each of split, tr and scan launching its kernels), its
+   kernels held to their twins at TEST_TINY and its batches; the lines
+   of ``keyplane_bench`` (its own process; the key plane at λ=110 for 1,
+   2 and 3 clients, the Cloud's key unpacked on the card),
+   ``scaling_bench`` at dp=1 (a rank process: NAND at B=1024, split's
+   kernels) and ``comm_model``.
 
 The next-to-last line is a JSON object with one entry per kernel
 (route, source, the Pallas kernel it replaces, launches in its path,
@@ -159,11 +178,11 @@ in ``.keycache/`` (the JAX package's bench writes the same file).
 
 from __future__ import annotations
 
-import contextlib
 import itertools
 import json
 import os
 import statistics
+import subprocess
 import sys
 import time
 
@@ -175,16 +194,23 @@ from ieache_tpu_torch import params as P
 from ieache_tpu_torch.boot import bootstrap, gates
 from ieache_tpu_torch.circuits import arith, evaluator, fused, words
 from ieache_tpu_torch.core.poly import TORUS_LIMBS
+from ieache_tpu_torch.dist import batch as dbatch
+from ieache_tpu_torch.dist import dryrun, launch
+from ieache_tpu_torch.dist import mesh as dmesh
+from ieache_tpu_torch.dist import pipeline as ppl
+from ieache_tpu_torch.dist import shard as dshard
 from ieache_tpu_torch.lwe import encrypt, keygen_device
 from ieache_tpu_torch.mp import sim
 from ieache_tpu_torch.ops import _build, kernels
 from ieache_tpu_torch.ops.blind_rotate import STEP_MODES, blind_rotate
 from ieache_tpu_torch.tools import (
     bench,
+    comm_model,
     e2e_bench,
     expr_bench,
     margin_probe,
     mosaic_mm_probe,
+    scaling_bench,
     step_bench,
     tile_bench,
     transposed_probe,
@@ -232,15 +258,7 @@ KERNELS = [
 ]
 
 #: the kernels each step mode launches
-MODES = {
-    "split": ("rot_diff_decompose", "external_product"),
-    "fused2": ("cmux_step",),
-    "overlap": ("cmux_step_overlap",),
-    "overlap2": ("cmux_step_overlap",),
-    "scan": ("blind_rotate_scan",),
-    "tr": ("rot_diff_decompose_tr", "external_product_tr"),
-    "ntt": (),
-}
+MODES = kernels.MODE_KERNELS
 
 #: the modes that also run A + B - C in the counted main path
 EXPRESSION_MODES = ("split", "fused2", "scan")
@@ -331,15 +349,6 @@ def step_mode(mode):
     return environ("IEACHE_PALLAS_STEP", mode)
 
 
-def reset_launches():
-    for name in kernels.WRAPPERS:
-        getattr(kernels, name).launches = 0
-
-
-def read_launches():
-    return kernels.launch_counts()
-
-
 def _rand(rng, shape, lo, hi, dtype, device):
     return torch.from_numpy(rng.randint(lo, hi, shape, dtype=np.int64)
                             .astype(dtype)).to(device)
@@ -367,9 +376,10 @@ def bara_cases(rng, p, b, device):
 
 
 def check_kernels(p, device, batches, probe_batches=(PROBE_B, 5, 16),
-                  seed=0):
+                  seed=0, phase="phase 3"):
     """Phase 3: each kernel against its plain twin; returns max abs
-    error per kernel (0 when all equal)."""
+    error per kernel (0 when all equal).  ``phase`` heads the lines it
+    prints."""
     rng = np.random.RandomState(seed)
 
     def rand(shape, lo, hi, dtype):
@@ -423,7 +433,7 @@ def check_kernels(p, device, batches, probe_batches=(PROBE_B, 5, 16),
                  kernels.blind_rotate_scan(acc, bara_n, bk, p),
                  kernels.blind_rotate_scan_plain(acc, bara_n, bk, p),
                  errs, device, f"B={b} steps={p.n}")
-        log(f"phase 3 kernels: B={b} equal (rot amounts "
+        log(f"{phase} kernels: {p.name} B={b} equal (rot amounts "
             f"random/0/1/2/3/N/N+1/2N-1 "
             f"for both rotations, cmux_step, cmux_step_overlap and the tr "
             f"step; both external products with and without acc; scan "
@@ -438,7 +448,7 @@ def check_kernels(p, device, batches, probe_batches=(PROBE_B, 5, 16),
             _compare("rotate_sublane", kernels.rotate_sublane(acc_tr, bara),
                      kernels.rotate_sublane_plain(acc_tr, bara), errs,
                      device, case)
-        log(f"phase 3 probe kernels: B={b} equal (amounts "
+        log(f"{phase} probe kernels: B={b} equal (amounts "
             f"random/0/1/2/3/N/N+1/2N-1)")
     return errs
 
@@ -706,8 +716,9 @@ def encrypt_vs_host(ks, count, device, seed=11):
 
 
 def load_keyset(p):
-    """The secret keyset for ``p``, from .keycache/ or generated (host)."""
-    path = os.path.join(ROOT, ".keycache", f"{p.name}.iek")
+    """The main secret keyset for ``p``, from .keycache/ or generated
+    (host), and the keygen's seconds (0 when cached)."""
+    path = files.cached_keyset_path(os.path.join(ROOT, ".keycache"), p)
     if os.path.exists(path):
         return files.load_secret_keyset(path), 0.0
     t0 = time.perf_counter()
@@ -750,7 +761,7 @@ def routes_vs_plain(key, cx, want, device):
     tensors 1 must raise)."""
     for route in ROUTES:
         for mode in ROUTE_MODES:
-            reset_launches()
+            kernels.reset_launch_counts()
             with step_mode(mode), environ("IEACHE_PALLAS", route):
                 if route == "1" and device.type != "cuda":
                     try:
@@ -760,7 +771,7 @@ def routes_vs_plain(key, cx, want, device):
                     raise AssertionError("IEACHE_PALLAS=1 ran on the CPU")
                 got = bootstrap.bootstrap(cx, key)
             sync(device)
-            launched = {k for k, n in read_launches().items() if n}
+            launched = {k for k, n in kernels.launch_counts().items() if n}
             expected = set(MODES[mode]) if route == "1" else set()
             if not torch.equal(got, want) or launched != expected:
                 raise AssertionError(
@@ -804,11 +815,11 @@ def small_n_vs_plain(p, device, batch=1, seed=4):
         if takes != (mode == "ntt"):
             raise AssertionError(f"kernels_take({mode!r}) at N={p.N}: {takes}")
         for route in ("auto", "interpret"):
-            reset_launches()
+            kernels.reset_launch_counts()
             with step_mode(mode), environ("IEACHE_PALLAS", route):
                 got = blind_rotate(acc0, bara, bk, p)
             sync(device)
-            launched = {k for k, n in read_launches().items() if n}
+            launched = {k for k, n in kernels.launch_counts().items() if n}
             expected = set(MODES[mode]) if (
                 takes and route == "auto" and device.type == "cuda") else set()
             if not torch.equal(got, want) or launched != expected:
@@ -914,10 +925,10 @@ def run_mode(ks, key, mode, nand_in, expr_in, mul_in, device):
     (name, multiply inputs, latency).  Returns (decrypt_errors, NAND
     seconds, {expression name: seconds}, launches of the NAND alone,
     launches of the whole run)."""
-    reset_launches()
+    kernels.reset_launch_counts()
     with step_mode(mode):
         errors, nand_s = run_nand(ks, key, nand_in, device)
-        nand_launches = read_launches()
+        nand_launches = kernels.launch_counts()
         runs = []
         if mode in EXPRESSION_MODES:
             runs = [("A+B-C", lambda: run_expression(ks, key, expr_in,
@@ -932,7 +943,7 @@ def run_mode(ks, key, mode, nand_in, expr_in, mul_in, device):
             if got != want:
                 raise AssertionError(f"{name} under {mode} decrypted "
                                      f"wrong: got {got}, want {want}")
-    launches = read_launches()
+    launches = kernels.launch_counts()
     if errors:
         raise AssertionError(f"NAND under {mode}: decrypt_errors={errors}")
     check_mode_launches(mode, launches, device)
@@ -1053,12 +1064,12 @@ def evaluator_modes(pair, key, inputs, device, modes=EXPRESSION_MODES):
     launches}); the answer codes of each run must cover 0, 1, 2, 4, 5."""
     recs, launches = {}, {}
     for mode in modes:
-        reset_launches()
+        kernels.reset_launch_counts()
         with step_mode(mode):
             for adder in ADDERS:
                 recs[mode, adder] = run_evaluator(pair, key, inputs, adder,
                                                   device)
-        launches[mode] = read_launches()
+        launches[mode] = kernels.launch_counts()
         check_mode_launches(mode, launches[mode], device)
         for adder in ADDERS:
             codes = set().union(*(r["codes"] for r in
@@ -1080,11 +1091,11 @@ def evaluator_vs_plain(pair, key, device, width=6):
     with step_mode("split"):
         kernel_recs = run_evaluator(pair, key, inputs, "kogge_stone", device,
                                     names=names)
-        reset_launches()
+        kernels.reset_launch_counts()
         with environ("IEACHE_PALLAS", "0"):
             recs = run_evaluator(pair, key, inputs, "kogge_stone", device,
                                  names=names)
-        launches = read_launches()
+        launches = kernels.launch_counts()
     if any(launches.values()):
         raise AssertionError(f"IEACHE_PALLAS=0 launched {launches}")
     for name, rec in recs.items():
@@ -1094,55 +1105,11 @@ def evaluator_vs_plain(pair, key, device, width=6):
     return {name: (kernel_recs[name], recs[name]) for name in names}
 
 
-#: the kernels of the evaluator's modes, and where a call's batch lies:
-#: (argument, axis)
-WAVE_KERNELS = {"rot_diff_decompose": (1, 0), "external_product": (0, 1),
-                "cmux_step": (1, 0), "blind_rotate_scan": (1, 0)}
-
-
-class _BatchRecorder:
-    """Stands in for a kernel's wrapper in ``kernels``: adds the batch of
-    each call to ``seen``, then calls the wrapper, whose ``launches`` it
-    reads and sets."""
-
-    def __init__(self, wrapper, arg, axis, seen):
-        self.wrapper, self.arg, self.axis, self.seen = wrapper, arg, axis, seen
-
-    def __call__(self, *args, **kwargs):
-        self.seen.add(args[self.arg].shape[self.axis])
-        return self.wrapper(*args, **kwargs)
-
-    @property
-    def launches(self):
-        return self.wrapper.launches
-
-    @launches.setter
-    def launches(self, n):
-        self.wrapper.launches = n
-
-
-@contextlib.contextmanager
-def recording_batches():
-    """Within the block, every batch at which a kernel of
-    ``WAVE_KERNELS`` is called (the lanes of one bootstrap wave): yields
-    {kernel: set of batches}."""
-    wrappers = {name: getattr(kernels, name) for name in WAVE_KERNELS}
-    seen = {name: set() for name in WAVE_KERNELS}
-    try:
-        for name, (arg, axis) in WAVE_KERNELS.items():
-            setattr(kernels, name, _BatchRecorder(wrappers[name], arg, axis,
-                                                  seen[name]))
-        yield seen
-    finally:
-        for name, wrapper in wrappers.items():
-            setattr(kernels, name, wrapper)
-
-
 def check_wave_kernels(p, device, seen, seed=29):
-    """Phase 8: each kernel of the evaluator's modes against its plain
-    twin at every batch phase 8 called it with (:func:`recording_batches`):
-    the split rotation and the fused step at the amounts of
-    :func:`bara_cases`, the external product with and without acc, the
+    """Phases 8-10: each step kernel against its plain twin at every
+    batch in ``seen`` (``kernels.recording_batches``, {kernel: batches}):
+    the rotations and the fused steps at the amounts of
+    :func:`bara_cases`, both external products with and without acc, the
     scan over all n steps.  Returns max abs error per kernel."""
     rng = np.random.RandomState(seed)
     bk = _rand(rng, (p.n, p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
@@ -1150,29 +1117,34 @@ def check_wave_kernels(p, device, seen, seed=29):
     bk_i = bk[0]
     errs = {}
     for name, batches in seen.items():
+        wrapper = getattr(kernels, name)
         twin = getattr(kernels, name + "_plain")
+        tr = name.endswith("_tr")                    # (k+1, N, B) layout
         for b in sorted(batches):
             acc = _rand(rng, (p.k + 1, b, p.N), -2**31, 2**31, np.int32,
                         device)
-            if name == "external_product":
+            if tr:
+                acc = acc.transpose(1, 2).contiguous()
+            if name.startswith("external_product"):
                 d = _rand(rng, (p.trgsw_rows, b, p.N), -128, 128, np.int8,
                           device)
+                if tr:
+                    d = d.transpose(1, 2).contiguous()
                 for a in (None, acc):
-                    _compare(name, kernels.external_product(d, bk_i, p, acc=a),
+                    _compare(name, wrapper(d, bk_i, p, acc=a),
                              twin(d, bk_i, p, a), errs, device,
                              f"B={b} acc={a is not None}")
             elif name == "blind_rotate_scan":
                 bara = _rand(rng, (b, p.n), 0, 2 * p.N, np.int32, device)
-                _compare(name, kernels.blind_rotate_scan(acc, bara, bk, p),
+                _compare(name, wrapper(acc, bara, bk, p),
                          twin(acc, bara, bk, p), errs, device,
                          f"B={b} steps={p.n}")
             else:
                 for amount, bara in bara_cases(rng, p, b, device):
-                    args = (acc, bara) if name == "rot_diff_decompose" \
+                    args = (acc, bara) if name.startswith("rot_diff") \
                         else (acc, bara, bk_i)
-                    _compare(name, getattr(kernels, name)(*args, p),
-                             twin(*args, p), errs, device,
-                             f"B={b} bara={amount}")
+                    _compare(name, wrapper(*args, p), twin(*args, p), errs,
+                             device, f"B={b} bara={amount}")
     return errs
 
 
@@ -1292,13 +1264,13 @@ def protocol_flow(pair, p, postfix, values, width, mode, device):
     read just after: the mode's kernels and no other; every lane
     decrypted to the Python result.  Returns a record: the flow's and the
     key plane's seconds, the Cloud's and the Output's spans, launches."""
-    reset_launches()
+    kernels.reset_launch_counts()
     with step_mode(mode):
         t0 = time.perf_counter()
         res = sim.run_full_flow(postfix, values, width, p, pair=pair,
                                 device=device)
         secs = time.perf_counter() - t0
-    launches = read_launches()
+    launches = kernels.launch_counts()
     check_mode_launches(mode, launches, device)
     want = e2e_bench.expected(postfix, values)
     if res.values != want:
@@ -1340,7 +1312,7 @@ def ensure_e2e_keycache(pair, p, keycache):
     array (the keygen phase)."""
     os.makedirs(keycache, exist_ok=True)
     for tag, ks in (("", pair.main), ("nbit", pair.nbit)):
-        path = os.path.join(keycache, f"{p.name}_{tag}.iek")
+        path = files.cached_keyset_path(keycache, p, tag)
         if not os.path.exists(path):
             files.save_secret_keyset(path, ks)
 
@@ -1380,7 +1352,7 @@ def protocol_phase(pair, p, device, seen, errs, launches):
     8's record) lacks.  Adds the launches to ``launches`` and the
     largest errors to ``errs``."""
     t9 = time.perf_counter()
-    with recording_batches() as seen9:
+    with kernels.recording_batches() as seen9:
         for (mode, name), r in protocol_flows(pair, p, device).items():
             log(f"phase 9 {name} width 16 B=8 {mode} in process: every "
                 f"lane right, {r['seconds']:.3f} s the flow (key plane "
@@ -1418,6 +1390,235 @@ def protocol_phase(pair, p, device, seen, errs, launches):
         + json.dumps({k: sorted(v) for k, v in fresh.items()})
         + f"), {time.perf_counter() - t0:.1f} s")
     log(f"phase 9 protocol: {time.perf_counter() - t9:.1f} s")
+
+
+#: phase 10: keyplane_bench's environment (the key plane at λ=110 for
+#: 1, 2 and 3 clients, once each)
+KEYPLANE_ENV = {"KB_PARAMS": "ieache_110_l2", "KB_CLIENTS": "1,2,3",
+                "KB_ITERS": "1"}
+
+
+def _timed(fn, device):
+    """(``fn()``, its seconds to a fence)."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, time.perf_counter() - t0
+
+
+def sharded_bootstraps(ks, key, nand_in, device):
+    """Phase 10: ``make_sharded_bootstrap`` and
+    ``make_sharded_bootstrap_sp`` on (1, 1) meshes of this process's
+    group, on the phase-5 NAND inputs: each equal to the unsharded
+    port's ``bootstrap`` (under split, on the kernels), no wrong lane,
+    and no kernel launched (the tp and sp steps are plain ops, as in the
+    JAX package).  Each path runs twice, the second call timed (the
+    first creates its groups' NCCL communicators).  Returns {path:
+    (first seconds, second seconds)}."""
+    x, y, cx, cy = nand_in
+    p = key.params
+    pre = -cx - cy
+    pre[:, p.n] += bootstrap.MU
+    with step_mode("split"):
+        want = bootstrap.bootstrap(pre, key)
+    truth = 1 - (x & y)
+    m, m_sp = dmesh.make_mesh(1, tp=1), dshard.make_sp_mesh(1, sp=1)
+    bk, ksl = dshard.shard_cloud_key(key, m)
+    tp_fn = dshard.make_sharded_bootstrap(m, p)
+    sp_fn = dshard.make_sharded_bootstrap_sp(m_sp, p)
+    runs = {"tp": lambda: tp_fn(dshard.shard_batch(pre, m), bk, ksl),
+            "sp": lambda: sp_fn(dshard.shard_batch(pre, m_sp), key.bk,
+                                key.ks_limbs)}
+    secs = {}
+    for name, fn in runs.items():
+        kernels.reset_launch_counts()
+        _, first = _timed(fn, device)
+        got, warm = _timed(fn, device)
+        secs[name] = (first, warm)
+        launched = {k: n for k, n in kernels.launch_counts().items() if n}
+        errors = int((encrypt.decrypt_bits(ks, got) != truth).sum())
+        if launched or errors or not torch.equal(got, want):
+            raise AssertionError(
+                f"{name} (1, 1) bootstrap: equal to the unsharded port "
+                f"{torch.equal(got, want)}, decrypt_errors {errors}, "
+                f"launched {launched}")
+    return secs
+
+
+def dp_evaluator(pair, key, inputs, want_value, device):
+    """Phase 10: ``A + B - C`` (phase 8's 16-bit operands, 8 lanes)
+    under split through ``dist/batch.py`` on a (1, 1) mesh: the key
+    replicated, each operand sharded, the answer gathered; its value
+    word equal to phase 8's, every lane right, split's kernels launched
+    and no other.  Returns (seconds, launches)."""
+    m = dmesh.make_mesh(1, tp=1)
+    (a, b, c), ops = inputs["A+B-C"]
+    kernels.reset_launch_counts()
+    with step_mode("split"):
+        cloud = evaluator.CloudEvaluator(dbatch.replicate_cloud_key(key, m),
+                                         pair.nbit)
+        ans, secs = _timed(lambda: dbatch.gather_operand(cloud.compute_chain(
+            [evaluator.OP_ADD, evaluator.OP_SUB],
+            [dbatch.shard_operand(o, m) for o in ops])[0], m), device)
+    launches = kernels.launch_counts()
+    check_mode_launches("split", launches, device)
+    got = evaluator.decrypt_answer(pair.main, pair.nbit, ans, evaluator.OP_SUB)
+    if not torch.equal(ans.value, want_value) or got != [
+            x + y - z for x, y, z in zip(a, b, c)]:
+        raise AssertionError(f"the dp-sharded A+B-C: value word equal to "
+                             f"phase 8's {torch.equal(ans.value, want_value)}"
+                             f", decrypted {got}")
+    return secs, launches
+
+
+def pipeline_chain(ks, key, device, width=8, batch=8, seed=37):
+    """Phase 10: a one-stage chain (add on even lanes, subtract on odd
+    ones) on a pp=1 mesh, ``n_micro=2``, under split: equal to
+    ``chain_unpipelined`` on the same inputs, every lane right, split's
+    kernels launched and no other (by both).  Returns (seconds,
+    launches)."""
+    p = key.params
+    rng = np.random.RandomState(seed)
+    vals = [rng.randint(0, 1 << (width - 1), batch).tolist()
+            for _ in range(2)]
+    stream = prng.key_from_seed_words([seed, width])
+    flow0, y = (words.encrypt_word(ks, v, width, prng.derive(stream, i),
+                                   device) for i, v in enumerate(vals))
+    comps = (torch.arange(batch, device=device) % 2).to(torch.int32)[None]
+    chain = ppl.make_pipelined_chain(ppl.make_pp_mesh(1), p, n_micro=2)
+    kernels.reset_launch_counts()
+    with step_mode("split"):
+        got, secs = _timed(lambda: chain(flow0, y[None], comps, key.bk,
+                                         key.ks_limbs), device)
+        want = ppl.chain_unpipelined(flow0, y[None], comps, key.bk,
+                                     key.ks_limbs, p)
+    launches = kernels.launch_counts()
+    check_mode_launches("split", launches, device)
+    expect = [(a - b if lane % 2 else a + b) % (1 << width)
+              for lane, (a, b) in enumerate(zip(*vals))]
+    if not torch.equal(got, want) or words.decrypt_word(ks, got) != expect:
+        raise AssertionError("the pp=1 chain differs from chain_unpipelined "
+                             "or decrypts wrong")
+    return secs, launches
+
+
+def dryrun_line(device):
+    """Phase 10: ``dryrun_multichip(1)`` on ``device`` (a rank process
+    of its own); under split, tr and scan its bootstrap must launch that
+    mode's kernels and no other (the rank raises otherwise), under ntt
+    none, and every kernel it launched must have its batches recorded.
+    Returns ({mode: launches}, {kernel: batches of its calls},
+    seconds)."""
+    t0 = time.perf_counter()
+    (report,) = dryrun.dryrun_multichip(1, device=device.type)
+    secs = time.perf_counter() - t0
+    batches = {k: set(b) for k, b in report["batches"].items()}
+    for mode, counts in report["launches"].items():
+        if device.type == "cuda" and not (all(counts.values())
+                                          and set(counts) <= set(batches)):
+            raise AssertionError(f"the dry run under {mode}: {counts}, "
+                                 f"batches {report['batches']}")
+    return report["launches"], batches, secs
+
+
+def keyplane_line(timeout=600, env=KEYPLANE_ENV):
+    """Phase 10: ``python -m ieache_tpu_torch.tools.keyplane_bench`` as a
+    process of its own (this one has CUDA up, and the tool spawns its
+    clients), the Cloud on the card: its JSON line, which must name the
+    card and hold every client count."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "ieache_tpu_torch.tools.keyplane_bench"],
+        cwd=ROOT, env=dict(os.environ, **env), capture_output=True,
+        text=True, timeout=timeout)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode or not lines:
+        raise AssertionError(f"keyplane_bench exited {proc.returncode}: "
+                             f"{proc.stderr[-4000:]}")
+    rec = json.loads(lines[-1])
+    if rec["card"] != card_line() or sorted(rec["per_clients"]) != sorted(
+            env["KB_CLIENTS"].split(",")):
+        raise AssertionError(f"keyplane_bench: {rec}")
+    return rec
+
+
+def dist_phase(ks, key, nand_in, pair, ev_in, want_value, device, seen,
+               errs, launches):
+    """Phase 10, distribution and the key plane: this process joins a
+    one-rank NCCL group, runs the (1, 1) sharded bootstraps, the
+    dp-sharded evaluator and the pp=1 chain (their batches recorded, the
+    kernels held to their twins at those phase 8 had not), then the dry
+    run on a rank of its own (its kernels held to their twins at
+    TEST_TINY and the batches the rank recorded), and the lines of keyplane_bench,
+    scaling_bench at dp=1 (the dp-sharded NAND at B=1024 on a rank of
+    its own: split's kernels, and no other) and comm_model.  Adds the launches to
+    ``launches`` and the largest errors to ``errs``."""
+    t10 = time.perf_counter()
+    p = key.params
+    launch.init(0, 1, f"127.0.0.1:{launch.free_port()}", device)
+    try:
+        secs = sharded_bootstraps(ks, key, nand_in, device)
+        log(f"phase 10 sharded bootstraps B={len(nand_in[0])} {p.name} "
+            f"(plain steps; first call, second call): tp (1, 1) "
+            f"{secs['tp'][0]:.3f}, {secs['tp'][1]:.3f} s; sp (1, 1) "
+            f"{secs['sp'][0]:.3f}, {secs['sp'][1]:.3f} s; each equal to the "
+            f"unsharded port's bootstrap, decrypt_errors 0, no kernel "
+            f"launched")
+        with kernels.recording_batches() as seen10:
+            ev_s, counts = dp_evaluator(pair, key, ev_in, want_value, device)
+            log(f"phase 10 dp-sharded A+B-C width 16 B=8 split: value word "
+                f"equal to phase 8's, every lane right, {ev_s:.3f} s; "
+                f"launches { {k: counts[k] for k in MODES['split']} }, "
+                f"others 0")
+            for k in MODES["split"]:
+                launches[k] += counts[k]
+            pp_s, counts = pipeline_chain(ks, key, device)
+            log(f"phase 10 pp=1 chain (add/sub per lane, width 8 B=8, "
+                f"n_micro=2) split: equal to chain_unpipelined, every lane "
+                f"right, {pp_s:.3f} s; launches "
+                f"{ {k: counts[k] for k in MODES['split']} }, others 0")
+            for k in MODES["split"]:
+                launches[k] += counts[k]
+    finally:
+        torch.distributed.destroy_process_group()
+    every = set().union(*seen10.values())
+    fresh = {name: every - seen.get(name, set())
+             for name in ("rot_diff_decompose", "external_product")}
+    for name, err in check_wave_kernels(p, device, fresh).items():
+        errs[name] = max(errs[name], err)
+    log(f"phase 10 waves: split's kernels equal to their twins at every "
+        f"batch phase 10 called them with, B="
+        f"{'/'.join(map(str, sorted(every)))} (those phase 8 had not: "
+        + json.dumps({k: sorted(v) for k, v in fresh.items()}) + ")")
+
+    by_mode, dry_seen, dry_s = dryrun_line(device)
+    log(f"phase 10 dryrun_multichip(1) on {device.type}: every decrypt "
+        f"assert held, {dry_s:.1f} s (a rank process of its own); launches "
+        + json.dumps(by_mode))
+    for counts in by_mode.values():
+        for k, n in counts.items():
+            launches[k] += n
+    for name, err in check_wave_kernels(P.TEST_TINY, device,
+                                        dry_seen).items():
+        errs[name] = max(errs.get(name, 0), err)
+    log("phase 10 dry run waves: each kernel equal to its plain twin at "
+        "every batch the dry run's rank called it with, "
+        + json.dumps({k: sorted(v) for k, v in dry_seen.items()}))
+
+    t0 = time.perf_counter()
+    log("phase 10 keyplane_bench: " + json.dumps(keyplane_line()))
+    log(f"phase 10 keyplane_bench: {time.perf_counter() - t0:.1f} s (the "
+        f"tool's process included)")
+    line, summary = scaling_bench.run(p, 1024, 3, 1, device)
+    if line["errors"] or (device.type == "cuda"
+                          and set(line["launches"]) != set(MODES["split"])):
+        raise AssertionError(f"scaling_bench: {line}")
+    for k, n in line["launches"].items():
+        launches[k] += n
+    log("phase 10 scaling_bench: " + json.dumps(line))
+    log("phase 10 scaling_bench: " + json.dumps(summary))
+    log("phase 10 comm_model: " + json.dumps(comm_model.run()))
+    log(f"phase 10 distribution: {time.perf_counter() - t10:.1f} s")
 
 
 def bound_ms(tensors, ops, op_type):
@@ -1653,9 +1854,9 @@ def run_probe(device, b=PROBE_B, steps=200, iters=8):
     """Phase 7: the rotation probe, its own path: launch counts set to 0
     just before and read just after; both probe kernels must have
     launched, and no other.  Returns (the probe's record, launches)."""
-    reset_launches()
+    kernels.reset_launch_counts()
     rec = transposed_probe.run(b, steps, iters, device)
-    launches = read_launches()
+    launches = kernels.launch_counts()
     probe = ("rotate_lane", "rotate_sublane")
     if (not rec["checksums_match"] or not all(launches[k] for k in probe)
             or any(n for k, n in launches.items() if k not in probe)):
@@ -1668,9 +1869,9 @@ def run_mm_probe(device, case=MM_CASES[0]):
     just before and read just after; both mm kernels must have launched,
     and no other.  Returns (the probe's record, launches)."""
     m, k, n, g = case
-    reset_launches()
+    kernels.reset_launch_counts()
     rec = mosaic_mm_probe.run(m, k, n, g, "both", device)
-    launches = read_launches()
+    launches = kernels.launch_counts()
     probe = ("mm_s8", "mm_bf16")
     if (not all(launches[name] for name in probe)
             or any(c for name, c in launches.items() if name not in probe)):
@@ -1742,11 +1943,11 @@ def main() -> int:
     # phase 4: whole bootstrap under each mode and each IEACHE_PALLAS
     # route against the plain path; the compat gadget's rotation (no
     # kernel) against plain=True
-    reset_launches()
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     want = bootstrap_vs_plain(key, nand_in[2], device)
     unlaunched = [k for m in MODES for k in MODES[m]
-                  if not read_launches()[k]]
+                  if not kernels.launch_counts()[k]]
     if unlaunched:
         raise AssertionError(f"phase 4 left kernels unlaunched: {unlaunched}")
     log(f"phase 4 bootstrap B={batch}: {', '.join(MODES)} each equal to "
@@ -1764,7 +1965,7 @@ def main() -> int:
         f"plain=True; no kernel launched; IEACHE_PALLAS=1 raises")
 
     # phases 5 and 6: the main path under each mode, counted from 0
-    launches = dict.fromkeys(read_launches(), 0)
+    launches = dict.fromkeys(kernels.launch_counts(), 0)
     nand_launches = dict(launches)
     for mode in MODES:
         errors, nand_s, expr_s, nand_counts, counts = run_mode(
@@ -1864,7 +2065,7 @@ def main() -> int:
     t8 = time.perf_counter()
     pair = keygen_device.generate_gate_keypair_device(p, device)
     ev_in = evaluator_inputs(pair, 16, device)
-    with recording_batches() as seen:
+    with kernels.recording_batches() as seen:
         ev_recs, ev_launches = evaluator_modes(pair, key, ev_in, device)
         for (mode, adder), recs in ev_recs.items():
             for name, r in recs.items():
@@ -1892,15 +2093,20 @@ def main() -> int:
     t0 = time.perf_counter()
     for name, err in check_wave_kernels(p, device, seen).items():
         errs[name] = max(errs[name], err)
-    for name, batches in seen.items():
+    for name, batches in ((k, b) for k, b in seen.items() if b):
         log(f"phase 8 waves: {name} equal to its plain twin at every "
             f"batch phase 8 called it with, "
             f"B={'/'.join(map(str, sorted(batches)))}")
     log(f"phase 8 waves: {time.perf_counter() - t0:.1f} s")
     log(f"phase 8 evaluator: {time.perf_counter() - t8:.1f} s")
 
-    # phase 9: the protocol, this slice's main path
+    # phase 9: the protocol
     protocol_phase(pair, p, device, seen, errs, launches)
+
+    # phase 10: distribution and the key plane, this slice's main path
+    dist_phase(ks, key, nand_in, pair, ev_in,
+               ev_recs["split", "ripple"]["A+B-C"]["value"], device, seen,
+               errs, launches)
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

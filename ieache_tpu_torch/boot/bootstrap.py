@@ -124,6 +124,19 @@ def sample_extract(acc: torch.Tensor, params: TFHEParams) -> torch.Tensor:
     return torch.cat(parts, dim=-1).to(torch.int32)
 
 
+def initial_accumulator(lwe: torch.Tensor, params: TFHEParams,
+                        mu: int = MU) -> tuple:
+    """(B, n+1) -> the blind rotation's inputs: the rotated test vector
+    as accumulator (B, k+1, N) int32 and the mod-switched mask (B, n)."""
+    p = params
+    bara = mod_switch_2n(lwe[:, :p.n], p)                      # (B, n)
+    barb = mod_switch_2n(lwe[:, p.n], p)                       # (B,)
+    acc0 = torch.zeros((lwe.shape[0], p.k + 1, p.N), dtype=torch.int32,
+                       device=lwe.device)
+    acc0[:, p.k, :] = _rotated_test_vector(barb, mu, p)
+    return acc0, bara
+
+
 def bootstrap_no_ks(lwe: torch.Tensor, key: DeviceCloudKey, mu: int = MU,
                     plain: bool = False) -> torch.Tensor:
     """(B, n+1) -> (B, kN+1): bootstrap without the final keyswitch.
@@ -132,14 +145,7 @@ def bootstrap_no_ks(lwe: torch.Tensor, key: DeviceCloudKey, mu: int = MU,
     (the reference the CUDA kernels are compared with).
     """
     p = key.params
-    n = p.n
-    bara = mod_switch_2n(lwe[:, :n], p)                        # (B, n)
-    barb = mod_switch_2n(lwe[:, n], p)                         # (B,)
-
-    acc0 = torch.zeros((lwe.shape[0], p.k + 1, p.N), dtype=torch.int32,
-                       device=lwe.device)
-    acc0[:, p.k, :] = _rotated_test_vector(barb, mu, p)
-
+    acc0, bara = initial_accumulator(lwe, p, mu)
     acc = blind_rotate(acc0, bara, key.bk, p, plain=plain)
     return sample_extract(acc, p)
 

@@ -388,23 +388,9 @@ def cmd_serve(args):
         pair = None
         if args.keycache:
             from ieache_tpu_torch.codec import files
-            from ieache_tpu_torch.lwe import keygen as kg
-            from ieache_tpu_torch.lwe.types import GateKeyPair
 
-            p = _params(args.params)
-            os.makedirs(args.keycache, exist_ok=True)
-
-            def _cached(seed, tag):
-                path = os.path.join(args.keycache,
-                                    f"{p.name}_{tag}.iek")
-                if os.path.exists(path):
-                    return files.load_secret_keyset(path)
-                ks = kg.generate_secret_keyset(p, seed)
-                files.save_secret_keyset(path, ks)
-                return ks
-
-            pair = GateKeyPair(main=_cached(kg.MAIN_SEED, ""),
-                               nbit=_cached(kg.NBIT_SEED, "nbit"))
+            pair = files.cached_gate_keypair(args.keycache,
+                                             _params(args.params))
         node = nodes.KeygenNode(_params(args.params), cfg=cfg,
                                 pair=pair)
         # bind first (generous admission wait: peer processes may

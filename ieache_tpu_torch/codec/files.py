@@ -22,11 +22,14 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import struct
 
 import numpy as np
 
-from ieache_tpu_torch.lwe.types import CloudKeySet, LweKey, SecretKeySet, TrlweKey
+from ieache_tpu_torch.lwe import keygen as kg
+from ieache_tpu_torch.lwe.types import (CloudKeySet, GateKeyPair, LweKey,
+                                        SecretKeySet, TrlweKey)
 from ieache_tpu_torch.params import TFHEParams
 
 MAGIC = b"IEK1"
@@ -146,6 +149,39 @@ def load_cloud_keyset(path: str) -> CloudKeySet:
     params, a, _ = load_container(path, "cloud_keyset")
     return CloudKeySet(params, a["bk"].astype(np.int32),
                        a["ks"].astype(np.int32))
+
+
+# -- the key cache (``serve --keycache`` and the tools) ---------------------
+
+#: a cached keyset's tag, and the seed words it is generated from
+CACHE_SEEDS = {"": kg.MAIN_SEED, "nbit": kg.NBIT_SEED}
+
+
+def cached_keyset_path(keycache: str, params: TFHEParams,
+                       tag: str = "") -> str:
+    """``<keycache>/<name>_<tag>.iek``: the main keyset's file (tag ""),
+    or the nbit keyset's (tag "nbit")."""
+    return os.path.join(keycache, f"{params.name}_{tag}.iek")
+
+
+def cached_keyset(keycache: str, params: TFHEParams,
+                  tag: str = "") -> SecretKeySet:
+    """The keyset of ``tag`` (:data:`CACHE_SEEDS`) from ``keycache``,
+    generated on the host and written there where absent."""
+    path = cached_keyset_path(keycache, params, tag)
+    if os.path.exists(path):
+        return load_secret_keyset(path)
+    ks = kg.generate_secret_keyset(params, CACHE_SEEDS[tag])
+    os.makedirs(keycache, exist_ok=True)
+    save_secret_keyset(path, ks)
+    return ks
+
+
+def cached_gate_keypair(keycache: str, params: TFHEParams) -> GateKeyPair:
+    """The main and nbit keysets of :func:`cached_keyset`: the pair
+    ``generate_gate_keypair(params)`` makes."""
+    return GateKeyPair(main=cached_keyset(keycache, params, ""),
+                       nbit=cached_keyset(keycache, params, "nbit"))
 
 
 # -- ciphertext files (cloud.data / answer.data equivalents) ----------------

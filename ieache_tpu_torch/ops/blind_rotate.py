@@ -60,6 +60,7 @@ import os
 import warnings
 
 import torch
+import torch.distributed as dist
 
 from ieache_tpu_torch.core.poly import (
     TORUS_LIMBS,
@@ -81,6 +82,29 @@ def make_step_gmatrix(bk_step: torch.Tensor, params: TFHEParams) -> torch.Tensor
     e = negacyclic_extend(bk_step)                     # (rows, k+1, 2N)
     el = torch.movedim(split_i8_limbs(e), -1, 0)       # (L, rows, k+1, 2N)
     return el[..., toeplitz_index(params.N, bk_step.device)]
+
+
+def make_step_gmatrix_local(bk_step: torch.Tensor, params: TFHEParams,
+                            start: int, n_local: int) -> torch.Tensor:
+    """Columns [start, start+n_local) of the step's Toeplitz operand,
+    built without the full (N, 2N) rows: with ``T[m, j] = e[N + j - m]``
+    the block reads only the window ``e[start+1 : start+N+n_local]``, so
+    the transient is the (N, n_local) block itself (the sp-sharded
+    bootstrap's memory, ÷sp of the full build).
+
+    bk_step: int32 (rows, k+1, N) -> int8 (L, rows, k+1, N, n_local);
+    equal to ``make_step_gmatrix(...)[..., start:start+n_local]``.
+    Raises ``ValueError`` where ``n_local`` does not divide N.
+    """
+    n = params.N
+    if n % n_local:
+        raise ValueError(f"n_local={n_local} must divide N={n}")
+    e = negacyclic_extend(bk_step)                     # (rows, k+1, 2N)
+    ew = e[..., start + 1:start + n + n_local]         # (rows, k+1, N+nl-1)
+    el = torch.movedim(split_i8_limbs(ew), -1, 0)      # (L, rows, k+1, ...)
+    m = torch.arange(n, device=bk_step.device)
+    j = torch.arange(n_local, device=bk_step.device)
+    return el[..., (n - 1) + j[None, :] - m[:, None]]
 
 
 def negacyclic_rotate_batch(acc: torch.Tensor,
@@ -111,10 +135,27 @@ def _step_digits(acc: torch.Tensor, bara_i: torch.Tensor,
 
 def _dot_digits_g(d8: torch.Tensor, gv: torch.Tensor) -> torch.Tensor:
     """(B, rows, m) x (rows, kp1, m, j) -> (B, kp1, j), s8 x s8 -> s32."""
-    b, rows, n = d8.shape
-    kp1 = gv.shape[1]
-    g2 = gv.permute(0, 2, 1, 3).reshape(rows * n, kp1 * n)
-    return _dot_i8(d8.reshape(b, rows * n), g2).reshape(b, kp1, n)
+    b, rows, m = d8.shape
+    kp1, j = gv.shape[1], gv.shape[-1]
+    g2 = gv.permute(0, 2, 1, 3).reshape(rows * m, kp1 * j)
+    return _dot_i8(d8.reshape(b, rows * m), g2).reshape(b, kp1, j)
+
+
+def _digit_products(d: torch.Tensor, g: torch.Tensor,
+                    params: TFHEParams) -> torch.Tensor:
+    """Σ over rows and m of digits ``d`` (B, rows, m) against the limbs
+    ``g`` (L, rows, kp1, m, j) of a Toeplitz operand: (B, kp1, j) int32,
+    the limb products recombined with wrapping shifts.  The two-limb
+    gadget's products at a shift of 32 or more vanish mod 2^32 and are
+    dropped."""
+    if params.digit_limbs == 1:
+        terms = [(d.to(torch.int8), v, 8 * v) for v in range(TORUS_LIMBS)]
+    else:
+        dl = split_i8_limbs(d, params.digit_limbs)         # (B, rows, m, 2)
+        terms = [(dl[..., u], v, 8 * u + 8 * v)
+                 for u in range(params.digit_limbs)
+                 for v in range(TORUS_LIMBS) if 8 * u + 8 * v < 32]
+    return sum(_dot_digits_g(d8, g[v]) << sh for d8, v, sh in terms)
 
 
 def external_product_step(
@@ -124,21 +165,78 @@ def external_product_step(
     """One CMux: acc + BK_i ⊡ (X^bara_i · acc - acc).  Exact mod 2^32."""
     d = _step_digits(acc, bara_i, params)                  # (B, rows, N)
     g = make_step_gmatrix(bk_i, params)                    # (L, rows, kp1, N, N)
+    return acc + _digit_products(d, g, params)
 
-    out = torch.zeros_like(acc)
-    if params.digit_limbs == 1:
-        d8 = d.to(torch.int8)
-        for v in range(TORUS_LIMBS):
-            out = out + (_dot_digits_g(d8, g[v]) << (8 * v))
-    else:
-        dl = split_i8_limbs(d, params.digit_limbs)         # (B, rows, N, 2)
-        for u in range(params.digit_limbs):
-            for v in range(TORUS_LIMBS):
-                sh = 8 * u + 8 * v
-                if sh >= 32:
-                    continue
-                out = out + (_dot_digits_g(dl[..., u], g[v]) << sh)
+
+def _tp_partial(acc: torch.Tensor, bara_i: torch.Tensor, g: torch.Tensor,
+                rank: int, params: TFHEParams) -> torch.Tensor:
+    """This tp rank's partial external product: the step's whole digits,
+    computed on every rank, sliced to the rank's rows of ``g`` (the
+    operand of its rows of the step's key)."""
+    rows_local = g.shape[1]
+    digits = _step_digits(acc, bara_i, params)             # (B, rows, N)
+    d_local = digits[:, rank * rows_local:(rank + 1) * rows_local]
+    return _digit_products(d_local, g, params)
+
+
+def external_product_step_sharded(
+    acc: torch.Tensor, bara_i: torch.Tensor, bk_i_local: torch.Tensor,
+    params: TFHEParams, group,
+) -> torch.Tensor:
+    """Tensor-parallel CMux step, run by every rank of the tp ``group``.
+
+    The TRGSW rows axis is sharded over the group: this rank holds
+    ``bk_i_local`` (rows/tp, k+1, N), builds only its operand, contracts
+    it against its rows of the digits, and the partial products are
+    summed over the group by one ``all_reduce``; int32 sums wrap mod
+    2^32, as the product's do.  ``acc`` is the same on every rank of the
+    group.
+    """
+    g = make_step_gmatrix(bk_i_local, params)              # (L, r/tp, ...)
+    out = _tp_partial(acc, bara_i, g, dist.get_rank(group), params)
+    dist.all_reduce(out, group=group)
     return acc + out
+
+
+def blind_rotate_sharded(
+    acc0: torch.Tensor, bara: torch.Tensor, bk_local: torch.Tensor,
+    params: TFHEParams, group, overlap_chunks: int = 2,
+) -> torch.Tensor:
+    """Blind rotation with the key's rows axis sharded over the tp
+    ``group`` (:func:`external_product_step_sharded` at each step).
+
+    ``overlap_chunks``: the all_reduce of a step lies on the rotation's
+    serial path (decomposition is nonlinear, so it cannot be deferred).
+    Where the batch splits into C equal chunks of at least two lanes
+    (``b % C == 0 and b >= 2 * C``), each chunk's all_reduce is issued
+    asynchronously as soon as its partial is ready and waited on only
+    before that chunk's next step, so one chunk's products run while
+    another's sum is in flight.  The arithmetic per lane is unchanged,
+    so the result is the same for every C; with C = 1 each step waits on
+    its one all_reduce before the next.
+    """
+    b = acc0.shape[0]
+    nc = overlap_chunks
+    if not (nc > 1 and b % nc == 0 and b >= 2 * nc):
+        nc = 1
+    rank = dist.get_rank(group)
+    accs = list(acc0.split(b // nc))
+    baras = list(bara.split(b // nc))
+    pending = [None] * nc
+    for i in range(bk_local.shape[0]):
+        g = make_step_gmatrix(bk_local[i], params)
+        for c in range(nc):
+            if pending[c] is not None:
+                work, out = pending[c]
+                work.wait()
+                accs[c] = accs[c] + out
+            out = _tp_partial(accs[c], baras[c][:, i], g, rank, params)
+            pending[c] = (dist.all_reduce(out, group=group, async_op=True),
+                          out)
+    for c, (work, out) in enumerate(pending):
+        work.wait()
+        accs[c] = accs[c] + out
+    return torch.cat(accs)
 
 
 #: the step modes the port runs

@@ -58,7 +58,8 @@ A wrapper checks device, dtype, shape, contiguity and alignment, then
 launches its kernel when the tensors lie on a CUDA device, or runs its
 plain twin (``*_plain``) when they lie on the CPU; it never falls back
 from one to the other.  Each wrapper's ``launches`` attribute counts
-its kernel launches (the plain twins count nothing).  Only the
+its kernel launches (the plain twins count nothing);
+:func:`recording_batches` also notes the batch of each call.  Only the
 single-limb gadget (``digit_limbs == 1``) is taken, as on the TPU.
 :func:`kernels_take` says whether a step mode's kernels accept a
 parameter set's shape; the wrappers refuse what it refuses
@@ -68,6 +69,7 @@ it picks kernels.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -1396,6 +1398,68 @@ WRAPPERS = ("rot_diff_decompose", "external_product", "cmux_step",
             "mm_bf16")
 
 
+#: the kernels each step mode of ``blind_rotate`` launches (ntt none)
+MODE_KERNELS = {
+    "split": ("rot_diff_decompose", "external_product"),
+    "fused2": ("cmux_step",),
+    "overlap": ("cmux_step_overlap",),
+    "overlap2": ("cmux_step_overlap",),
+    "scan": ("blind_rotate_scan",),
+    "tr": ("rot_diff_decompose_tr", "external_product_tr"),
+    "ntt": (),
+}
+
+#: the step kernels' wrappers, and where a call holds its batch (the
+#: lanes of one bootstrap wave): (argument, axis)
+BATCH_AXES = {"rot_diff_decompose": (1, 0), "external_product": (0, 1),
+              "cmux_step": (1, 0), "cmux_step_overlap": (1, 0),
+              "blind_rotate_scan": (1, 0), "rot_diff_decompose_tr": (1, 0),
+              "external_product_tr": (0, 2)}
+
+
 def launch_counts() -> dict:
     """{wrapper: its launches so far} for each of :data:`WRAPPERS`."""
     return {name: globals()[name].launches for name in WRAPPERS}
+
+
+def reset_launch_counts() -> None:
+    """Sets every wrapper's ``launches`` to 0."""
+    for name in WRAPPERS:
+        globals()[name].launches = 0
+
+
+class _BatchRecorder:
+    """Stands in for a wrapper in this module: adds the batch of each
+    call to ``seen``, then calls the wrapper, whose ``launches`` it reads
+    and sets."""
+
+    def __init__(self, wrapper, arg, axis, seen):
+        self.wrapper, self.arg, self.axis, self.seen = wrapper, arg, axis, seen
+
+    def __call__(self, *args, **kwargs):
+        self.seen.add(args[self.arg].shape[self.axis])
+        return self.wrapper(*args, **kwargs)
+
+    @property
+    def launches(self):
+        return self.wrapper.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.wrapper.launches = n
+
+
+@contextlib.contextmanager
+def recording_batches():
+    """Within the block, every batch at which a wrapper of
+    :data:`BATCH_AXES` is called (on any device): yields {wrapper: set
+    of batches}."""
+    wrappers = {name: globals()[name] for name in BATCH_AXES}
+    seen = {name: set() for name in BATCH_AXES}
+    try:
+        for name, (arg, axis) in BATCH_AXES.items():
+            globals()[name] = _BatchRecorder(wrappers[name], arg, axis,
+                                             seen[name])
+        yield seen
+    finally:
+        globals().update(wrappers)

@@ -33,6 +33,34 @@ def pack_ks_limbs(ks: np.ndarray, device) -> torch.Tensor:
     return pad_ks_limbs(torch.movedim(limbs, -1, 0), device)
 
 
+def keyswitch_digits(lwe_ext: torch.Tensor, params: TFHEParams):
+    """The keyswitch's int8 digits of the mask, (B, kN*t), and the body
+    (B,) of ``lwe_ext`` (B, kN+1)."""
+    kn, t = params.kN, params.ks_t
+    digits = gadget_decompose(lwe_ext[:, :kn], params.ks_basebit, t)
+    return (digits.reshape(lwe_ext.shape[0], kn * t).to(torch.int8),
+            lwe_ext[:, kn])
+
+
+def keyswitch_products(d8: torch.Tensor, ks_limbs: torch.Tensor) -> torch.Tensor:
+    """Digits (B, K) against the limbs (TORUS_LIMBS, K, M) of K rows of
+    the KS matrix: (B, M) int32, recombined with wrapping shifts."""
+    acc = torch.zeros((d8.shape[0], ks_limbs.shape[-1]), dtype=torch.int32,
+                      device=d8.device)
+    for v in range(TORUS_LIMBS):
+        acc = acc + (_dot_i8(d8, ks_limbs[v]) << (8 * v))
+    return acc
+
+
+def keyswitch_finish(acc: torch.Tensor, body: torch.Tensor,
+                     params: TFHEParams) -> torch.Tensor:
+    """(0, ..., body) - acc, trimmed to the n+1 columns of the small key."""
+    n = params.n
+    out = -acc[:, : n + 1]
+    out[:, n] += body
+    return out
+
+
 def keyswitch(lwe_ext: torch.Tensor, ks_limbs: torch.Tensor,
               params: TFHEParams) -> torch.Tensor:
     """(B, kN+1) int32 -> (B, n+1) int32 under the small LWE key.
@@ -40,19 +68,5 @@ def keyswitch(lwe_ext: torch.Tensor, ks_limbs: torch.Tensor,
     ``ks_limbs`` is (TORUS_LIMBS, kN*t, M) int8 with M >= n+1; columns
     past n+1 are padding and are dropped.
     """
-    b_dim = lwe_ext.shape[0]
-    kn, t, n = params.kN, params.ks_t, params.n
-    a = lwe_ext[:, :kn]
-    body = lwe_ext[:, kn]
-
-    digits = gadget_decompose(a, params.ks_basebit, t)   # (B, kN, t)
-    d8 = digits.reshape(b_dim, kn * t).to(torch.int8)
-
-    acc = torch.zeros((b_dim, ks_limbs.shape[-1]), dtype=torch.int32,
-                      device=lwe_ext.device)
-    for v in range(TORUS_LIMBS):
-        acc = acc + (_dot_i8(d8, ks_limbs[v]) << (8 * v))
-
-    out = -acc[:, : n + 1]
-    out[:, n] += body
-    return out
+    d8, body = keyswitch_digits(lwe_ext, params)
+    return keyswitch_finish(keyswitch_products(d8, ks_limbs), body, params)

@@ -365,7 +365,7 @@ def test_evaluator_phase_passes_on_cpu_twins():
     ev_in = cs.evaluator_inputs(pair, 8, dev)
     assert [len(v) for vals, _ in ev_in.values() for v in vals] == [8] * 9
     wrapper = kernels.rot_diff_decompose
-    with cs.recording_batches() as seen:
+    with kernels.recording_batches() as seen:
         recs, launches = cs.evaluator_modes(pair, key, ev_in, dev,
                                             modes=("split", "scan"))
         assert kernels.rot_diff_decompose.launches == wrapper.launches
@@ -409,7 +409,7 @@ def test_protocol_phase_passes_on_cpu_twins(tmp_path):
     dev = torch.device("cpu")
     p = P.TEST_TINY
     pair = keygen_device.generate_gate_keypair_device(p, dev)
-    with cs.recording_batches() as seen:
+    with kernels.recording_batches() as seen:
         flows = cs.protocol_flows(pair, p, dev, width=6)
         replica = cs.e2e_replica(pair, p, dev, width=8, batch=1)
     assert set(flows) == {(m, n) for m in cs.PROTOCOL_MODES
@@ -437,3 +437,42 @@ def test_protocol_phase_passes_on_cpu_twins(tmp_path):
     with pytest.raises(RuntimeError, match="IEACHE_PALLAS=1"):
         cs.e2e_line(p, dev, keycache, width=8, batch=1,
                     logdir=str(tmp_path / "logs1"))
+
+
+def test_distribution_phase_passes_on_cpu_twins():
+    """Phase 10 rehearsed at TEST_TINY in a one-rank gloo group: the
+    (1, 1) tp and sp bootstraps equal to the unsharded port with no
+    wrong lane and no launch, the dp-sharded A + B - C equal to the
+    unsharded evaluator's value word, the pp=1 chain equal to
+    chain_unpipelined, each kernel against its twin at the batches they
+    called it with; then the dry run on a rank of its own (nothing
+    launched on the CPU) and its kernels against their twins at the
+    batches the rank recorded (on the CPU the mode loop runs the twins
+    directly, so only the split pair's waves are recorded)."""
+    cs = _chip_smoke()
+    dev = torch.device("cpu")
+    p = P.TEST_TINY
+    pair = keygen_device.generate_gate_keypair_device(p, dev)
+    key = bootstrap.pack_cloud_key(pair.main.cloud, dev)
+    ev_in = cs.evaluator_inputs(pair, 8, dev)
+    recs, _ = cs.evaluator_modes(pair, key, ev_in, dev, modes=("split",))
+    want = recs["split", "ripple"]["A+B-C"]["value"]
+    nand_in = cs.nand_inputs(pair.main, 16, dev)
+    cs.launch.init(0, 1, f"127.0.0.1:{cs.launch.free_port()}", dev)
+    try:
+        secs = cs.sharded_bootstraps(pair.main, key, nand_in, dev)
+        assert set(secs) == {"tp", "sp"}
+        with kernels.recording_batches() as seen:
+            _, ev_launches = cs.dp_evaluator(pair, key, ev_in, want, dev)
+            _, pp_launches = cs.pipeline_chain(pair.main, key, dev, width=6)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert not any(ev_launches.values()) and not any(pp_launches.values())
+    assert {4, 8} <= seen["rot_diff_decompose"] == seen["external_product"]
+    assert cs.check_wave_kernels(p, dev, seen)["external_product"] == 0
+    by_mode, dry_seen, _ = cs.dryrun_line(dev)
+    assert set(by_mode) == {"split", "tr", "scan", "ntt"}
+    assert set(dry_seen) == {"rot_diff_decompose", "external_product"}
+    assert 16 in dry_seen["rot_diff_decompose"]
+    errs = cs.check_wave_kernels(p, dev, dry_seen)
+    assert errs == {"rot_diff_decompose": 0, "external_product": 0}

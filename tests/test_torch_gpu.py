@@ -38,15 +38,7 @@ WRAPPERS = {name: getattr(kernels, name) for name in kernels.WRAPPERS}
 MM_BF16_RTOL = 1e-2
 
 #: the kernels each step mode launches
-MODES = {
-    "split": ("rot_diff_decompose", "external_product"),
-    "fused2": ("cmux_step",),
-    "overlap": ("cmux_step_overlap",),
-    "overlap2": ("cmux_step_overlap",),
-    "scan": ("blind_rotate_scan",),
-    "tr": ("rot_diff_decompose_tr", "external_product_tr"),
-    "ntt": (),
-}
+MODES = kernels.MODE_KERNELS
 
 
 #: key words whose int8 limbs are all -128 / all +127
@@ -1082,3 +1074,156 @@ def test_cli_cloud_on_the_card_reads_files_made_on_the_cpu(cuda, tmp_path):
     got = cli("verify", "--keys", d, "--answer",
               os.path.join(d, "answer_cuda.data"), "--op", "2")
     assert "Answer: 1234" in got
+
+
+@pytest.fixture(scope="module")
+def one_rank():
+    """This process as the one rank of an NCCL group: one card gives one
+    rank, so each sharded path runs at (1, 1)."""
+    from ieache_tpu_torch.dist import launch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    device = launch.init(0, 1, f"127.0.0.1:{launch.free_port()}", "cuda")
+    yield device
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("p", [P.TEST_TINY, P.IEACHE_110_FAST],
+                         ids=lambda p: p.name)
+def test_sharded_bootstraps_at_one_rank_on_the_card(one_rank, p):
+    """The (1, 1) tp and sp bootstraps on NCCL equal the unsharded
+    bootstrap (split, on its kernels) and launch no kernel: their steps
+    are plain ops, as in the JAX package."""
+    from ieache_tpu_torch.dist import mesh as dmesh
+    from ieache_tpu_torch.dist import shard as dshard
+
+    ks = keygen.generate_secret_keyset(dataclasses.replace(p, n=16))
+    key = bootstrap.pack_cloud_key(ks.cloud, one_rank)
+    bits = np.arange(24) % 2
+    lwe = encrypt.encrypt_bits(ks, bits, prng.key_from_seed_words([9]),
+                               one_rank)
+    with _step_mode("split"):
+        want = bootstrap.bootstrap(lwe, key)
+    m, m_sp = dmesh.make_mesh(1, tp=1), dshard.make_sp_mesh(1, sp=1)
+    counts = [w.launches for w in WRAPPERS.values()]
+    bk, ksl = dshard.shard_cloud_key(key, m)
+    got_tp = dshard.make_sharded_bootstrap(m, ks.params)(lwe, bk, ksl)
+    got_sp = dshard.make_sharded_bootstrap_sp(m_sp, ks.params)(
+        lwe, key.bk, key.ks_limbs)
+    assert _launched(counts) == set()
+    assert torch.equal(got_tp, want) and torch.equal(got_sp, want)
+
+
+def test_dp_evaluator_and_pp_chain_at_one_rank_on_the_card(one_rank):
+    """dist/batch.py on a (1, 1) mesh: the key replicated, the operands
+    sharded, A + B - C equal to the unsharded evaluator's value word and
+    decrypted right; the pp=1 chain equal to chain_unpipelined; split's
+    kernels launched and no other."""
+    from ieache_tpu_torch.circuits import evaluator as ev
+    from ieache_tpu_torch.circuits import words
+    from ieache_tpu_torch.dist import batch as dbatch
+    from ieache_tpu_torch.dist import mesh as dmesh
+    from ieache_tpu_torch.dist import pipeline as ppl
+
+    p = P.TEST_TINY
+    pair = keygen_device.generate_gate_keypair_device(p, one_rank)
+    key = bootstrap.pack_cloud_key(pair.main.cloud, one_rank)
+    s = prng.key_from_seed_words([0xD9])
+    vals = ([3, -2, 5, 1], [5, 2, -7, 0], [-4, 6, 1, 3])
+    ops = [ev.encrypt_operand(pair.main, pair.nbit, v, 6, prng.derive(s, i),
+                              one_rank) for i, v in enumerate(vals)]
+    m = dmesh.make_mesh(1, tp=1)
+    counts = [w.launches for w in WRAPPERS.values()]
+    with _step_mode("split"):
+        want, _ = ev.CloudEvaluator(key, pair.nbit).compute_chain(
+            [ev.OP_ADD, ev.OP_SUB], ops)
+        ans, _ = ev.CloudEvaluator(dbatch.replicate_cloud_key(key, m),
+                                   pair.nbit).compute_chain(
+            [ev.OP_ADD, ev.OP_SUB], [dbatch.shard_operand(o, m) for o in ops])
+        ans = dbatch.gather_operand(ans, m)
+        flow0, y = (words.encrypt_word(pair.main, v, 6, prng.derive(s, 5 + i),
+                                       one_rank)
+                    for i, v in enumerate(([7, 3, 9, 1], [2, 5, 4, 1])))
+        comps = torch.tensor([[0, 1, 0, 1]], dtype=torch.int32,
+                             device=one_rank)
+        piped = ppl.make_pipelined_chain(ppl.make_pp_mesh(1), p, n_micro=2)(
+            flow0, y[None], comps, key.bk, key.ks_limbs)
+        plain = ppl.chain_unpipelined(flow0, y[None], comps, key.bk,
+                                      key.ks_limbs, p)
+    assert _launched(counts) == set(MODES["split"])
+    assert torch.equal(ans.value, want.value)
+    assert ev.decrypt_answer(pair.main, pair.nbit, ans, ev.OP_SUB) == [
+        a + b - c for a, b, c in zip(*vals)]
+    assert torch.equal(piped, plain)
+    assert words.decrypt_word(pair.main, piped) == [9, 62, 13, 0]
+
+
+def test_dryrun_on_one_card_launches_each_modes_kernels(cuda):
+    """dryrun_multichip(1) on the card, a rank process of its own: every
+    decrypt assert holds, and under split, tr and scan the dp bootstrap
+    launched that mode's kernels (ntt none)."""
+    from ieache_tpu_torch.dist import dryrun
+
+    (report,) = dryrun.dryrun_multichip(1, device="cuda")
+    for mode in dryrun.MODES:
+        assert set(report["launches"][mode]) == set(MODES[mode])
+        assert all(report["launches"][mode].values()), (mode, report)
+    assert set(report["batches"]) == {k for m in dryrun.MODES
+                                      for k in MODES[m]}
+
+
+def _four_card_rank(device, ks):
+    """One of four ranks, a card each: the (2, 2) tp bootstrap at every
+    overlap_chunks and the (2, 2) sp bootstrap against the unsharded
+    bootstrap of the rank's dp slice."""
+    from ieache_tpu_torch.dist import mesh as dmesh
+    from ieache_tpu_torch.dist import shard as dshard
+
+    key = bootstrap.pack_cloud_key(ks.cloud, device)
+    stream = prng.key_from_seed_words([77])
+    bits = prng.uniform_bits01(prng.derive(stream, 0), 64)
+    ct = encrypt.encrypt_bits(ks, bits, prng.derive(stream, 1), device)
+    m = dmesh.make_mesh(4, tp=2)
+    local = dshard.shard_batch(ct, m)
+    want = bootstrap.bootstrap(local, key)
+    bk, ksl = dshard.shard_cloud_key(key, m)
+    got = {f"tp2 chunks={c}": torch.equal(dshard.make_sharded_bootstrap(
+        m, ks.params, overlap_chunks=c)(local, bk, ksl), want)
+        for c in (1, 2, 4)}
+    m_sp = dshard.make_sp_mesh(4, sp=2)
+    local = dshard.shard_batch(ct, m_sp)
+    got["sp2"] = torch.equal(dshard.make_sharded_bootstrap_sp(m_sp, ks.params)(
+        local, key.bk, key.ks_limbs), bootstrap.bootstrap(local, key))
+    return got
+
+
+@pytest.fixture
+def four_cards():
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+
+
+def test_sharded_bootstraps_on_four_cards(four_cards):
+    """Four ranks on NCCL, a card each: the (2, 2) tp bootstrap (all_reduce
+    over NVLink, overlap_chunks 1, 2 and 4) and the (2, 2) sp bootstrap
+    (all_gather) equal the unsharded bootstrap on every rank."""
+    from ieache_tpu_torch.dist import launch
+
+    ks = keygen.generate_secret_keyset(
+        dataclasses.replace(P.IEACHE_110_FAST, n=16, name="l2_n16"))
+    for rank, got in enumerate(launch.run(_four_card_rank, 4, ks,
+                                          device="cuda", timeout=300)):
+        assert all(got.values()), (rank, got)
+
+
+def test_dryrun_on_four_cards(four_cards):
+    """dryrun_multichip(4): the (2, 2) NAND, the (1, 4) sp NAND, the dp
+    circuits, the four-stage chain (send/recv between cards) and each
+    step mode's kernels on every rank."""
+    from ieache_tpu_torch.dist import dryrun
+
+    for report in dryrun.dryrun_multichip(4, device="cuda"):
+        for mode in dryrun.MODES:
+            assert set(report["launches"][mode]) == set(MODES[mode])
+            assert all(report["launches"][mode].values()), (mode, report)

@@ -172,6 +172,23 @@ def test_gate_keypair_matches():
     assert not np.array_equal(t.main.lwe_key.s, t.nbit.lwe_key.s)
 
 
+def test_cached_gate_keypair_is_the_jax_gate_keypair(tmp_path, monkeypatch):
+    """The port's key cache (``serve --keycache`` and the tools) writes
+    the JAX gate keypair's two keysets as ``<name>_.iek`` and
+    ``<name>_nbit.iek`` and, once written, loads them without keygen."""
+    j = jkeygen.generate_gate_keypair(JP.TEST_TINY)
+    t = tfiles.cached_gate_keypair(str(tmp_path), TP.TEST_TINY)
+    assert sorted(os.listdir(tmp_path)) == ["test_tiny_.iek",
+                                            "test_tiny_nbit.iek"]
+    monkeypatch.setattr(tkeygen, "generate_secret_keyset", None)
+    again = tfiles.cached_gate_keypair(str(tmp_path), TP.TEST_TINY)
+    for got in (t, again):
+        _assert_keysets_equal(got.main, j.main)
+        _assert_keysets_equal(got.nbit, j.nbit)
+    _assert_keysets_equal(tfiles.cached_keyset(str(tmp_path), TP.TEST_TINY),
+                          j.main)
+
+
 def test_from_jax_keyset_carries_a_keyset_across():
     j = jkeygen.generate_secret_keyset(JP.TEST_TINY)
     t = TB.from_jax_keyset(j)
@@ -323,6 +340,16 @@ _SEALED = textwrap.dedent("""
     res = sim.run_full_flow("AB+C-", {"A": [3, -2], "B": [5, 2],
                                       "C": [-4, 6]}, 4, p, device="cpu")
     assert res.values == [3 + 5 + 4, -2 + 2 - 6], res.values
+    dist_layer = ("dist", "dist.mesh", "dist.launch", "dist.shard",
+                  "dist.batch", "dist.pipeline", "dist.multihost",
+                  "dist.dryrun", "tools.keyplane_bench",
+                  "tools.scaling_bench", "tools.comm_model",
+                  "tools.multihost_demo")
+    assert {"ieache_tpu_torch." + m for m in dist_layer} <= set(names), names
+    from ieache_tpu_torch.dist import dryrun
+    (report,) = dryrun.dryrun_multichip(1, device="cpu")
+    assert report["launches"]["split"] == {"rot_diff_decompose": 0,
+                                           "external_product": 0}, report
     assert not any(m.split(".")[0] in REFUSED for m in sys.modules)
     print("SEALED-OK", len(names))
 """)
@@ -334,8 +361,8 @@ def test_port_imports_nothing_of_the_jax_package():
     the codec, the native binding, the protocol and the CLI among them)
     and chip_smoke import, and a TEST_TINY device keygen, NAND, 4-bit
     multiply, ``A + B - C`` through the evaluator and through the
-    six-role flow (SAE on the port's native scalar multiplication) run
-    and decrypt right."""
+    six-role flow (SAE on the port's native scalar multiplication) and
+    the dist layer's dry run on one gloo rank run and decrypt right."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _SEALED], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)

@@ -205,6 +205,34 @@ def test_bootstrap_step_mode_matches_jax(mode):
     np.testing.assert_array_equal(tenc.decrypt_bits(ks, got), bits)
 
 
+@pytest.mark.parametrize("mode", tbr.STEP_MODES)
+def test_each_mode_calls_the_wrappers_of_its_kernel_table(mode):
+    """kernels.MODE_KERNELS, the one table of the kernels each step mode
+    launches, against the wrappers a CPU bootstrap under that mode calls
+    (the wrappers run their twins on the CPU and count nothing):
+    recording_batches sees each of the mode's wrappers at the batch and
+    no other, and puts the wrappers back."""
+    ks, _, tkey = _tiny_keys()
+    bits = prng.uniform_bits01(prng.key_from_seed_words([62]), 6)
+    ct = tenc.encrypt_bits(ks, bits, prng.key_from_seed_words([63]), "cpu")
+    assert set(kernels.MODE_KERNELS) == set(tbr.STEP_MODES)
+    assert set(kernels.BATCH_AXES) == {k for names in
+                                       kernels.MODE_KERNELS.values()
+                                       for k in names}
+    kernels.rot_diff_decompose.launches = 3
+    kernels.reset_launch_counts()
+    assert not any(kernels.launch_counts().values())
+    with _env(IEACHE_PALLAS=None, IEACHE_PALLAS_STEP=mode):
+        with kernels.recording_batches() as seen:
+            got = TB.bootstrap(ct, tkey)
+    assert {k: b for k, b in seen.items() if b} == {
+        k: {6} for k in kernels.MODE_KERNELS[mode]}
+    assert all(getattr(kernels, k) is w for k, w in
+               zip(kernels.BATCH_AXES, ALL_WRAPPERS))
+    assert not any(kernels.launch_counts().values())
+    np.testing.assert_array_equal(tenc.decrypt_bits(ks, got), bits)
+
+
 def test_step_mode_is_read_at_each_call():
     with _env(IEACHE_PALLAS_STEP=None):
         assert tbr.step_mode() == "split"
