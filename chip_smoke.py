@@ -32,7 +32,10 @@ prints no result line:
    ragged B in {1, 5, 1056} and at rotation amounts {0, 1, 2, 3, N,
    N+1, 2N-1, random} (every residue of the amount mod 4, on which the
    split rotation's runs of aligned quads turn); the scan kernel over
-   all n=500 steps; the five kernels on the
+   all n=500 steps, its input accumulator unchanged, and at both
+   parameter sets below over 1 to 4 steps (every phase of its turn
+   through three buffers) at B in {8, 24, 256, 272}, either side of
+   where its launch stops splitting a tile's sum; the five kernels on the
    int8 tensor-core tile (external_product, blind_rotate_scan, cmux_step,
    cmux_step_overlap, external_product_tr) and the tr rotation once more
    at IEACHE_110_FAST and at IEACHE_110 (6 TRGSW rows), B in {1, 5, 8,
@@ -301,6 +304,13 @@ MMA_PARAMS = (P.IEACHE_110_FAST, P.IEACHE_110)
 MMA_BATCHES = (1, 5, 8, 16, 1024, 1056)
 MMA_SPLIT_EDGE = (256, 257)
 
+#: the batches and step counts at which phase 3 holds the scan kernel to
+#: its twin once more: either side of where its launch stops splitting a
+#: tile's sum into parts that add atomically (256 | 272), and 1 to 4
+#: steps, every phase of the turn through its three buffers
+SCAN_TURN_BATCHES = (8, 24, 256, 272)
+SCAN_TURN_STEPS = (1, 2, 3, 4)
+
 #: key words at which a carry between int8 limbs goes wrong: INT32_MIN,
 #: -1, 2^31 - 1, 0x7F7F7F7F, 0x80808080 (limbs all -128), 0
 EDGE_KEY_WORDS = (-2**31, -1, 2**31 - 1, 0x7F7F7F7F, 0x80808080 - 2**32, 0)
@@ -429,10 +439,14 @@ def check_kernels(p, device, batches, probe_batches=(PROBE_B, 5, 16),
                                      dtype=torch.int32, device=device)
         bk = rand((p.n, p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
                   np.int32)
+        before = acc.clone()
         _compare("blind_rotate_scan",
                  kernels.blind_rotate_scan(acc, bara_n, bk, p),
                  kernels.blind_rotate_scan_plain(acc, bara_n, bk, p),
                  errs, device, f"B={b} steps={p.n}")
+        if not torch.equal(acc, before):
+            raise AssertionError(f"blind_rotate_scan wrote its input "
+                                 f"accumulator at B={b}")
         log(f"{phase} kernels: {p.name} B={b} equal (rot amounts "
             f"random/0/1/2/3/N/N+1/2N-1 "
             f"for both rotations, cmux_step, cmux_step_overlap and the tr "
@@ -550,6 +564,37 @@ def extreme_accumulators(p, b, device, rng):
            _rand(rng, shape_a, -2**31, 2**31, np.int32, device),
            _rand(rng, (b,), 0, 2 * p.N, np.int32, device),
            edge_key(shape_k, device))
+
+
+def check_scan_turns(p, device, batches=SCAN_TURN_BATCHES,
+                     steps=SCAN_TURN_STEPS, seed=11):
+    """Phase 3: blind_rotate_scan against its twin over the first
+    ``steps`` steps of a random key (the edge amounts in the first three)
+    at each of ``batches``, its input accumulator unchanged by the call.
+    Returns max abs error per kernel."""
+    rng = np.random.RandomState(seed)
+    errs = {}
+    most = max(steps)
+    bk = _rand(rng, (most, p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
+               np.int32, device)
+    for b in batches:
+        acc = _rand(rng, (p.k + 1, b, p.N), -2**31, 2**31, np.int32, device)
+        bara = _rand(rng, (b, most), 0, 2 * p.N, np.int32, device)
+        bara[:, :3] = torch.tensor([0, p.N, 2 * p.N - 1], dtype=torch.int32,
+                                   device=device)
+        for n in steps:
+            args = (acc, bara[:, :n].contiguous(), bk[:n].contiguous())
+            before = acc.clone()
+            _compare("blind_rotate_scan", kernels.blind_rotate_scan(*args, p),
+                     kernels.blind_rotate_scan_plain(*args, p), errs, device,
+                     f"{p.name} B={b} steps={n}")
+            if not torch.equal(acc, before):
+                raise AssertionError(f"blind_rotate_scan wrote its input "
+                                     f"accumulator at B={b} steps={n}")
+    log(f"phase 3 scan turns: {p.name} blind_rotate_scan equal at "
+        f"B={'/'.join(map(str, batches))} over "
+        f"{'/'.join(map(str, steps))} steps, its input unchanged")
+    return errs
 
 
 def check_mma_kernels(p, device, batches, split_edge=MMA_SPLIT_EDGE, seed=5):
@@ -1911,6 +1956,8 @@ def main() -> int:
     for mma_p in MMA_PARAMS:
         for name, err in check_mma_kernels(mma_p, device,
                                            MMA_BATCHES).items():
+            errs[name] = max(errs[name], err)
+        for name, err in check_scan_turns(mma_p, device).items():
             errs[name] = max(errs[name], err)
     errs.update(check_mm_kernels(device))
 

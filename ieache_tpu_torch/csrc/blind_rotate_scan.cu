@@ -7,43 +7,64 @@
 //   in : acc (k+1, B, N) int32, bara (B, n) int32 in [0, 2N),
 //        bk (n, rows, k+1, N) int32 the bootstrapping key
 //   out: the accumulator after the n CMux steps, exact mod 2^32; equal
-//        to n steps of rot_diff_decompose.cu + external_product.cu
-//
-// Bound on the H100: operations at large B, as external_product.cu (the
-// int8 tensor cores; its product runs the same tile, mma_tile.cuh).  At
-// small B the product is a few microseconds of a step, and what bounds
-// the kernel is latency: two grid-wide barriers a step (1,000 a
-// rotation), phase A's round trip through L2, and the build of the key's
-// byte planes in each block.  This kernel is for that small-batch case:
-// per-step launches pay a launch and a drain of the card for every step.
+//        to n steps of cmux_step.cu.  acc is never written.
 //
 // Design: the TPU kernel runs its grid as a loop on one core, with the
-// accumulator resident in VMEM.  Here blocks run in parallel, so each
-// step is two phases of the whole grid, separated by grid-wide barriers
-// (cooperative_groups::this_grid().sync(), which needs a cooperative
-// launch with every block resident at once):
-//   A. rotate, diff and decompose the whole accumulator into a digit
-//      buffer in device memory (rows, B, N) int8, one coefficient per
-//      thread, grid-stride;
-//   B. the external product tiles of external_product.cu, grid-stride,
-//      writing the next accumulator.
-// The accumulator ping-pongs between the output and a scratch buffer
-// (64 KB at B=8, 8 MB at B=1024: both stay in the 50 MB L2).  To fill
-// the SMs when B is small, phase B splits each tile's sum over the
-// (p, chunk) pairs into S parts, S the smallest divisor of their count
-// that gives at least one part per SM (mma::split_for); each part adds
-// its partial sum into the next accumulator with atomicAdd on unsigned
-// int, which wraps, so the sum is exact in any order.  Phase A then also
-// copies the accumulator into the next buffer, which the parts add to.
-// At B=8 and N=1024, 4 rows: 8 tiles x S=16 = 128 parts, each one chunk
-// of 256 digit columns of one row p.  Data written in the launch is read
-// through L2 (ld.global.cg; the digits by cp.async.cg).  The launch
-// refuses what the tile refuses: rows * N >= 2^17, or an N that is not a
-// power of two of at least 64 (cudaErrorInvalidValue).
-
+// accumulator resident in VMEM.  Here every block of a persistent
+// cooperative launch is resident at once, and each step is the work item
+// of the fused step (cmux_step_parts.cuh) over the whole grid: a block
+// rotates, diffs and decomposes the digit rows and columns of its item
+// from the current accumulator into its own shared memory
+// (decompose_shared; in thread-block clusters of two the blocks that
+// share 16 batch rows split that work and copy each other's rows through
+// distributed shared memory), then runs the tensor-core product
+// (mma_tile.cuh) from there for the item's output tiles.  No digit leaves
+// the SM.  Step s + 1 reads all of step s's accumulator, and nothing else
+// crosses blocks, so one grid-wide barrier a step is enough.
+//
+// The launch policy is ops/kernels.py:scan_launch, passed down as it is:
+// `split` (each tile's sum over its (p, chunk) pairs cut in `split` parts
+// when the tiles are fewer than the SMs), `per_item` (the output tiles a
+// block computes from one decomposition), the grid (every block resident)
+// and the cluster size.  The accumulator turns through buffers, and the
+// last step lands in `out`:
+//   split == 1: two buffers.  Step s reads one and stores cur + sum into
+//     the other.
+//   split > 1: three buffers.  The parts add their sums into the step's
+//     buffer with atomicAdd on unsigned int (wrapping: exact in any
+//     order), the part that holds pair 0 also cur's tile (copied into
+//     shared memory by cp.async while its product runs; only such a
+//     launch reserves that tile, and the policy keeps each tile whole
+//     where it does not fit); so the buffer must be zero before the step: the first is zeroed before the loop
+//     (the one barrier more), and during step s every block zeroes its
+//     share of the buffer that step s - 1 read, which step s + 1 adds to.
+// The barrier is written here in two halves (grid_barrier): between a
+// block's arrival and its wait it loads what the next step needs and no
+// step writes, its first item's amounts into shared memory and the byte
+// planes of that item's first tile from the next step's key, so that
+// after the barrier only the accumulator's reads wait on memory.  The
+// current accumulator was written earlier in the launch by other blocks,
+// so it is read through L2 only (ld.global.cg, cp.async.cg).  The launch
+// refuses what the tile refuses: rows * N >= 2^17, an N that is not a
+// power of two of at least 64, or shared memory over a block's
+// (cudaErrorInvalidValue).
+//
+// On an NVIDIA H100 80GB HBM3 at 700 W (tools/tile_bench.py,
+// IEACHE_110_FAST, 500 steps): 57.3 ms a rotation at B=1024, 30% of its
+// 17.36 ms bound (the tensor cores' operations), against 74.8 for the
+// two-phase kernel this design replaced; there the product is most of a
+// step (13.5 ms without it, 43.7 without the decomposition).  At B=8
+// 4.46 ms, 3% of its 0.136 ms bound and slower than that kernel's 3.7: a
+// step is then a chain of latencies, the decomposition's reads of the
+// new accumulator (2.81 ms without them), the product with its atomic
+// adds (2.77 without) and the prefetch and zeroing around the barrier
+// (0.98 with nothing else).  No other split or run of tiles a block is
+// faster at any batch (tools/tile_bench.py times them all).  The barrier
+// written here beat cooperative groups' this_grid().sync() by 0.4 ms at
+// B=8 and 1.8 ms at B=1024.
 #include <cooperative_groups.h>
 
-#include "mma_tile.cuh"
+#include "cmux_step_parts.cuh"
 
 using namespace ieache;
 namespace cg = cooperative_groups;
@@ -54,126 +75,255 @@ struct ScanArgs {
   const uint32_t* acc_in;
   const int32_t* bara;   // (B, nsteps)
   const uint32_t* bk;    // (nsteps, rows, kp1, N)
-  uint32_t* out;
-  uint32_t* scratch;
-  int8_t* digits;        // (rows, B, N)
-  int rows, kp1, batch, n, nsteps, bg_bit, l, split;
+  // the accumulator's buffers: ring[0] is out; step s writes
+  // ring[(nsteps - 1 - s) % nring]
+  uint32_t* ring[3];
+  unsigned int* barrier;  // the grid barrier's word, 0 at the launch
+  int nring, rows, kp1, batch, n, nsteps, bg_bit, l, split, per_item;
   uint32_t offset;
 };
 
+// Shared memory of a block: the fused step's (the byte planes, one digit
+// tile), the amounts of its first work item's 16 batch rows and, in a
+// launch that splits each tile's sum (`atomic`), a 16 x T tile of the
+// accumulator for the part that adds it.
 template <int NI>
-__global__ void __launch_bounds__(kTileThreads)
+inline size_t scan_smem_bytes(int rows, int n, bool atomic) {
+  return fused::step_smem_bytes<NI>(rows, n) + mma::BM * sizeof(int32_t) +
+         (atomic ? fused::add_tile_bytes<NI>() : 0);
+}
+
+// The grid-wide barrier between steps, in two halves around `between`
+// (work that reads nothing written in the step).  One word, 0 at the
+// launch: block 0 adds 2^31 - (G - 1) and every other block 1, so its top
+// bit flips once all G blocks have arrived, and its low bits are 0 again.
+// Thread 0 arrives with a release after the block barrier that follows the
+// block's writes, and waits with an acquire before the block barrier that
+// precedes its reads, as CUTLASS's grid barrier does.  The cooperative
+// launch keeps every block resident, so the wait ends.
+template <class Between>
+__device__ __forceinline__ void grid_barrier(unsigned int* word,
+                                             const Between& between) {
+  __syncthreads();
+  unsigned int seen = 0u;
+  if (threadIdx.x == 0) {
+    const unsigned int add =
+        blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
+                 : "=r"(seen) : "l"(word) : "memory");
+    asm volatile("red.release.gpu.global.add.u32 [%0], %1;"
+                 :: "l"(word), "r"(add) : "memory");
+  }
+  between();
+  if (threadIdx.x == 0) {
+    unsigned int now;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(now) : "l"(word) : "memory");
+    } while (((now ^ seen) & 0x80000000u) == 0u);
+  }
+  __syncthreads();
+}
+
+// This block's share of `words` zeros at buf (16-byte aligned, words a
+// multiple of 4).
+__device__ __forceinline__ void zero_share(uint32_t* buf, int64_t words) {
+  uint4* q = reinterpret_cast<uint4*>(buf);
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       i < words / 4; i += stride)
+    q[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+template <int NI>
+__global__ void __launch_bounds__(mma::kThreads, 2)
     blind_rotate_scan_kernel(ScanArgs a) {
   extern __shared__ __align__(16) uint8_t smem[];
   using S = mma::Shape<NI>;
-  cg::grid_group grid = cg::this_grid();
+  int8_t* dsm = reinterpret_cast<int8_t*>(smem + S::kPlanesBytes);
+  int32_t* amounts = reinterpret_cast<int32_t*>(
+      smem + fused::step_smem_bytes<NI>(a.rows, a.n));
+  uint32_t* add_tile = reinterpret_cast<uint32_t*>(amounts + mma::BM);
   const int tid = threadIdx.x;
-  const int nbt = (a.batch + TB - 1) / TB, njt = a.n / S::T;
-  const int nparts = nbt * njt * a.kp1 * a.split;
-  const int nchunks = a.rows * (a.n / S::T);
-  const int64_t ncoef = (int64_t)a.kp1 * a.batch * a.n;
-  const int64_t gtid = (int64_t)blockIdx.x * kTileThreads + tid;
-  const int64_t gstride = (int64_t)gridDim.x * kTileThreads;
+  const int csize = (int)cg::this_cluster().num_blocks();
+  const int crank = (int)cg::this_cluster().block_rank();
+  const int njt = a.n / S::T, group = njt * a.kp1;
+  const int nbt = (a.batch + mma::BM - 1) / mma::BM;
+  // a cluster's item: `csize` neighbouring runs of one row group's tiles
+  // (or of one part's), one a block
+  const int runs = (group + a.per_item - 1) / a.per_item / csize;
+  const int nitems = nbt * a.split * runs;
+  const int cluster = blockIdx.x / csize, nclusters = gridDim.x / csize;
+  const int64_t words = (int64_t)a.kp1 * a.batch * a.n;
+  const bool atomic = a.split > 1;
 
+  // The block's first item, the same every step: while the grid barrier
+  // before step s completes, the block loads that item's amounts of step s
+  // and builds its first tile's first planes from bk[s], neither of which
+  // waits for the accumulator.
+  const int b0_first = (cluster / runs / a.split) * mma::BM;
+  const fused::PartRange r_first = fused::part_range(
+      cluster / runs % a.split, a.split, a.rows, njt, S::T, a.n);
+  const int t_first = ((cluster % runs) * csize + crank) * a.per_item;
+  const auto prefetch = [&](int s) {
+    if (tid < mma::BM && b0_first + tid < a.batch)
+      amounts[tid] = a.bara[(int64_t)(b0_first + tid) * a.nsteps + s];
+    const int c = r_first.c_begin, p = c / njt, ch0 = c - p * njt;
+    int nseg = r_first.c_end - c < njt - ch0 ? r_first.c_end - c : njt - ch0;
+    if (nseg > mma::kSegChunks) nseg = mma::kSegChunks;
+    mma::build_planes<NI>(
+        reinterpret_cast<uint32_t*>(smem),
+        a.bk + (((int64_t)s * a.rows + p) * a.kp1 + t_first / njt) * a.n, a.n,
+        (t_first % njt) * S::T, ch0 * S::T, nseg * S::T, tid);
+  };
+
+  if (atomic) {
+    zero_share(a.ring[(a.nsteps - 1) % a.nring], words);
+    grid_barrier(a.barrier, [&] { prefetch(0); });
+  } else {
+    prefetch(0);
+  }
   for (int s = 0; s < a.nsteps; ++s) {
-    // the last step writes out; earlier steps alternate with scratch
-    uint32_t* dst = ((a.nsteps - 1 - s) & 1) ? a.scratch : a.out;
+    uint32_t* dst = a.ring[(a.nsteps - 1 - s) % a.nring];
     const uint32_t* cur =
-        s == 0 ? a.acc_in : (dst == a.out ? a.scratch : a.out);
-
-    // phase A: digits of X^bara * cur - cur
-    for (int64_t idx = gtid; idx < ncoef; idx += gstride) {
-      const int j = (int)(idx % a.n);
-      const int64_t ub = idx / a.n;
-      const int b = (int)(ub % a.batch);
-      const int u = (int)(ub / a.batch);
-      const uint32_t v = rot_diff<true>(
-          cur + ub * a.n, (uint32_t)a.bara[(int64_t)b * a.nsteps + s], j,
-          a.n, a.offset);
-      for (int jl = 0; jl < a.l; ++jl) {
-        a.digits[((int64_t)(u * a.l + jl) * a.batch + b) * a.n + j] =
-            gadget_digit(v, jl, a.bg_bit);
-      }
-      if (a.split > 1) dst[idx] = load_u32<true>(cur + idx);
-    }
-    grid.sync();
-
-    // phase B: dst = cur + sum_p digits_p (*) bk[s, p, o]
+        s == 0 ? a.acc_in : a.ring[(a.nsteps - s) % a.nring];
     const uint32_t* bk_s = a.bk + (int64_t)s * a.rows * a.kp1 * a.n;
-    for (int part = blockIdx.x; part < nparts; part += gridDim.x) {
-      const int q = part % a.split;
-      const int tile = part / a.split;
-      const int b0 = (tile % nbt) * TB, jb = ((tile / nbt) % njt) * S::T;
-      const int o = tile / (nbt * njt);
-      int32_t sum[4][NI][4];
-      mma::zero_acc<NI>(sum);
-      mma::product_accumulate_mma<NI>(
-          smem, mma::GlobalDigits<NI>{a.digits, a.batch, a.n, b0}, bk_s, a.kp1,
-          a.n, o, jb, q * nchunks / a.split, (q + 1) * nchunks / a.split, tid,
-          BlockSync{}, sum);
-      if (a.split > 1) {
-        mma::atomic_add_tile_mma<NI>(sum, o, b0, jb, tid, dst, a.batch, a.n);
-      } else {
-        mma::store_tile_mma<NI, true>(sum, o, b0, jb, tid, cur, dst, a.batch,
-                                      a.n);
-      }
+    for (int it = cluster; it < nitems; it += nclusters) {
+      const bool first = it == cluster;
+      const int g = it / runs;  // row group x part
+      const int b0 = (g / a.split) * mma::BM, q = g % a.split;
+      const int t0 = ((it % runs) * csize + crank) * a.per_item;
+      const int t1 = t0 + a.per_item < group ? t0 + a.per_item : group;
+      const fused::PartRange r =
+          fused::part_range(q, a.split, a.rows, njt, S::T, a.n);
+      __syncthreads();  // the last item's readers of the tile are done
+      fused::decompose_shared<true>(
+          cur, first ? amounts : a.bara + (int64_t)b0 * a.nsteps + s,
+          first ? 1 : a.nsteps, dsm, a.rows, a.batch, a.n, b0, a.bg_bit, a.l,
+          a.offset, r, tid);
+      fused::tiles_from_shared<NI, true>(
+          smem, dsm, cur, bk_s, dst, a.kp1, a.batch, a.n, b0, r, t0, t1,
+          atomic, atomic && q == 0 ? add_tile : nullptr, first, tid);
     }
-    grid.sync();
+    if (s + 1 == a.nsteps) break;
+    // the buffer step s - 1 read is the one step s + 1 adds to
+    if (atomic) zero_share(a.ring[(a.nsteps - 2 - s) % a.nring], words);
+    grid_barrier(a.barrier, [&] { prefetch(s + 1); });
   }
 }
 
-// The launch for N's tile, NI = min(N, 256) / 32.
 template <int NI>
-int launch(ScanArgs args, int sms, cudaStream_t stream) {
-  using S = mma::Shape<NI>;
-  const size_t smem = S::kSmemBytes;
+int launch(const ScanArgs& args, int grid, int cluster, cudaStream_t stream) {
+  const size_t smem = scan_smem_bytes<NI>(args.rows, args.n, args.split > 1);
   cudaError_t err = allow_smem(blind_rotate_scan_kernel<NI>, smem);
   if (err != cudaSuccess) return (int)err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, blind_rotate_scan_kernel<NI>, kTileThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-
-  // split each tile's (p, chunk) sum until there is a part per SM
-  const int ntiles =
-      ((args.batch + TB - 1) / TB) * (args.n / S::T) * args.kp1;
-  args.split = mma::split_for(ntiles, args.rows * (args.n / S::T), sms);
-  // every block must be resident at once; more blocks than parts only
-  // help phase A
-  const int parts = ntiles * args.split;
-  const int grid = parts > sms ? (parts < sms * per_sm ? parts : sms * per_sm)
-                               : sms;
-  void* params[] = {&args};
-  err = cudaLaunchCooperativeKernel(
-      (const void*)blind_rotate_scan_kernel<NI>, dim3(grid),
-      dim3(kTileThreads), params, smem, stream);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(grid);
+  config.blockDim = dim3(mma::kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attrs[2] = {};
+  attrs[0].id = cudaLaunchAttributeCooperative;
+  attrs[0].val.cooperative = 1;
+  attrs[1].id = cudaLaunchAttributeClusterDimension;
+  attrs[1].val.clusterDim.x = cluster;
+  attrs[1].val.clusterDim.y = 1;
+  attrs[1].val.clusterDim.z = 1;
+  config.attrs = attrs;
+  config.numAttrs = cluster > 1 ? 2 : 1;
+  err = cudaLaunchKernelEx(&config, blind_rotate_scan_kernel<NI>, args);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+// Blocks of the kernel for N's tile an SM holds at once, with the add
+// tile where it fits (a launch without it holds no more shared memory).
+template <int NI>
+int per_sm(int rows, int n, int smem_optin, int* out) {
+  size_t smem = scan_smem_bytes<NI>(rows, n, true);
+  if (smem > (size_t)smem_optin) smem = scan_smem_bytes<NI>(rows, n, false);
+  cudaError_t err = allow_smem(blind_rotate_scan_kernel<NI>, smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, blind_rotate_scan_kernel<NI>, mma::kThreads, smem);
+}
+
+// Whether the shape is one the kernel takes: the tile's, with a digit
+// tile (and, where `atomic`, the add tile) that fits a block's shared
+// memory, whose size lands in *smem_optin.
+cudaError_t shape_check(int rows, int n, bool atomic, int* smem_optin) {
+  if (!mma::shape_ok(rows, n)) return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = fused::device_limits(&sms, smem_optin);
+  if (err != cudaSuccess) return err;
+  const size_t smem = n >= 256   ? scan_smem_bytes<8>(rows, n, atomic)
+                      : n == 128 ? scan_smem_bytes<4>(rows, n, atomic)
+                                 : scan_smem_bytes<2>(rows, n, atomic);
+  return smem > (size_t)*smem_optin ? cudaErrorInvalidValue : cudaSuccess;
+}
+
 }  // namespace
 
+// Blocks of the scan kernel an SM holds at once at (rows, N), into
+// *blocks; the launch policy (ops/kernels.py:scan_launch) reads it.
+extern "C" int ieache_blind_rotate_scan_per_sm(int rows, int n, int* blocks) {
+  int optin = 0;
+  const cudaError_t err = shape_check(rows, n, false, &optin);
+  if (err != cudaSuccess) return (int)err;
+  if (n >= 256) return per_sm<8>(rows, n, optin, blocks);
+  if (n == 128) return per_sm<4>(rows, n, optin, blocks);
+  return per_sm<2>(rows, n, optin, blocks);
+}
+
+// `scratch1` (nsteps > 1) and `scratch2` (split > 1 and nsteps > 2) are
+// buffers of acc's size beside `out`, null where not needed; none may
+// alias acc or another.  `barrier` is one 32-bit word holding 0, which
+// the launch leaves at 0 or 2^31.  Every block must have a work item.
 extern "C" int ieache_blind_rotate_scan(
     const void* acc, const void* bara, const void* bk, void* out,
-    void* scratch, void* digits, int rows, int kp1, int batch, int n,
-    int nsteps, int bg_bit, int l, uint32_t offset, void* stream) {
-  if (!mma::shape_ok(rows, n)) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0, coop = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+    void* scratch1, void* scratch2, void* barrier, int rows, int kp1,
+    int batch, int n, int nsteps, int bg_bit, int l, uint32_t offset,
+    int split, int per_item, int grid, int cluster, void* stream) {
+  int optin = 0;
+  cudaError_t err = shape_check(rows, n, split > 1, &optin);
+  if (err != cudaSuccess) return (int)err;
+  const int t = n < 256 ? n : 256, group = (n / t) * kp1;
+  const int runs = per_item < 1 ? 0 : (group + per_item - 1) / per_item;
+  if (split < 1 || split > rows * (n / t) || per_item < 1 || cluster < 1 ||
+      runs % cluster || grid < cluster || grid % cluster ||
+      grid / cluster > (batch + mma::BM - 1) / mma::BM * split * runs /
+                           cluster ||
+      barrier == nullptr || (nsteps > 1 && scratch1 == nullptr) ||
+      (split > 1 && nsteps > 2 && scratch2 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, coop = 0;
+  err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err != cudaSuccess) return (int)err;
   if (!coop) return (int)cudaErrorNotSupported;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
 
-  const ScanArgs args{(const uint32_t*)acc, (const int32_t*)bara,
-                      (const uint32_t*)bk,  (uint32_t*)out,
-                      (uint32_t*)scratch,   (int8_t*)digits,
-                      rows, kp1, batch, n, nsteps, bg_bit, l, 1, offset};
+  ScanArgs args{};
+  args.acc_in = (const uint32_t*)acc;
+  args.bara = (const int32_t*)bara;
+  args.bk = (const uint32_t*)bk;
+  args.ring[0] = (uint32_t*)out;
+  args.ring[1] = (uint32_t*)scratch1;
+  args.ring[2] = (uint32_t*)scratch2;
+  args.barrier = (unsigned int*)barrier;
+  args.nring = split > 1 ? 3 : 2;
+  args.rows = rows;
+  args.kp1 = kp1;
+  args.batch = batch;
+  args.n = n;
+  args.nsteps = nsteps;
+  args.bg_bit = bg_bit;
+  args.l = l;
+  args.split = split;
+  args.per_item = per_item;
+  args.offset = offset;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (n >= 256) return launch<8>(args, sms, s);
-  if (n == 128) return launch<4>(args, sms, s);
-  return launch<2>(args, sms, s);
+  if (n >= 256) return launch<8>(args, grid, cluster, s);
+  if (n == 128) return launch<4>(args, grid, cluster, s);
+  return launch<2>(args, grid, cluster, s);
 }

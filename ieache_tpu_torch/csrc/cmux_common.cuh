@@ -2,7 +2,8 @@
 // diff + gadget decomposition of a CMux step, by coefficient (rot_diff),
 // by run of coefficients from aligned quads (rot_diff_run:
 // rot_diff_decompose.cu), and as a tile of digits in shared memory
-// (decompose_tile: cmux_step.cu, cmux_step_overlap.cu), with a digit
+// (decompose_tile: cmux_step.cu, cmux_step_overlap.cu,
+// blind_rotate_scan.cu), with a digit
 // row's four bytes packed into one word (digit_word); the block's
 // barriers, and the constants of the product tile that mma_tile.cuh
 // builds on the int8 tensor cores.
@@ -155,7 +156,10 @@ __host__ __device__ inline size_t digit_tile_bytes(int rows, int n) {
 // dsm: digit rows p_lo .. p_hi (p = u*l + jl) at columns col_lo ..
 // col_hi-1 (col_lo a multiple of 4, their count a power of two of at least
 // 4); nothing else of the tile is written.  Rows past the batch get zero
-// digits.  Run by `nthreads`
+// digits.  Batch row b0 + bl's amount is bara[bl * bara_stride] (bara
+// points at row b0's).  kCg reads acc through L2 only, for an accumulator
+// other blocks wrote earlier in the same launch (the scan kernel).  Run by
+// `nthreads`
 // threads numbered from `tid`.  A thread takes four consecutive
 // coefficients of one polynomial: X^bara * acc - acc once, then one 4-byte
 // store for each digit row of it.  Consecutive threads take consecutive
@@ -164,10 +168,12 @@ __host__ __device__ inline size_t digit_tile_bytes(int rows, int n) {
 // is in flight at once, so L1 serves one of the two.  Each thread loads
 // kI items' operands before it stores any digit; a digit row's four bytes
 // are one word (digit_word).
+template <bool kCg = false>
 __device__ __forceinline__ void decompose_tile(
     const uint32_t* acc, const int32_t* bara, int8_t* dsm, int batch, int n,
     int b0, int bg_bit, int l, uint32_t offset, int bl_lo, int bl_hi,
-    int p_lo, int p_hi, int col_lo, int col_hi, int tid, int nthreads) {
+    int p_lo, int p_hi, int col_lo, int col_hi, int tid, int nthreads,
+    int bara_stride = 1) {
   constexpr int kI = 4;
   const int pitch = digit_pitch(n);
   const uint32_t mask2n = (uint32_t)(2 * n - 1);
@@ -189,13 +195,15 @@ __device__ __forceinline__ void decompose_tile(
         if (it >= items || b >= batch) continue;
         const int j = col_lo + 4 * (it & (quads - 1));
         const uint32_t* c = acc + ((int64_t)u * batch + b) * n;
-        const uint32_t i0 = (uint32_t)j - (uint32_t)bara[b];
+        const uint32_t i0 =
+            (uint32_t)j - (uint32_t)bara[(int64_t)(b - b0) * bara_stride];
 #pragma unroll
         for (int s = 0; s < 4; ++s) {
           const uint32_t i = (i0 + s) & mask2n;
-          rot[k][s] = i < (uint32_t)n ? c[i] : 0u - c[i - n];
+          rot[k][s] = i < (uint32_t)n ? load_u32<kCg>(c + i)
+                                      : 0u - load_u32<kCg>(c + i - n);
         }
-        cur[k] = *reinterpret_cast<const uint4*>(c + j);
+        cur[k] = load_quad<true, kCg>(c + j);
       }
 #pragma unroll
       for (int k = 0; k < kI; ++k) {

@@ -94,9 +94,9 @@ __global__ void __launch_bounds__(kThreads, 1) cmux_step_overlap_kernel(
 
   // the block's first item has nothing to hide behind: all 8 warps
   // decompose it
-  decompose_tile(acc, bara, stage0, batch, n, (blockIdx.x / nper) * mma::BM,
-                 bg_bit, l, offset, 0, mma::BM, 0, rows - 1, 0, n, threadIdx.x,
-                 kThreads);
+  decompose_tile(acc, bara + (blockIdx.x / nper) * mma::BM, stage0, batch, n,
+                 (blockIdx.x / nper) * mma::BM, bg_bit, l, offset, 0, mma::BM,
+                 0, rows - 1, 0, n, threadIdx.x, kThreads);
   __syncthreads();
 
   if (threadIdx.x >= mma::kThreads) {  // producers
@@ -105,9 +105,10 @@ __global__ void __launch_bounds__(kThreads, 1) cmux_step_overlap_kernel(
       const int s = i & 1;
       if (i >= 2) bar_sync(kEmptyBar + s);
       const int w = blockIdx.x + i * gridDim.x;
-      decompose_tile(acc, bara, stage0 + s * stage_bytes, batch, n,
-                     (w / nper) * mma::BM, bg_bit, l, offset, 0, mma::BM, 0,
-                     rows - 1, 0, n, ptid, mma::kThreads);
+      decompose_tile(acc, bara + (w / nper) * mma::BM,
+                     stage0 + s * stage_bytes, batch, n, (w / nper) * mma::BM,
+                     bg_bit, l, offset, 0, mma::BM, 0, rows - 1, 0, n, ptid,
+                     mma::kThreads);
       __threadfence_block();
       bar_arrive(kFullBar + s);
     }

@@ -1,7 +1,9 @@
 // One whole CMux step on the int8 tensor-core tile, the digits decomposed
 // by each block into its own shared memory: the kernel of cmux_step.cu,
 // which cmux_step_overlap.cu also launches for a batch too small to fill
-// the card with whole tiles.
+// the card with whole tiles.  Its work item (decompose_shared, then
+// tiles_from_shared) is also the step body of blind_rotate_scan.cu, which
+// runs it for all n steps inside one launch.
 //
 // 16 batch rows have N/T x (k+1) output tiles of 16 x T, T = min(N, 256):
 // tile t is coefficient block t % (N/T) of component t / (N/T).  A block
@@ -42,7 +44,7 @@ constexpr int kMaxCluster = 2;
 
 // Shared memory of a block: the byte planes, then one digit tile.
 template <int NI>
-inline size_t step_smem_bytes(int rows, int n) {
+__host__ __device__ inline size_t step_smem_bytes(int rows, int n) {
   return mma::Shape<NI>::kPlanesBytes + digit_tile_bytes(rows, n);
 }
 
@@ -97,32 +99,24 @@ __host__ __device__ inline PartRange part_range(int q, int split, int rows,
   return r;
 }
 
-// Block (x, y): part x % split of the sum of tile y (split > 1), or the
-// tiles y * per_item .. of batch rows 16 x .. (split == 1).
-template <int NI>
-__global__ void __launch_bounds__(mma::kThreads, 2) cmux_step_parts_kernel(
-    const uint32_t* __restrict__ acc, const int32_t* __restrict__ bara,
-    const uint32_t* __restrict__ bk, uint32_t* __restrict__ out, int rows,
-    int kp1, int batch, int n, int bg_bit, int l, uint32_t offset, int split,
-    int per_item) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  using S = mma::Shape<NI>;
-  int8_t* dsm = reinterpret_cast<int8_t*>(smem + S::kPlanesBytes);
-  const int tid = threadIdx.x;
-  const int b0 = (blockIdx.x / split) * mma::BM;
-  const int njt = n / S::T, group = njt * kp1;
-  const PartRange r =
-      part_range(blockIdx.x % split, split, rows, njt, S::T, n);
-  // the blocks of a cluster, neighbours along y, share their 16 batch
-  // rows: each decomposes its share of the rows, then copies the others'
-  // from their shared memory into its own tile, which ldmatrix can only
-  // read locally
+// The digit rows and columns r of batch rows b0 .. b0 + 15 into the
+// block's tile dsm: the blocks of a cluster (neighbours that share these
+// rows) each decompose their share of the rows, then copy the others' from
+// the peers' shared memory into their own tile, which ldmatrix can only
+// read locally.  Batch row b0 + bl's amount is bara[bl * bara_stride]; kCg
+// reads acc through L2 only (decompose_tile).
+template <bool kCg>
+__device__ __forceinline__ void decompose_shared(
+    const uint32_t* acc, const int32_t* bara, int bara_stride, int8_t* dsm,
+    int rows, int batch, int n, int b0, int bg_bit, int l, uint32_t offset,
+    const PartRange& r, int tid) {
   cg::cluster_group cluster = cg::this_cluster();
   const int csize = (int)cluster.num_blocks();
   const int crank = (int)cluster.block_rank();
-  decompose_tile(acc, bara, dsm, batch, n, b0, bg_bit, l, offset,
-                 crank * mma::BM / csize, (crank + 1) * mma::BM / csize, r.p_lo,
-                 r.p_hi, r.col_lo, r.col_hi, tid, mma::kThreads);
+  decompose_tile<kCg>(acc, bara, dsm, batch, n, b0, bg_bit, l, offset,
+                      crank * mma::BM / csize, (crank + 1) * mma::BM / csize,
+                      r.p_lo, r.p_hi, r.col_lo, r.col_hi, tid, mma::kThreads,
+                      bara_stride);
   if (csize > 1) {
     cluster.sync();
     const int pitch = digit_pitch(n), pieces = n / 16;
@@ -141,23 +135,106 @@ __global__ void __launch_bounds__(mma::kThreads, 2) cmux_step_parts_kernel(
     }
     cluster.sync();  // no block leaves while a peer still reads its tile
   }
+}
+
+// Words a row of a 16 x T tile of the accumulator in shared memory: T
+// and 8 of padding, which spreads the 8 rows a warp's epilogue reads at
+// once over the banks.
+template <int NI>
+__host__ __device__ constexpr int add_pitch() {
+  return mma::Shape<NI>::T + 8;
+}
+
+template <int NI>
+__host__ __device__ constexpr size_t add_tile_bytes() {
+  return (size_t)mma::BM * add_pitch<NI>() * sizeof(uint32_t);
+}
+
+// Start the copy of acc[o, b0 .. b0 + 15, jb .. jb + T - 1] into the shared
+// tile `tile` (rows past the batch zero), through L2 only, and commit it.
+template <int NI>
+__device__ __forceinline__ void stage_add_tile(uint32_t* tile,
+                                               const uint32_t* acc, int o,
+                                               int b0, int jb, int batch,
+                                               int n, int tid) {
+  constexpr int kPieces = mma::Shape<NI>::T / 4;  // 16 bytes each
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(tile);
+  for (int i = tid; i < mma::BM * kPieces; i += mma::kThreads) {
+    const int row = i / kPieces, piece = i - row * kPieces;
+    const bool valid = b0 + row < batch;
+    mma::cp_async16(
+        base + (row * add_pitch<NI>() + 4 * piece) * sizeof(uint32_t),
+        acc + ((int64_t)o * batch + (valid ? b0 + row : b0)) * n + jb +
+            4 * piece,
+        valid ? 16 : 0);
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Output tiles t0 .. t1 - 1 of batch rows b0 (tile t at coefficient
+// (t % (N/T)) T of component t / (N/T)) from the digit tile at dsm, each
+// summed over the pairs r.c_begin .. r.c_end - 1: out = acc + the sum, or,
+// when `atomic`, out += the sum with atomicAdd, and where add_tile (16 x
+// add_pitch words of shared memory) is not null, + acc's tile, copied
+// there while the product runs.  planes_ready: the caller built the first
+// tile's first planes (mma::product_accumulate_mma).  kCg reads acc
+// through L2 only.
+template <int NI, bool kCg>
+__device__ __forceinline__ void tiles_from_shared(
+    uint8_t* smem, int8_t* dsm, const uint32_t* acc, const uint32_t* bk,
+    uint32_t* out, int kp1, int batch, int n, int b0, const PartRange& r,
+    int t0, int t1, bool atomic, uint32_t* add_tile, bool planes_ready,
+    int tid) {
+  using S = mma::Shape<NI>;
+  const int njt = n / S::T;
   const mma::SharedDigits digits{(uint32_t)__cvta_generic_to_shared(dsm),
                                  digit_pitch(n)};
-  const int t0 = blockIdx.y * per_item;
-  const int t1 = t0 + per_item < group ? t0 + per_item : group;
   for (int t = t0; t < t1; ++t) {
     const int jb = (t % njt) * S::T, o = t / njt;
+    if (add_tile != nullptr) {
+      if (t != t0) __syncthreads();  // the last epilogue read the tile
+      stage_add_tile<NI>(add_tile, acc, o, b0, jb, batch, n, tid);
+    }
     int32_t sum[4][NI][4];
     mma::zero_acc<NI>(sum);
     // the product's first barrier makes the digits visible to every warp
     mma::product_accumulate_mma<NI>(smem, digits, bk, kp1, n, o, jb, r.c_begin,
-                                    r.c_end, tid, BlockSync{}, sum);
-    if (split > 1) {
-      mma::atomic_add_tile_mma<NI>(sum, o, b0, jb, tid, out, batch, n);
+                                    r.c_end, tid, BlockSync{}, sum,
+                                    planes_ready && t == t0);
+    if (atomic) {
+      if (add_tile != nullptr) {
+        asm volatile("cp.async.wait_group 0;" ::: "memory");
+        __syncthreads();
+      }
+      mma::atomic_add_tile_mma<NI>(sum, o, b0, jb, tid, out, batch, n,
+                                   add_tile, add_pitch<NI>());
     } else {
-      mma::store_tile_mma<NI, false>(sum, o, b0, jb, tid, acc, out, batch, n);
+      mma::store_tile_mma<NI, kCg>(sum, o, b0, jb, tid, acc, out, batch, n);
     }
   }
+}
+
+// Block (x, y): part x % split of the sum of tile y (split > 1), or the
+// tiles y * per_item .. of batch rows 16 x .. (split == 1).
+template <int NI>
+__global__ void __launch_bounds__(mma::kThreads, 2) cmux_step_parts_kernel(
+    const uint32_t* __restrict__ acc, const int32_t* __restrict__ bara,
+    const uint32_t* __restrict__ bk, uint32_t* __restrict__ out, int rows,
+    int kp1, int batch, int n, int bg_bit, int l, uint32_t offset, int split,
+    int per_item) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  using S = mma::Shape<NI>;
+  int8_t* dsm = reinterpret_cast<int8_t*>(smem + S::kPlanesBytes);
+  const int b0 = (blockIdx.x / split) * mma::BM;
+  const int njt = n / S::T, group = njt * kp1;
+  const PartRange r =
+      part_range(blockIdx.x % split, split, rows, njt, S::T, n);
+  decompose_shared<false>(acc, bara + b0, 1, dsm, rows, batch, n, b0, bg_bit,
+                          l, offset, r, threadIdx.x);
+  const int t0 = blockIdx.y * per_item;
+  const int t1 = t0 + per_item < group ? t0 + per_item : group;
+  tiles_from_shared<NI, false>(smem, dsm, acc, bk, out, kp1, batch, n, b0, r,
+                               t0, t1, split > 1, nullptr, false, threadIdx.x);
 }
 
 // The launch for N's tile, NI = min(N, 256) / 32; `out` must not alias

@@ -63,12 +63,12 @@
 //   N >= 256, so two blocks fit an SM beside their registers.
 // * Two sources of digits (the template parameter Digits).  GlobalDigits
 //   is the ring above, fed from a (rows, B, N) int8 tensor in device
-//   memory (external_product.cu, blind_rotate_scan.cu).  SharedDigits
-//   points ldmatrix straight into a (rows, 16, N + 16) int8 tile that the
-//   block itself decomposed into shared memory (ieache::decompose_tile;
-//   cmux_step.cu, cmux_step_overlap.cu): no ring, no cp.async, no wait,
-//   and the 16-byte row padding again puts ldmatrix's 8 rows on 8 bank
-//   groups.  The block-wide barriers are a functor (Sync), since in a
+//   memory (external_product.cu).  SharedDigits points ldmatrix straight
+//   into a (rows, 16, N + 16) int8 tile that the block itself decomposed
+//   into shared memory (ieache::decompose_tile; cmux_step.cu,
+//   cmux_step_overlap.cu, blind_rotate_scan.cu): no ring, no cp.async,
+//   no wait, and the 16-byte row padding again puts ldmatrix's 8 rows on
+//   8 bank groups.  The block-wide barriers are a functor (Sync), since in a
 //   warp-specialised block only the consumer warps run the tile.
 //
 // N must be a power of two, at least 64.
@@ -232,11 +232,14 @@ struct SharedDigits {
 // Thread (warp, lane) ends with, in acc[v][ni][0..3], limb v's sums for
 // batch rows lane/4 (0, 1) and lane/4 + 8 (2, 3) of the tile at
 // coefficients jb + warp * 8 NI + 8 ni + 2 (lane % 4) and the next.
+// `planes_ready`: the caller built the planes of the first segment (the
+// pairs from c_begin up to kSegChunks chunks, within c_begin's row p)
+// itself, with build_planes, after the last readers of the planes.
 template <int NI, class Digits, class Sync>
 __device__ __forceinline__ void product_accumulate_mma(
     uint8_t* smem, const Digits& dg, const uint32_t* bk, int kp1, int n, int o,
     int jb, int c_begin, int c_end, int tid, const Sync& sync,
-    int32_t (&acc)[4][NI][4]) {
+    int32_t (&acc)[4][NI][4], bool planes_ready = false) {
   using S = Shape<NI>;
   uint32_t* planes = reinterpret_cast<uint32_t*>(smem);
   const int lane = tid & 31, warp = tid >> 5;
@@ -265,9 +268,11 @@ __device__ __forceinline__ void product_accumulate_mma(
     const int p = c / nchunk, ch0 = c - p * nchunk;
     int nseg = c_end - c < nchunk - ch0 ? c_end - c : nchunk - ch0;
     if (nseg > kSegChunks) nseg = kSegChunks;
-    sync();  // the previous planes' readers are done
-    build_planes<NI>(planes, bk + ((int64_t)p * kp1 + o) * n, n, jb,
-                     ch0 * S::T, nseg * S::T, tid);
+    if (!planes_ready || c != c_begin) {
+      sync();  // the previous planes' readers are done
+      build_planes<NI>(planes, bk + ((int64_t)p * kp1 + o) * n, n, jb,
+                       ch0 * S::T, nseg * S::T, tid);
+    }
     for (int i = 0; i < nseg; ++i, ++c) {
       uint32_t chunk;  // this lane's ldmatrix row in chunk c
       if constexpr (Digits::kRing) {
@@ -357,12 +362,14 @@ __device__ __forceinline__ void store_tile_mma(
   }
 }
 
-// out[o, b, j] += the folded tile, atomically (wrapping, so exact in any
-// order).
+// out[o, b, j] += the folded tile (+ add[(b - b0) * add_pitch + j - jb],
+// a 16 x T tile in any memory space, when add is not null), atomically
+// (wrapping, so exact in any order).
 template <int NI>
 __device__ __forceinline__ void atomic_add_tile_mma(
     const int32_t (&acc)[4][NI][4], int o, int b0, int jb, int tid,
-    uint32_t* out, int batch, int n) {
+    uint32_t* out, int batch, int n, const uint32_t* add = nullptr,
+    int add_pitch = 0) {
   const int lane = tid & 31, warp = tid >> 5;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -373,8 +380,17 @@ __device__ __forceinline__ void atomic_add_tile_mma(
         2 * (lane & 3));
 #pragma unroll
     for (int ni = 0; ni < NI; ++ni) {
-      atomicAdd(dst + 8 * ni, fold<NI>(acc, ni, 2 * half));
-      atomicAdd(dst + 8 * ni + 1, fold<NI>(acc, ni, 2 * half + 1));
+      uint2 v = make_uint2(fold<NI>(acc, ni, 2 * half),
+                           fold<NI>(acc, ni, 2 * half + 1));
+      if (add != nullptr) {
+        const uint2 a = *reinterpret_cast<const uint2*>(
+            add + (b - b0) * add_pitch + warp * 8 * NI + 2 * (lane & 3) +
+            8 * ni);
+        v.x += a.x;
+        v.y += a.y;
+      }
+      atomicAdd(dst + 8 * ni, v.x);
+      atomicAdd(dst + 8 * ni + 1, v.y);
     }
   }
 }

@@ -132,11 +132,16 @@ def _load() -> ctypes.CDLL:
         fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
                        ctypes.c_uint32, vp]
         fn.restype = i32
+    # the launch shape (ops/kernels.py:scan_launch) comes last but for
+    # the stream: split, per_item, grid, cluster
     lib.ieache_blind_rotate_scan.argtypes = [
-        vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
-        ctypes.c_uint32, vp,
+        vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
+        ctypes.c_uint32, i32, i32, i32, i32, vp,
     ]
     lib.ieache_blind_rotate_scan.restype = i32
+    lib.ieache_blind_rotate_scan_per_sm.argtypes = [
+        i32, i32, ctypes.POINTER(i32)]
+    lib.ieache_blind_rotate_scan_per_sm.restype = i32
     for fn in (lib.ieache_mm_s8, lib.ieache_mm_bf16):
         fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
         fn.restype = i32

@@ -26,8 +26,13 @@ through the kernels of the step mode ``IEACHE_PALLAS_STEP`` selects:
   decomposition overlapped (:func:`step_work_items` and
   :func:`cmux_step_overlap_mma_model` model its order of work);
 * ``scan``: :func:`blind_rotate_scan` (``csrc/blind_rotate_scan.cu``,
-  replaces ``blind_rotate_scan_pallas``), all n steps in one launch, its
-  products on the same tensor-core tile;
+  replaces ``blind_rotate_scan_pallas``), all n steps in one persistent
+  cooperative launch: each step is fused2's work (digits decomposed into
+  each block's shared memory, the same tensor-core tile) over the whole
+  grid, one grid barrier a step, the accumulator turning through two
+  buffers (three when the tiles' sums are split into parts that add
+  atomically), launched as :func:`scan_launch` says
+  (:func:`blind_rotate_scan_schedule_model` walks that schedule);
 * ``tr``: :func:`rot_diff_decompose_tr`
   (``csrc/rot_diff_decompose_tr.cu``, replaces
   ``rot_diff_decompose_pallas_tr``) then :func:`external_product_tr`
@@ -70,7 +75,9 @@ it picks kernels.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -225,8 +232,8 @@ SMEM_BLOCK_BYTES = 232448
 
 #: digit tiles a block of each tensor-core step mode keeps in shared
 #: memory: none where the digits stream from device memory, one under
-#: fused2, the overlap kernel's two stages
-_DIGIT_TILES = {"split": 0, "scan": 0, "tr": 0, "fused2": 1, "overlap": 2,
+#: fused2 and scan, the overlap kernel's two stages
+_DIGIT_TILES = {"split": 0, "tr": 0, "fused2": 1, "scan": 1, "overlap": 2,
                 "overlap2": 2}
 
 
@@ -243,15 +250,32 @@ def digit_tile_bytes(rows: int, n: int) -> int:
     return rows * MMA_TILE_ROWS * (n + DIGIT_ROW_PAD)
 
 
+#: shared memory a scan block holds beside the fused step's: its first
+#: work item's 16 amounts
+SCAN_EXTRA_BYTES = MMA_TILE_ROWS * 4
+
+
+def scan_add_tile_fits(rows: int, n: int) -> bool:
+    """Whether a scan block at (rows, N) also holds, in a launch that
+    splits each tile's sum, the 16 x T tile of the accumulator (rows
+    padded by 8 words) that the part holding pair 0 copies in while its
+    product runs; where it does not, :func:`scan_launch` keeps each tile
+    whole."""
+    add = MMA_TILE_ROWS * (min(n, MMA_TILE_COLS) + 8) * 4
+    return (mma_planes_bytes(n) + digit_tile_bytes(rows, n)
+            + SCAN_EXTRA_BYTES + add <= SMEM_BLOCK_BYTES)
+
+
 def kernels_refusal(mode: str, rows: int, n: int) -> str | None:
     """Why the kernels of step mode ``mode`` refuse ``rows`` TRGSW rows
     at ring degree ``n``, or None where they take the shape.  Every mode
     with kernels runs its products on the tensor-core tile, which needs N
     a power of two of at least 64 and rows * N below
     :data:`MMA_MAX_TERMS`; where a block keeps digit tiles in shared
-    memory (fused2, overlap) it needs room for them, and under ``tr`` the
-    rotation's slab (:func:`rot_tr_slab_bytes`) must fit a block; ``ntt``
-    runs no kernel."""
+    memory (fused2, scan, overlap) it needs room for them (scan also for
+    :data:`SCAN_EXTRA_BYTES`), and under ``tr`` the rotation's slab
+    (:func:`rot_tr_slab_bytes`) must fit a block; ``ntt`` runs no
+    kernel."""
     if mode == "ntt":
         return None
     tiles = _DIGIT_TILES[mode]
@@ -262,7 +286,8 @@ def kernels_refusal(mode: str, rows: int, n: int) -> str | None:
         return (f"the tensor-core external product needs rows * N < "
                 f"{MMA_MAX_TERMS} (each int8 limb's sum must stay exact in "
                 f"int32), got rows={rows}, N={n}")
-    need = mma_planes_bytes(n) + tiles * digit_tile_bytes(rows, n)
+    need = mma_planes_bytes(n) + tiles * digit_tile_bytes(rows, n) + (
+        SCAN_EXTRA_BYTES if mode == "scan" else 0)
     if tiles and need > SMEM_BLOCK_BYTES:
         return (f"the tensor-core external product's {tiles} digit tile(s) "
                 f"of rows={rows}, N={n} need {need} bytes of shared memory, "
@@ -783,14 +808,20 @@ def external_product_plain(d: torch.Tensor, bk_i: torch.Tensor,
     (``make_step_gmatrix``) and four int8 limb products recombined with
     wrapping shifts.  d (rows, B, N) int8, bk_i (rows, k+1, N) int32,
     acc (k+1, B, N) int32 or None -> (k+1, B, N) int32."""
-    g = br.make_step_gmatrix(bk_i, params)           # (L, rows, kp1, N, N)
+    out = _gmatrix_product(d, br.make_step_gmatrix(bk_i, params), params)
+    return (out if acc is None else acc + out).contiguous()
+
+
+def _gmatrix_product(d: torch.Tensor, g: torch.Tensor,
+                     params: TFHEParams) -> torch.Tensor:
+    """sum_p d[p] ⊛ BK_i[p, o] from BK_i's Toeplitz limb operand ``g``
+    (``make_step_gmatrix``): d (rows, B, N) int8 -> (k+1, B, N) int32."""
     d8 = d.transpose(0, 1)                           # (B, rows, N)
     out = torch.zeros((d8.shape[0], params.k + 1, params.N),
                       dtype=torch.int32, device=d.device)
     for v in range(TORUS_LIMBS):
         out = out + (br._dot_digits_g(d8, g[v]) << (8 * v))
-    out = out.transpose(0, 1)
-    return (out if acc is None else acc + out).contiguous()
+    return out.transpose(0, 1)
 
 
 def _external_product_launch(wrapper, entry: str, plain, d: torch.Tensor,
@@ -992,6 +1023,72 @@ def step_work_items(batch: int, n: int, kp1: int, places: int) -> list:
             for bt in range(nbt) for t0 in range(0, group, per)]
 
 
+class ScanLaunch(NamedTuple):
+    """The scan kernel's launch shape (:func:`scan_launch`): the last
+    arguments of ``ieache_blind_rotate_scan`` before the stream."""
+
+    split: int      # parts of each tile's sum over its (p, chunk) pairs
+    per_item: int   # output tiles a block computes from one decomposition
+    grid: int       # blocks, every one resident at once
+    cluster: int    # blocks a thread-block cluster
+
+
+def scan_shape(batch: int, kp1: int, n: int, split: int, per_item: int,
+               places: int) -> ScanLaunch:
+    """The scan kernel's launch with each tile's sum cut in ``split``
+    parts and runs of ``per_item`` output tiles a work item, on a card
+    that holds ``places`` of its blocks at once: with one part a tile the
+    runs of a row group paired in clusters, as fused2 pairs them
+    (:func:`step_cluster_shares`); a grid of every work item, or of as
+    many blocks as are resident at once, in whole clusters."""
+    group = n // min(n, MMA_TILE_COLS) * kp1
+    nbt = -(-batch // MMA_TILE_ROWS)
+    nper = -(-group // per_item)
+    cluster = len(step_cluster_shares(nper, split))
+    grid = min(nbt * split * nper, places // cluster * cluster)
+    return ScanLaunch(split, per_item, grid, cluster)
+
+
+def scan_launch(batch: int, kp1: int, n: int, rows: int, sms: int = 132,
+                per_sm: int = 2) -> ScanLaunch:
+    """The launch of ``csrc/blind_rotate_scan.cu`` on a card of ``sms``
+    SMs that hold ``per_sm`` of its blocks each, which the kernel takes
+    as it is (:func:`scan_shape`).  A step is fused2's work over the whole
+    grid: each tile's sum cut in :func:`mma_split_for` parts while the
+    tiles are fewer than the SMs; the output tiles of each row group, or
+    of each part, cut into runs of ``per_item`` (:func:`tiles_per_item`
+    over the row groups times the parts, dealt to the ``sms * per_sm``
+    places), a run being one block's work item from one decomposition;
+    each tile whole where :func:`scan_add_tile_fits` says no.  Of every
+    split and run tools/tile_bench.py times beside it on the H100, none
+    was faster at B = 8, 16, 256 or 1024, and one by 0.4% at 272
+    (PERF.md)."""
+    t = min(n, MMA_TILE_COLS)
+    nbt, group = -(-batch // MMA_TILE_ROWS), n // t * kp1
+    split = (mma_split_for(nbt * group, rows * (n // t), sms)
+             if scan_add_tile_fits(rows, n) else 1)
+    places = sms * per_sm
+    return scan_shape(batch, kp1, n, split,
+                      tiles_per_item(nbt * split, group, places), places)
+
+
+def scan_work_items(launch: ScanLaunch, batch: int, n: int,
+                    kp1: int) -> list:
+    """The work items of one scan step in the kernel's order, as (b0, q,
+    tiles): batch rows b0 .. b0 + 15, part q of the split, and the
+    output tiles [(jb, o), ...] of the item's run (run y of a row group
+    is block y % cluster of its cluster)."""
+    t = min(n, MMA_TILE_COLS)
+    njt = n // t
+    nbt, group = -(-batch // MMA_TILE_ROWS), njt * kp1
+    per = launch.per_item
+    return [(bt * MMA_TILE_ROWS, q,
+             [((tl % njt) * t, tl // njt)
+              for tl in range(y * per, min((y + 1) * per, group))])
+            for bt in range(nbt) for q in range(launch.split)
+            for y in range(-(-group // per))]
+
+
 def cmux_step_mma_model(acc: torch.Tensor, bara: torch.Tensor,
                         bk_i: torch.Tensor, params: TFHEParams,
                         sms: int = 132, blocks_per_sm: int = 2,
@@ -1059,6 +1156,92 @@ def cmux_step_overlap_mma_model(acc: torch.Tensor, bara: torch.Tensor,
     own)."""
     return cmux_step_mma_model(acc, bara, bk_i, params, sms, blocks_per_sm=1,
                                cluster=False)
+
+
+def blind_rotate_scan_schedule_model(acc: torch.Tensor, bara: torch.Tensor,
+                                     bk: torch.Tensor, params: TFHEParams,
+                                     sms: int = 132, per_sm: int = 2,
+                                     order=None,
+                                     launch: ScanLaunch | None = None
+                                     ) -> torch.Tensor:
+    """The scan kernel's schedule in plain ops, step by step, on a card
+    of ``sms`` SMs holding ``per_sm`` of its blocks each: the work items
+    of :func:`scan_work_items` under :func:`scan_launch` (or under
+    ``launch``, another shape of :func:`scan_shape`), in the order
+    ``order(items)`` gives (the kernel's blocks run them in any order;
+    by default as listed).  Each item's block decomposes its part's
+    digit rows and columns of its 16 batch rows from the step's current
+    accumulator (:func:`cmux_digit_tile`; a cluster's blocks each their
+    share of the rows), and sums their product over its part's pairs
+    for each of its tiles.  The accumulator turns through the launch's
+    buffers, the last step landing in the first (``out``): with one part
+    a tile two buffers, step s storing cur + sum into the one it does not
+    read; with more, three, the parts adding their sums with wrapping
+    int32 adds into the step's buffer, zeroed before the loop for step 0
+    and during step s - 1 (by then no step reads it) for step s, and the
+    part that holds pair 0 adding cur's tile too.  ``acc`` is never
+    written.  Same arguments and result as
+    :func:`blind_rotate_scan_plain`."""
+    nsteps, rows, kp1, n = bk.shape
+    b = acc.shape[1]
+    if launch is None:
+        launch = scan_launch(b, kp1, n, rows, sms, per_sm)
+    atomic = launch.split > 1
+    t = min(n, MMA_TILE_COLS)
+    parts = cmux_part_ranges(rows, n, launch.split)
+    items = scan_work_items(launch, b, n, kp1)
+    shares = step_cluster_shares(-(-(n // t) * kp1 // launch.per_item),
+                                 launch.split)
+    if order is not None:
+        items = order(items)
+    # stale words in every buffer: what a step reads must have been
+    # written in the launch
+    ring = [torch.full_like(acc, 0x5A5A5A5A) for _ in range(3 if atomic
+                                                             else 2)]
+
+    def dst(s):
+        return ring[(nsteps - 1 - s) % len(ring)]
+
+    if atomic:
+        dst(0).zero_()
+    for s in range(nsteps):
+        cur, out = (acc if s == 0 else dst(s - 1)), dst(s)
+        g = br.make_step_gmatrix(bk[s], params)
+        bara_s = bara[:, s].contiguous()
+        # how often each output word was written (split 1) or added to
+        count = torch.zeros_like(acc)
+        for b0, q, tiles in items:
+            nb = min(MMA_TILE_ROWS, b - b0)
+            c_begin, c_end, *rect = parts[q]
+            # a cluster's blocks each decompose a share of the rows and
+            # copy the others': every block ends with the whole tile
+            tile = sum(cmux_digit_tile(cur, bara_s, params, b0, *rect,
+                                       bl_lo=lo, bl_hi=hi)
+                       for lo, hi in shares)
+            d = torch.zeros((rows, nb, n), dtype=torch.int8,
+                            device=acc.device)
+            for c in range(c_begin, c_end):
+                p, m0 = c // (n // t), (c % (n // t)) * t
+                d[p, :, m0:m0 + t] = tile[p, :nb, m0:m0 + t]
+            prod = _gmatrix_product(d, g, params)
+            for jb, o in tiles:
+                at = (o, slice(b0, b0 + nb), slice(jb, jb + t))
+                if atomic:
+                    add = prod[o, :, jb:jb + t]
+                    out[at] += add + cur[at] if q == 0 else add
+                else:
+                    out[at] = cur[at] + prod[o, :, jb:jb + t]
+                count[at] += 1
+        if not bool((count == launch.split).all()):
+            raise AssertionError(f"step {s}'s work items do not cover every "
+                                 f"output word {launch.split} time(s)")
+        if atomic and s + 1 < nsteps:
+            nxt = dst(s + 1)
+            if nxt is cur or nxt is out:
+                raise AssertionError("the buffer zeroed during a step is "
+                                     "read or written in it")
+            nxt.zero_()
+    return dst(nsteps - 1)
 
 
 def _cmux_step_launch(wrapper, entry: str, mode: str, acc: torch.Tensor,
@@ -1136,9 +1319,11 @@ def blind_rotate_scan(acc: torch.Tensor, bara: torch.Tensor, bk: torch.Tensor,
                       params: TFHEParams) -> torch.Tensor:
     """All n CMux steps in one launch: acc (k+1, B, N) int32, bara
     (B, n) int32 in [0, 2N), bk (n, rows, k+1, N) int32 -> the rotated
-    (k+1, B, N) int32 accumulator, exact mod 2^32; the kernel on CUDA
-    tensors (which raises ``ValueError`` for a shape
-    :func:`mma_tile_check` refuses), the plain twin on CPU."""
+    (k+1, B, N) int32 accumulator, exact mod 2^32; acc is not written.
+    On CUDA tensors the kernel (which raises ``ValueError`` for a shape
+    ``kernels_refusal("scan", ...)`` refuses), launched as
+    :func:`scan_launch` says, with the accumulator's two or three
+    buffers and no digit tensor; the plain twin on CPU tensors."""
     _require_single_limb(params)
     rows, kp1, n = params.trgsw_rows, params.k + 1, params.N
     b = acc.shape[1] if acc.dim() == 3 else -1
@@ -1152,18 +1337,49 @@ def blind_rotate_scan(acc: torch.Tensor, bara: torch.Tensor, bk: torch.Tensor,
     _refuse(kernels_refusal("scan", rows, n))
     if b == 0 or steps == 0:
         return acc.clone()
-    out = torch.empty_like(acc)
-    scratch = torch.empty_like(acc)
-    digits = torch.empty((rows, b, n), dtype=torch.int8, device=acc.device)
-    lib, stream = _launch_context(acc)
-    code = lib.ieache_blind_rotate_scan(
-        acc.data_ptr(), bara.data_ptr(), bk.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), digits.data_ptr(), rows, kp1, b, n, steps,
-        params.bg_bit, params.l, _offset(params.bg_bit, params.l), stream,
-    )
-    _build.check(lib, code, "blind_rotate_scan")
+    _launch_context(acc)
+    launch = scan_launch(b, kp1, n, rows, _sm_count(acc.device),
+                         _scan_per_sm(acc.device, rows, n))
+    out = _blind_rotate_scan_entry(acc, bara, bk, params, launch)
     blind_rotate_scan.launches += 1
     return out
+
+
+@functools.cache
+def _scan_per_sm(device: torch.device, rows: int, n: int) -> int:
+    """Blocks of the scan kernel an SM of ``device`` (the current one)
+    holds at once at (rows, N), as the runtime's occupancy query says
+    for its registers and shared memory."""
+    lib = _build.library()
+    blocks = ctypes.c_int(0)
+    _build.check(lib, lib.ieache_blind_rotate_scan_per_sm(
+        rows, n, ctypes.byref(blocks)), "blind_rotate_scan_per_sm")
+    return blocks.value
+
+
+def _blind_rotate_scan_entry(acc: torch.Tensor, bara: torch.Tensor,
+                             bk: torch.Tensor, params: TFHEParams,
+                             launch: ScanLaunch) -> torch.Tensor:
+    """One launch of ``ieache_blind_rotate_scan`` on checked CUDA tensors
+    with the launch shape ``launch``, uncounted: the wrapper's launch, and
+    the one chip_smoke and ``tools/tile_bench.py`` give other shapes by.
+    Allocates the accumulator's buffers the steps turn through, out
+    first: two with one part a tile, three with more (fewer when there
+    are fewer steps); and the grid barrier's word, zeroed."""
+    rows, kp1, n = params.trgsw_rows, params.k + 1, params.N
+    b, steps = bara.shape
+    bufs = [torch.empty_like(acc)
+            for _ in range(min(3 if launch.split > 1 else 2, steps))]
+    ptrs = [t.data_ptr() for t in bufs] + [None] * (3 - len(bufs))
+    barrier = torch.zeros(1, dtype=torch.int32, device=acc.device)
+    lib, stream = _launch_context(acc)
+    code = lib.ieache_blind_rotate_scan(
+        acc.data_ptr(), bara.data_ptr(), bk.data_ptr(), *ptrs,
+        barrier.data_ptr(), rows, kp1, b, n, steps, params.bg_bit, params.l,
+        _offset(params.bg_bit, params.l), *launch, stream,
+    )
+    _build.check(lib, code, "blind_rotate_scan")
+    return bufs[0]
 
 
 blind_rotate_scan.launches = 0

@@ -6,22 +6,27 @@ accumulator fused), the rotations ``rot_diff_decompose``,
 ``cmux_step`` and ``cmux_step_overlap`` (ms per step; each the median of
 three CUDA-graph replays of 50 calls) and ``blind_rotate_scan`` (ms per
 whole rotation of n steps: the median of three runs of 3 calls between
-CUDA events) at ``IEACHE_110_FAST`` or ``IEACHE_110`` on random operands
-from seed 0, each first held against its plain twin (the scan kernel at
-batches up to 16 only: its twin takes half a second a rotation).  One
-JSON line with the card's name, power limit and clocks.  It is the
-yardstick for a change to ``csrc/mma_tile.cuh`` or to the step kernels:
-run it on two copies of the package within one call, and on a copy with
-a part of the kernel taken out (the build of the byte planes, the MMAs,
-the atomic adds, ``decompose_tile``, a phase of the scan kernel) to see
-that part's share; such a copy computes garbage, so ``TB_CHECK=0`` skips
-the comparison.  At each step batch it also times the launch shapes the
-two rotations' policies did not pick, through the uncounted entry the
-wrappers launch by: ``rot_diff_decompose`` at both run lengths
-(``rot_diff_decompose_launch_ms``, "run R"; the policy's pick is
-``ops/kernels.py:rot_launch``) and ``rotate_sublane``
+CUDA events; any batch, e.g. 8, 16, 256 and 272 either side of where
+its launch stops splitting a tile's sum, and 1024) at
+``IEACHE_110_FAST`` or ``IEACHE_110`` on random operands from seed 0,
+each first held against its plain twin (the scan kernel at batches up
+to 16 only: its twin takes half a second a rotation).  One JSON line
+with the card's name, power limit and clocks.  It is the yardstick for
+a change to ``csrc/mma_tile.cuh`` or to the step kernels: run it on two
+copies of the package within one call, and on a copy with a part of
+the kernel taken out (the build of the byte planes, the MMAs, the
+atomic adds, ``decompose_tile``; the scan kernel's grid barrier or its
+decomposition) to see that part's share; such a copy computes garbage,
+so ``TB_CHECK=0`` skips the comparison.  Beside the policies' picks it
+also times the launch shapes they did not pick, through the uncounted
+entry the wrappers launch by: at each step batch ``rot_diff_decompose``
+at both run lengths (``rot_diff_decompose_launch_ms``, "run R"; the
+policy's pick is ``ops/kernels.py:rot_launch``) and ``rotate_sublane``
 by its slab and by its gather (``rotate_sublane_route_ms``; the pick is
-``rot_tr_route``), each held against its twin first.  Run from the root
+``rot_tr_route``); at each scan batch the scan kernel at every other
+split of a tile's sum and run of tiles a work item
+(``blind_rotate_scan_launch_ms``, "split S, per_item P"; the pick is
+``scan_launch``); each held against its twin first.  Run from the root
 of a checkout, on a CUDA device:
 
     python -m ieache_tpu_torch.tools.tile_bench
@@ -54,7 +59,6 @@ from ieache_tpu_torch.tools._common import (
 
 #: the largest batch at which the scan kernel is held against its twin
 SCAN_CHECK_MAX_B = 16
-
 
 def _rand(rng, shape, lo, hi, dtype, device):
     return torch.from_numpy(rng.randint(lo, hi, shape, dtype=np.int64)
@@ -120,6 +124,28 @@ def rotation_variants(p, acc, bara, acc_tr) -> dict:
     return calls
 
 
+def scan_launch_variants(p, b: int, sms: int = 132,
+                         per_sm: int = 2) -> dict:
+    """The scan kernel's launch shapes :func:`run` times beside the
+    policy's pick (``kernels.scan_launch``) at batch ``b``: "split S,
+    per_item P" -> ``kernels.scan_shape`` for every split S that divides
+    a tile's (p, chunk) pairs and every run of P tiles, P a power of two
+    up to the tiles of a row group."""
+    t = min(p.N, kernels.MMA_TILE_COLS)
+    nchunks, group = p.trgsw_rows * (p.N // t), p.N // t * (p.k + 1)
+    pick = kernels.scan_launch(b, p.k + 1, p.N, p.trgsw_rows, sms, per_sm)
+    shapes = {}
+    for split in (s for s in range(1, nchunks + 1) if nchunks % s == 0):
+        per_item = 1
+        while per_item <= group:
+            launch = kernels.scan_shape(b, p.k + 1, p.N, split, per_item,
+                                        sms * per_sm)
+            if launch != pick:
+                shapes[f"split {split}, per_item {per_item}"] = launch
+            per_item *= 2
+    return shapes
+
+
 def run(p, product_b, scan_b, device, check: bool = True,
         timed: bool = True, step_b=()) -> dict:
     """The record: ``external_product_ms``, ``cmux_step_ms``,
@@ -127,7 +153,9 @@ def run(p, product_b, scan_b, device, check: bool = True,
     ``rot_diff_decompose_ms``, ``rot_diff_decompose_tr_ms``,
     ``external_product_tr_ms`` and ``rotate_sublane_ms`` by batch, and
     the launch variants of :func:`rotation_variants`
-    (``rot_diff_decompose_launch_ms``, ``rotate_sublane_route_ms``).
+    (``rot_diff_decompose_launch_ms``, ``rotate_sublane_route_ms``) and
+    of :func:`scan_launch_variants` (``blind_rotate_scan_launch_ms``;
+    on CPU tensors their schedule models are checked).
     ``check`` holds each kernel against its twin first and raises where
     they differ; ``timed=False`` (the CPU rehearsal) only checks."""
     rng = np.random.RandomState(0)
@@ -135,7 +163,8 @@ def run(p, product_b, scan_b, device, check: bool = True,
            "cmux_step_overlap_ms": {}, "blind_rotate_scan_ms": {},
            "rot_diff_decompose_ms": {}, "rot_diff_decompose_tr_ms": {},
            "external_product_tr_ms": {}, "rotate_sublane_ms": {},
-           "rot_diff_decompose_launch_ms": {}, "rotate_sublane_route_ms": {}}
+           "rot_diff_decompose_launch_ms": {}, "rotate_sublane_route_ms": {},
+           "blind_rotate_scan_launch_ms": {}}
     for b in product_b:
         d, bk_i, acc = product_inputs(p, b, device, rng)
         if check and not torch.equal(
@@ -190,16 +219,31 @@ def run(p, product_b, scan_b, device, check: bool = True,
                 rec[key].setdefault(b, {})[shape] = ms
     for b in scan_b:
         acc, bara, bk = scan_inputs(p, b, device, rng)
-        if check and b <= SCAN_CHECK_MAX_B and not torch.equal(
-                kernels.blind_rotate_scan(acc, bara, bk, p),
-                kernels.blind_rotate_scan_plain(acc, bara, bk, p)):
-            raise AssertionError(f"blind_rotate_scan differs from its twin "
-                                 f"at B={b}")
-        if timed:
-            rec["blind_rotate_scan_ms"][b] = statistics.median(
-                events_ms(lambda: kernels.blind_rotate_scan(acc, bara, bk, p),
-                          3)
-                for _ in range(3))
+        calls = {None: lambda: kernels.blind_rotate_scan(acc, bara, bk, p)}
+        sms, per_sm = ((kernels._sm_count(device),
+                        kernels._scan_per_sm(device, p.trgsw_rows, p.N))
+                       if device.type == "cuda" else (132, 2))
+        for name, launch in scan_launch_variants(p, b, sms, per_sm).items():
+            calls[name] = (
+                (lambda launch=launch: kernels._blind_rotate_scan_entry(
+                    acc, bara, bk, p, launch))
+                if device.type == "cuda" else
+                (lambda launch=launch:
+                 kernels.blind_rotate_scan_schedule_model(
+                     acc, bara, bk, p, launch=launch)))
+        want = (kernels.blind_rotate_scan_plain(acc, bara, bk, p)
+                if check and b <= SCAN_CHECK_MAX_B else None)
+        for name, call in calls.items():
+            if want is not None and not torch.equal(call(), want):
+                raise AssertionError(f"blind_rotate_scan ({name or 'policy'})"
+                                     f" differs from its twin at B={b}")
+            if not timed:
+                continue
+            ms = statistics.median(events_ms(call, 3) for _ in range(3))
+            if name is None:
+                rec["blind_rotate_scan_ms"][b] = ms
+            else:
+                rec["blind_rotate_scan_launch_ms"].setdefault(b, {})[name] = ms
     return rec
 
 

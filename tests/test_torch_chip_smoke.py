@@ -158,6 +158,18 @@ def test_bounds_are_the_larger_of_bytes_and_operations():
 
 
 @pytest.mark.parametrize("rows", [4, 6])
+def test_scan_turns_phase_passes_on_cpu_twins(rows):
+    """Phase 3's scan check over 1 to 4 steps, either side of the split,
+    on the twin: equal, and the input accumulator unchanged."""
+    cs = _chip_smoke()
+    p = dataclasses.replace(P.TEST_TINY, l=rows // 2, name=f"tiny_{rows}rows")
+    errs = cs.check_scan_turns(p, torch.device("cpu"), batches=(8, 24))
+    assert errs == {"blind_rotate_scan": 0}
+    assert cs.SCAN_TURN_BATCHES == (8, 24, 256, 272)
+    assert cs.SCAN_TURN_STEPS == (1, 2, 3, 4)
+
+
+@pytest.mark.parametrize("rows", [4, 6])
 def test_tensor_core_tile_phase_passes_on_cpu_twins(rows):
     """Phase 3's second pass over the five kernels on the tensor-core
     tile and the tr rotation (extreme operands and accumulators, 4 and 6
@@ -288,7 +300,8 @@ def test_tile_bench_checks_on_cpu_twins():
                    "rot_diff_decompose_tr_ms": {},
                    "external_product_tr_ms": {}, "rotate_sublane_ms": {},
                    "rot_diff_decompose_launch_ms": {},
-                   "rotate_sublane_route_ms": {}}
+                   "rotate_sublane_route_ms": {},
+                   "blind_rotate_scan_launch_ms": {}}
     # the launch variants it times: both run lengths of the split
     # rotation, the sublane rotation's slab and gather
     acc, bara, _ = tile_bench.step_inputs(p, 5, dev, np.random.RandomState(1))

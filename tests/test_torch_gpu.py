@@ -324,23 +324,64 @@ def test_small_n_bootstrap_runs_on_the_card(cuda):
     assert _launched(counts) == set()
 
 
-@pytest.mark.parametrize("p", PARAMS, ids=lambda p: p.name)
-@pytest.mark.parametrize("b", [1, 5, 64, 1056])
-def test_blind_rotate_scan_kernel_matches_plain(cuda, p, b):
-    """All n steps of ``p``, edge amounts in the first three."""
-    rng = np.random.RandomState(300 + b)
-    acc = _rand(rng, (p.k + 1, b, p.N), -2**31, 2**31, np.int32, cuda)
-    bara = _rand(rng, (b, p.n), 0, 2 * p.N, np.int32, cuda)
-    bara[:, :3] = torch.tensor([0, p.N, 2 * p.N - 1], dtype=torch.int32,
-                               device=cuda)
-    bk = _rand(rng, (p.n, p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
-               np.int32, cuda)
-    before = kernels.blind_rotate_scan.launches
+#: the scan kernel's batches: ragged ones, and 8, 24, 256 and 272 either
+#: side of where its launch stops splitting a tile's sum into parts
+SCAN_BATCHES = [1, 5, 8, 16, 24, 64, 256, 272, 1056]
+
+#: its step counts: all n of the parameter set, and 1 to 3, the phases of
+#: its turn through three buffers
+SCAN_STEPS = [None, 1, 2, 3]
+
+
+def _scan_call(p, acc, bara, bk):
+    """The scan kernel on its inputs, held to its twin: one launch, the
+    input accumulator unchanged."""
+    before, acc0 = kernels.blind_rotate_scan.launches, acc.clone()
     got = kernels.blind_rotate_scan(acc, bara, bk, p)
     assert kernels.blind_rotate_scan.launches == before + 1
     want = kernels.blind_rotate_scan_plain(acc, bara, bk, p)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    assert torch.equal(acc, acc0)
+
+
+@pytest.mark.parametrize("steps", SCAN_STEPS)
+@pytest.mark.parametrize("p", PARAMS, ids=lambda p: p.name)
+@pytest.mark.parametrize("b", SCAN_BATCHES)
+def test_blind_rotate_scan_kernel_matches_plain(cuda, p, b, steps):
+    """All n steps of ``p``, or the first ``steps``, edge amounts in the
+    first three."""
+    n = p.n if steps is None else steps
+    rng = np.random.RandomState(300 + b)
+    acc = _rand(rng, (p.k + 1, b, p.N), -2**31, 2**31, np.int32, cuda)
+    bara = _rand(rng, (b, n), 0, 2 * p.N, np.int32, cuda)
+    bara[:, :3] = torch.tensor([0, p.N, 2 * p.N - 1], dtype=torch.int32,
+                               device=cuda)[:n]
+    bk = _rand(rng, (n, p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
+               np.int32, cuda)
+    _scan_call(p, acc, bara, bk)
+
+
+def test_blind_rotate_scan_allocates_no_digit_tensor(cuda):
+    """The kernel's device memory is the accumulator's buffers and the
+    grid barrier's word (one 512-byte block of the allocator): two
+    buffers at B=1024 (one part a tile), three at B=8 (the parts add into
+    a zeroed buffer); no (rows, B, N) int8 digit tensor."""
+    p = P.IEACHE_110_FAST
+    rng = np.random.RandomState(17)
+    for b, buffers in ((1024, 2), (8, 3)):
+        acc = _rand(rng, (p.k + 1, b, p.N), -2**31, 2**31, np.int32, cuda)
+        bara = _rand(rng, (b, 4), 0, 2 * p.N, np.int32, cuda)
+        bk = _rand(rng, (4, p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
+                   np.int32, cuda)
+        kernels.blind_rotate_scan(acc, bara, bk, p)    # built, policy read
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(cuda)
+        before = torch.cuda.memory_allocated(cuda)
+        out = kernels.blind_rotate_scan(acc, bara, bk, p)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(cuda) - before
+        assert out.nbytes <= peak <= buffers * acc.nbytes + 512, (b, peak)
 
 
 @pytest.mark.parametrize("p", PARAMS, ids=lambda p: p.name)
@@ -738,22 +779,18 @@ def test_external_product_kernel_either_side_of_the_split(cuda, p, b):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("steps", SCAN_STEPS)
 @pytest.mark.parametrize("p", PARAMS, ids=lambda p: p.name)
-@pytest.mark.parametrize("b", MMA_BATCHES)
-def test_blind_rotate_scan_kernel_edge_key_words(cuda, p, b):
+@pytest.mark.parametrize("b", SCAN_BATCHES)
+def test_blind_rotate_scan_kernel_edge_key_words(cuda, p, b, steps):
     """The whole rotation on a key of edge words (20 steps at the full
-    size), equal to the twin."""
-    p = dataclasses.replace(p, n=min(p.n, 20))
+    size, or the first ``steps``), equal to the twin."""
+    p = dataclasses.replace(p, n=min(p.n, 20) if steps is None else steps)
     rng = np.random.RandomState(300 + b)
     acc = _rand(rng, (p.k + 1, b, p.N), -2**31, 2**31, np.int32, cuda)
     bara = _rand(rng, (b, p.n), 0, 2 * p.N, np.int32, cuda)
     bk = _edge_key((p.n, p.trgsw_rows, p.k + 1, p.N), cuda)
-    before = kernels.blind_rotate_scan.launches
-    got = kernels.blind_rotate_scan(acc, bara, bk, p)
-    assert kernels.blind_rotate_scan.launches == before + 1
-    want = kernels.blind_rotate_scan_plain(acc, bara, bk, p)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    _scan_call(p, acc, bara, bk)
 
 
 @pytest.mark.parametrize("mode", ["split", "scan", "fused2", "overlap",

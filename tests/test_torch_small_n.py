@@ -75,14 +75,15 @@ def test_predicate_by_mode_and_ring_degree(mode):
 
 
 @pytest.mark.parametrize("mode,rows,ok", [
-    ("split", 127, True), ("scan", 127, True), ("split", 128, False),
-    ("fused2", 12, True), ("fused2", 13, False),
+    ("split", 127, True), ("scan", 12, True), ("scan", 13, False),
+    ("split", 128, False), ("fused2", 12, True), ("fused2", 13, False),
     ("overlap", 6, True), ("overlap2", 6, True), ("overlap", 7, False)])
 def test_predicate_holds_the_digit_tiles_to_a_block_s_shared_memory(
         mode, rows, ok):
-    """At N=1024 a fused2 block keeps one (rows, 16, N + 16) digit tile
-    beside the 21 KB of byte planes and an overlap block two; split and
-    scan stream their digits and are bound by rows * N alone."""
+    """At N=1024 a fused2 or scan block keeps one (rows, 16, N + 16) digit
+    tile beside the 21 KB of byte planes (a scan block also 16 amounts)
+    and an overlap block two; split streams its digits and is bound by
+    rows * N alone."""
     why = kernels.kernels_refusal(mode, rows, 1024)
     assert (why is None) == ok, why
     if not ok:
