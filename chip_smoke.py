@@ -45,6 +45,11 @@ prints no result line:
    -128 or +127, and the words where a carry between limbs goes wrong),
    the per-step kernels also at B = 256 and 257, either side of where
    their launches start to split a tile's sum over blocks;
+   external_product at both parameter sets once more under every form
+   and launch shape ``product_launch`` picks from (the mma.sync tile and
+   the two wgmma tiles, each at its default split), through the uncounted
+   entry, at those batches and B = 24 and 64, on random and extreme
+   operands, with and without the accumulator;
    the rotation probe's
    kernels at its B=2048 and at B=5 and 16 (the sublane kernel's slab
    and its gather); the split rotation at every run length and block
@@ -90,7 +95,9 @@ prints no result line:
    replay, and around a plain Python loop), at B=1024 (the probe's
    rotations at B=2048) and, for the split pair, the two fused step
    kernels, the tr pair and the sublane rotation (its gather), at B=8
-   and B=16 too; ms per whole rotation
+   and B=16 too (the result line gives external_product's at B=8, 16
+   and 1024 beside their bounds and the form its launch took); ms per
+   whole rotation
    of the scan kernel and its twin at B=8 and B=1024 (CUDA events
    around the call); the rotation probe (``transposed_probe``, its
    launch counts reset just before and read just after: the probe
@@ -303,6 +310,11 @@ MM_BF16_RTOL = 1e-2
 MMA_PARAMS = (P.IEACHE_110_FAST, P.IEACHE_110)
 MMA_BATCHES = (1, 5, 8, 16, 1024, 1056)
 MMA_SPLIT_EDGE = (256, 257)
+
+#: the batches beside MMA_BATCHES and MMA_SPLIT_EDGE at which phase 3 holds
+#: external_product to its twin under every launch shape: inside a 32-row
+#: wgmma tile, and one 64-row tile
+PRODUCT_BATCHES = (24, 64)
 
 #: the batches and step counts at which phase 3 holds the scan kernel to
 #: its twin once more: either side of where its launch stops splitting a
@@ -672,6 +684,44 @@ def check_mma_kernels(p, device, batches, split_edge=MMA_SPLIT_EDGE, seed=5):
         f"external_product_tr, cmux_step, cmux_step_overlap and the tr pair "
         f"equal at B={'/'.join(map(str, split_edge))}, either side of the "
         f"split")
+    return errs
+
+
+def check_product_launches(p, device, batches, seed=23):
+    """Phase 3: external_product at ``p`` under every launch shape
+    ``kernels.product_launch`` picks from at each of ``batches`` (the
+    mma.sync tile and each wgmma tile, at its default split), whatever the
+    policy picks there, through the uncounted entry: random operands and
+    the extreme ones of :func:`extreme_operands`, with and without the
+    accumulator, each equal to the twin.  Returns max abs error."""
+    rng = np.random.RandomState(seed)
+    errs = {}
+    sms = kernels._sm_count(device) if device.type == "cuda" else 132
+    for b in batches:
+        acc = _rand(rng, (p.k + 1, b, p.N), -2**31, 2**31, np.int32, device)
+        cases = [("random",
+                  _rand(rng, (p.trgsw_rows, b, p.N), -128, 128, np.int8,
+                        device),
+                  _rand(rng, (p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
+                        np.int32, device)),
+                 *extreme_operands(p, b, device, rng)]
+        shapes = kernels.product_launch_shapes(b, p.k + 1, p.N, p.trgsw_rows,
+                                               sms)
+        for name, d, bk_i in cases:
+            for a in (None, acc):
+                want = kernels.external_product_plain(d, bk_i, p, a)
+                for shape, launch in shapes.items():
+                    _compare("external_product",
+                             kernels.external_product_as(d, bk_i, p, a,
+                                                         launch), want, errs,
+                             device, f"{p.name} B={b} {name} "
+                             f"acc={a is not None} {shape} split "
+                             f"{launch.split}")
+        pick = kernels.product_launch(b, p.k + 1, p.N, p.trgsw_rows, sms)
+        log(f"phase 3 product launches: {p.name} B={b} external_product "
+            f"equal under {', '.join(shapes)} (the pick: {pick.form} "
+            f"{pick.tile} x {pick.cols}, split {pick.split}) on random and "
+            f"{len(cases) - 1} extreme operand sets, with and without acc")
     return errs
 
 
@@ -1959,6 +2009,10 @@ def main() -> int:
             errs[name] = max(errs[name], err)
         for name, err in check_scan_turns(mma_p, device).items():
             errs[name] = max(errs[name], err)
+        for name, err in check_product_launches(
+                mma_p, device, (*MMA_BATCHES, *PRODUCT_BATCHES,
+                                *MMA_SPLIT_EDGE)).items():
+            errs[name] = max(errs[name], err)
     errs.update(check_mm_kernels(device))
 
     # keys and operands (set-up), and the keygen phase: the device
@@ -2053,11 +2107,20 @@ def main() -> int:
                       t))
     # the split pair beside the two fused steps and the tr pair at the
     # batches of A + B - C, and the sublane rotation's gather
+    by_batch = {batch: steps["external_product"]}
     for b in SMALL_BATCHES:
         for name, t in step_times(p, device, b, reps=20,
                                   names=SMALL_BATCH_KERNELS,
                                   probe_b=b).items():
             log(step_line(name, b, t))
+            if name == "external_product":
+                by_batch[b] = t
+    sms = kernels._sm_count(device)
+    product_by_batch = {
+        b: {"ms": t["ms"], "bound_ms": t["bound_ms"],
+            "form": kernels.product_launch(b, p.k + 1, p.N, p.trgsw_rows,
+                                           sms).form}
+        for b, t in sorted(by_batch.items())}
     # the rotations again with the L2 cold: their bytes from HBM
     for name, t in cold_times(p, device, batch).items():
         log(cold_line(name, t))
@@ -2161,7 +2224,9 @@ def main() -> int:
          "ms": steps[name]["ms"], "plain_ms": steps[name]["plain_ms"],
          "bound_ms": steps[name]["bound_ms"],
          "bound_by": steps[name]["bound_by"],
-         "library_ms": steps[name]["library_ms"]}
+         "library_ms": steps[name]["library_ms"],
+         **({"by_batch": product_by_batch}
+            if name == "external_product" else {})}
         for name, src, rep in KERNELS
     ]}
     device_rec = {"platform": "gpu", "kind": kind,

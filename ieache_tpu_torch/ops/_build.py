@@ -121,8 +121,13 @@ def _load() -> ctypes.CDLL:
         vp, vp, vp, i32, i32, i32, i32, i32, ctypes.c_uint32, i32, vp]
     lib.ieache_rot_diff_decompose.restype = i32
     lib.ieache_rot_diff_decompose_tr.restype = i32
+    # the product's launch (ops/kernels.py:product_launch) comes last but
+    # for the stream: form, batch tile, coefficients, split
+    lib.ieache_external_product.argtypes = [
+        vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, vp]
+    lib.ieache_external_product_tr.argtypes = [
+        vp, vp, vp, vp, i32, i32, i32, i32, vp]
     for fn in (lib.ieache_external_product, lib.ieache_external_product_tr):
-        fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
         fn.restype = i32
     lib.ieache_rotate_lane.argtypes = [vp, vp, vp, i32, i32, i32, vp]
     lib.ieache_rotate_sublane.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]

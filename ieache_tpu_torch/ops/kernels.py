@@ -11,10 +11,15 @@ through the kernels of the step mode ``IEACHE_PALLAS_STEP`` selects:
   (:func:`rot_diff_decompose_run_model` is its plain model), then
   :func:`external_product`
   (``csrc/external_product.cu``, replaces ``external_product_pallas_t``)
-  with the accumulator fused, on the int8 tensor cores
+  with the accumulator fused, on the int8 tensor cores in the form
+  :func:`product_launch` picks by batch: Hopper's warpgroup MMA
+  (``csrc/wgmma_tile.cuh``; :func:`wgmma_toeplitz_tile`,
+  :func:`wgmma_stage_model`, :func:`wgmma_descriptor_reads`,
+  :func:`wgmma_epilogue_model` and :func:`external_product_wgmma_model`
+  are its plain model) or, at small batches, ``mma.sync``
   (``csrc/mma_tile.cuh``; :func:`mma_planes`, :func:`mma_toeplitz_tile`
-  and :func:`external_product_mma_model` are a plain model of that
-  tile's operand construction, for the CPU tests);
+  and :func:`external_product_mma_model` model that tile's operand
+  construction), for the CPU tests;
 * ``fused2``: :func:`cmux_step` (``csrc/cmux_step.cu``, replaces
   ``cmux_step_pallas``), the whole step in one kernel: the same
   tensor-core tile fed from digits the block decomposes into its own
@@ -135,6 +140,7 @@ def rot_diff_decompose_plain(acc: torch.Tensor, bara: torch.Tensor,
     return d.transpose(0, 1).to(torch.int8).contiguous()
 
 
+@functools.cache
 @functools.cache
 def _sm_count(device: torch.device) -> int:
     """The SMs of a CUDA device, which the launch policies read."""
@@ -462,15 +468,17 @@ def mma_limb_bytes(e: torch.Tensor) -> torch.Tensor:
                        dim=-1).to(torch.int8)
 
 
-def mma_planes(g: torch.Tensor, jb: int, ma: int, mcols: int) -> torch.Tensor:
+def mma_planes(g: torch.Tensor, jb: int, ma: int, mcols: int,
+               t: int | None = None) -> torch.Tensor:
     """``build_planes`` of the kernel for one key polynomial g (N,) int32,
-    a tile whose first coefficient is ``jb`` and digit columns ``ma`` ..
-    ``ma + mcols - 1``: int8 (4 limbs, 4 copies, T + mcols bytes), byte
-    4x + q of copy s of limb v = limb v of e[i0 - s - q] with
-    i0 = N - 1 + jb + T - ma - 4x, e = concat(-g, g) and e[i] = 0 for
-    i < 0."""
+    a tile of T coefficients (``t``; by default ``min(N, 256)``, the
+    ``mma.sync`` tile's) whose first coefficient is ``jb`` and digit
+    columns ``ma`` .. ``ma + mcols - 1``: int8 (4 limbs, 4 copies, T +
+    mcols bytes), byte 4x + q of copy s of limb v = limb v of
+    e[i0 - s - q] with i0 = N - 1 + jb + T - ma - 4x, e = concat(-g, g)
+    and e[i] = 0 for i < 0."""
     n = g.shape[-1]
-    t = min(n, MMA_TILE_COLS)
+    t = min(n, MMA_TILE_COLS) if t is None else t
     limbs = mma_limb_bytes(negacyclic_extend(g))           # (2N, 4)
     y = torch.arange(t + mcols, device=g.device)            # byte 4x + q
     s = torch.arange(4, device=g.device)[:, None]
@@ -797,6 +805,324 @@ def rot_diff_decompose_tr_slab_model(acc: torch.Tensor, bara: torch.Tensor,
         .to(torch.int8)
 
 
+# The same product on Hopper's warpgroup MMA (csrc/wgmma_tile.cuh): a block
+# of W consumer warpgroups beside a producer warpgroup, wgmma.mma_async
+# m64nBNk32 s8 x s8 -> s32 with the Toeplitz limbs as the A operand from
+# registers (the 64 rows of a wgmma are the four limbs of 16 coefficients:
+# warp v of a warpgroup holds limb v) and the digits as the B operand from
+# shared memory, staged by the tensor-memory accelerator in the swizzled
+# layout the matrix descriptor reads; a plain model of each part, and the
+# launch policy.
+
+#: batch rows of a wgmma block's tile (the wgmma's n)
+WG_BATCH_TILES = (32, 64)
+
+#: chains of 16 coefficients a consumer warpgroup computes, one wgmma each
+#: a k-step: its registers hold the accumulators, 4 x BN / 2, and the A
+#: quads of two commit groups in flight, 2 x 4 x 2 k-steps x 4
+WG_CHAINS = 4
+
+#: digit columns one build of a wgmma block's byte planes covers
+WG_SEG_COLS = 1024
+
+#: the product's kernel forms: mma.sync m16n8k32 on the 16-row tile of
+#: csrc/mma_tile.cuh, and wgmma on csrc/wgmma_tile.cuh's
+PRODUCT_FORMS = ("mma", "wgmma")
+
+#: batch x TRGSW rows up to which the mma.sync form's 16-row tile is the
+#: faster one (tools/tile_bench.py's sweep on the H100, PERF.md: at 4 rows
+#: up to B = 128, at 6 rows up to B = 64)
+PRODUCT_MMA_MAX_WORK = 512
+
+
+def wgmma_chunk_cols(n: int) -> int:
+    """Digit columns a chunk of the wgmma form at ring degree ``n``: one
+    stage of its ring, min(N, 256), issued as commit groups of 64
+    columns."""
+    return min(n, 256)
+
+
+def wgmma_tiles(n: int) -> tuple:
+    """The (batch rows, coefficients) tiles of the wgmma form at ring
+    degree ``n`` (``wgmma_launch_for`` in csrc/external_product.cu): 32 or
+    64 rows x min(N, 128) coefficients, a consumer warpgroup for each 64
+    of them."""
+    return tuple((bn, min(n, 128)) for bn in WG_BATCH_TILES)
+
+
+def wgmma_window_index(c: int, r: int) -> int:
+    """The entry of a warpgroup's window of 2 C + 2 plane words a k-step
+    (C = :data:`WG_CHAINS`; entry i holds diagonal 4 ks - (2 C - 1) + i of
+    k-step ks, in units of 8 coefficients) that A register ``r`` of its
+    chain ``c`` takes: 2 C - 1 - 2 c + :data:`MMA_A_DIAGONALS` [r]."""
+    return 2 * WG_CHAINS - 1 - 2 * c + MMA_A_DIAGONALS[r]
+
+
+def wgmma_toeplitz_tile(planes: torch.Tensor, t: int,
+                        mcols: int) -> torch.Tensor:
+    """The Toeplitz limb tile as the wgmma block's A registers hold it,
+    gathered from :func:`mma_planes` (T = ``t``) through the window of
+    :func:`wgmma_window_index`: int8 (4 limbs, t, mcols), entry [v, jl,
+    ml] = T_v[ml, jl].  Thread lane = 4 grp + t4 of warp v (limb v) of
+    warpgroup g reads, for its chain c, k-step ks and register r, word
+    ``t / 4 - 1 - 4 C g - grp // 4 + t4 + 2 (4 ks - (2 C - 1) +
+    wgmma_window_index(c, r))`` (C = :data:`WG_CHAINS`) of copy
+    ``3 - grp % 4`` of limb v: byte q is the operand at coefficient
+    jl = 16 (C g + c) + 8 (r % 2) + grp, digit column ml = 32 ks +
+    16 (r // 2) + 4 t4 + q."""
+    jl, ml, copy, byte = (x.to(planes.device)
+                          for x in _wgmma_a_gather(t, mcols))
+    tile = torch.zeros((TORUS_LIMBS, t, mcols), dtype=torch.int8,
+                       device=planes.device)
+    tile[:, jl, ml] = planes[:, copy, byte]
+    return tile
+
+
+@functools.cache
+def _wgmma_a_gather(t: int, mcols: int) -> tuple:
+    """:func:`wgmma_toeplitz_tile`'s index map, flat: (jl, ml, copy, byte
+    4 word + q) for every (warpgroup, chain, grp, k-step, register, t4,
+    q)."""
+    g, c, grp, ks, r, t4, q = torch.meshgrid(
+        torch.arange(t // (16 * WG_CHAINS)), torch.arange(WG_CHAINS),
+        torch.arange(8), torch.arange(mcols // 32), torch.arange(4),
+        torch.arange(4), torch.arange(4), indexing="ij")
+    entry = 2 * WG_CHAINS - 1 - 2 * c + torch.tensor(MMA_A_DIAGONALS)[r]
+    word = (t // 4 - 1 - 4 * WG_CHAINS * g - grp // 4 + t4
+            + 2 * (4 * ks - (2 * WG_CHAINS - 1) + entry))
+    jl = 16 * (WG_CHAINS * g + c) + 8 * (r % 2) + grp
+    ml = 32 * ks + 16 * (r // 2) + 4 * t4 + q
+    return (jl.reshape(-1), ml.reshape(-1), (3 - grp % 4).reshape(-1),
+            (4 * word + q).reshape(-1))
+
+
+def wgmma_swizzle(kc: int) -> int:
+    """The swizzle span, in bytes, of a wgmma stage of ``kc`` columns: the
+    tensor-memory accelerator writes boxes of that many columns, 128 (64
+    for chunks of 64 columns)."""
+    return 128 if kc >= 128 else 64
+
+
+def _swizzled(lin, sw: int):
+    """A byte offset within a box with its 16-byte pieces permuted as the
+    hardware's swizzle of span ``sw`` permutes them: bits 4.. xor bits
+    7.. (3 bits at 128, 2 at 64); boxes start on the swizzle's atoms."""
+    return lin ^ (((lin >> 7) & (sw // 16 - 1)) << 4)
+
+
+def wgmma_stage_offset(row, col, bn: int, kc: int):
+    """Byte offset of digit (batch row ``row``, column ``col`` of the chunk)
+    in a stage of ``bn`` rows x ``kc`` columns as the tensor-memory
+    accelerator writes it: box col // SW (SW = :func:`wgmma_swizzle`) of
+    ``bn`` rows x SW bytes at (col // SW) * bn * SW, its rows SW bytes
+    apart, the 16-byte pieces of a row swizzled (:func:`_swizzled`)."""
+    sw = wgmma_swizzle(kc)
+    return (col // sw) * bn * sw + _swizzled(row * sw + col % sw, sw)
+
+
+def wgmma_stage_model(d: torch.Tensor, p: int, m0c: int, b0: int, bn: int,
+                      kc: int) -> torch.Tensor:
+    """The stage the tensor-memory accelerator fills for digit row p,
+    columns m0c .. m0c + kc - 1 and batch rows b0 .. b0 + bn - 1 of d
+    (rows, B, N) int8 (dimensions N, B, rows; boxes of SW x bn x 1):
+    (bn * kc,) int8, rows past the batch zero."""
+    stage = torch.zeros(bn * kc, dtype=torch.int8, device=d.device)
+    nb = min(bn, d.shape[1] - b0)
+    row = torch.arange(nb, device=d.device)[:, None]
+    col = torch.arange(kc, device=d.device)[None, :]
+    stage[wgmma_stage_offset(row, col, bn, kc).reshape(-1)] = \
+        d[p, b0:b0 + nb, m0c:m0c + kc].reshape(-1)
+    return stage
+
+
+def wgmma_descriptor_reads(bn: int, kc: int, ks: int) -> torch.Tensor:
+    """What the B matrix descriptor of k-step ``ks`` reads: (32, bn) int64
+    of stage byte offsets, entry [k, n] = the byte the wgmma takes as
+    B[k, n] (digit column 32 ks + k of batch row n).  The descriptor
+    starts at box 32 ks // SW plus 32 ks % SW bytes, SBO = 8 SW, swizzle
+    span SW; the hardware reads row n at (n // 8) SBO + (n % 8) SW, byte k
+    of the k-step 32 ks % SW + k on, and swizzles the offset within its
+    box (:func:`_swizzled`)."""
+    sw = wgmma_swizzle(kc)
+    k = torch.arange(32)[:, None]
+    n = torch.arange(bn)[None, :]
+    kb = 32 * ks
+    lin = (n // 8) * 8 * sw + (n % 8) * sw + kb % sw + k
+    return (kb // sw) * bn * sw + _swizzled(lin, sw)
+
+
+def wgmma_fragment_rows(bn: int) -> torch.Tensor:
+    """Where the wgmma's accumulator registers lie: (32 lanes, bn / 2, 2)
+    int64 of (row, batch column) for register i of lane = 4 grp + t4 of a
+    warp: row grp + 8 ((i // 2) % 2) of the warp's 16, column 8 (i // 4) +
+    2 t4 + i % 2."""
+    lane = torch.arange(32)[:, None]
+    i = torch.arange(bn // 2)[None, :]
+    rows = (lane // 4 + 8 * ((i // 2) % 2)).expand(32, bn // 2)
+    cols = 8 * (i // 4) + 2 * (lane % 4) + i % 2
+    return torch.stack([rows, cols], dim=-1)
+
+
+#: words of a row of an epilogue slab: a warpgroup's 64 coefficients and 4
+#: of padding, so that a warp's 32 stores of one fragment register fall on
+#: 32 banks
+WG_SLAB_PITCH = 16 * WG_CHAINS + 4
+
+
+def wgmma_slab_words(bn: int) -> torch.Tensor:
+    """The slab word each accumulator register of a warp is stored to:
+    (4 chains, 32 lanes, bn / 2) int64, chain c's register at row = batch
+    column b, column 16 c + its fragment row."""
+    frag = wgmma_fragment_rows(bn)
+    c = torch.arange(WG_CHAINS)[:, None, None]
+    return frag[..., 1] * WG_SLAB_PITCH + 16 * c + frag[..., 0]
+
+
+def wgmma_epilogue_model(sums: torch.Tensor) -> torch.Tensor:
+    """The epilogue's fold: ``sums`` (4 limbs, T, bn) int32, limb v's sums
+    as warp v of each warpgroup holds them, each register stored as
+    (uint32) S_v << 8v to its warpgroup's slab v at
+    :func:`wgmma_slab_words`, then each warpgroup's four slabs read back by
+    16-byte quads and added (wrapping).  Returns (bn, T) int32, batch row
+    by coefficient."""
+    _, t, bn = sums.shape
+    pitch = WG_SLAB_PITCH
+    frag = wgmma_fragment_rows(bn)
+    words = wgmma_slab_words(bn)
+    out = []
+    for g in range(t // (16 * WG_CHAINS)):
+        total = torch.zeros(bn * pitch, dtype=torch.int32)
+        for v in range(TORUS_LIMBS):
+            slab = torch.zeros(bn * pitch, dtype=torch.int32)
+            for c in range(WG_CHAINS):
+                vals = sums[v, 16 * (WG_CHAINS * g + c) + frag[..., 0],
+                            frag[..., 1]]
+                slab[words[c].reshape(-1)] = (vals << (8 * v)).reshape(-1)
+            total = total + slab
+        out.append(total.reshape(bn, pitch)[:, :16 * WG_CHAINS])
+    return torch.cat(out, dim=1)
+
+
+class ProductLaunch(NamedTuple):
+    """The external product's launch (:func:`product_launch`): the last
+    arguments of ``ieache_external_product`` before the stream, and the
+    blocks they make."""
+
+    form: str    # "mma" (csrc/mma_tile.cuh) or "wgmma" (csrc/wgmma_tile.cuh)
+    tile: int    # batch rows of a block's tile: 16, or a wgmma's n
+    cols: int    # coefficients of a block's tile
+    split: int   # parts of each tile's sum over its (p, chunk) pairs
+    grid: int    # blocks
+
+
+def product_shape(batch: int, kp1: int, n: int, rows: int, form: str,
+                  tile: int, cols: int, split: int | None = None,
+                  sms: int = 132) -> ProductLaunch:
+    """The product's launch in ``form`` with ``tile`` batch rows x ``cols``
+    coefficients a block, each tile's sum cut in ``split`` parts (by
+    default :func:`mma_split_for`'s: the fewest that give each of ``sms``
+    SMs a block, a divisor of a tile's (p, chunk) pairs)."""
+    kc = min(n, MMA_TILE_COLS) if form == "mma" else wgmma_chunk_cols(n)
+    tiles = -(-batch // tile) * (n // cols) * kp1
+    if split is None:
+        split = mma_split_for(tiles, rows * (n // kc), sms)
+    return ProductLaunch(form, tile, cols, split, tiles * split)
+
+
+def product_launch_shapes(batch: int, kp1: int, n: int, rows: int,
+                          sms: int = 132) -> dict:
+    """The launches :func:`product_launch` picks from, each with its
+    default split: "mma" (the 16-row mma.sync tile) and "wgmma BN x T" for
+    each tile of :func:`wgmma_tiles`."""
+    shapes = {"mma": product_shape(batch, kp1, n, rows, "mma", MMA_TILE_ROWS,
+                                   min(n, MMA_TILE_COLS), sms=sms)}
+    for bn, cols in wgmma_tiles(n):
+        shapes[f"wgmma {bn} x {cols}"] = product_shape(
+            batch, kp1, n, rows, "wgmma", bn, cols, sms=sms)
+    return shapes
+
+
+@functools.cache
+def product_launch(batch: int, kp1: int, n: int, rows: int,
+                   sms: int = 132) -> ProductLaunch:
+    """The launch of ``csrc/external_product.cu`` on a card of ``sms`` SMs,
+    which the kernel takes as it is (each tile's sum split as
+    :func:`product_shape` says).  Up to :data:`PRODUCT_MMA_MAX_WORK` batch
+    x rows the mma.sync form: there a step is a chain of latencies, and
+    its 16-row tile's shorter one wins.  Beyond, the wgmma form: its 64-row
+    tile (one block an SM, twice the work of a 32-row block for less than
+    twice the time) where its grid holds 1.4 waves or more and does not
+    leave the last wave under 40% full, else the 32-row tile.  Set from
+    tools/tile_bench.py's sweep of B = 8 .. 1056 at 4 and 6 rows (PERF.md):
+    it picks the fastest shape or one within 6% of it."""
+    if batch * rows <= PRODUCT_MMA_MAX_WORK:
+        return product_shape(batch, kp1, n, rows, "mma", MMA_TILE_ROWS,
+                             min(n, MMA_TILE_COLS), sms=sms)
+    (narrow, cols), (wide, _) = wgmma_tiles(n)
+    blocks = -(-batch // wide) * (n // cols) * kp1
+    last = blocks % sms
+    bn = wide if blocks >= 1.4 * sms and (last == 0 or last >= 0.4 * sms) \
+        else narrow
+    return product_shape(batch, kp1, n, rows, "wgmma", bn, cols, sms=sms)
+
+
+def external_product_wgmma_model(d: torch.Tensor, bk_i: torch.Tensor,
+                                 params: TFHEParams,
+                                 acc: torch.Tensor | None = None,
+                                 launch: ProductLaunch | None = None,
+                                 sms: int = 132) -> torch.Tensor:
+    """The wgmma form's arithmetic in plain ops, tile by tile, under
+    ``launch`` (by default :func:`product_launch`'s on ``sms`` SMs): for
+    each T x BN tile and each part of its (p, chunk) pairs, the planes of
+    each key polynomial built per segment of up to :data:`MMA_SEG_CHUNKS`
+    chunks, the A tile from :func:`wgmma_toeplitz_tile`, each chunk staged
+    (:func:`wgmma_stage_model`) and read through the descriptor of each
+    k-step (:func:`wgmma_descriptor_reads`), one int32 sum per limb, the
+    epilogue's fold (:func:`wgmma_epilogue_model`), and the part added to
+    the output (wrapping), which holds acc or zero.  Same arguments and
+    result as :func:`external_product_plain`."""
+    rows, kp1, n = bk_i.shape
+    _refuse(kernels_refusal("split", rows, n))
+    b = d.shape[1]
+    launch = launch or product_launch(b, kp1, n, rows, sms)
+    bn, t, split = launch.tile, launch.cols, launch.split
+    kc = wgmma_chunk_cols(n)
+    nchunk = n // kc
+    nchunks = rows * nchunk
+    out = (torch.zeros((kp1, b, n), dtype=torch.int32, device=d.device)
+           if acc is None else acc.clone())
+    # the chunk's k-steps' descriptor reads, k-step after k-step: (kc, bn)
+    reads = torch.cat([wgmma_descriptor_reads(bn, kc, ks)
+                       for ks in range(kc // 32)])
+    for o in range(kp1):
+        for jb in range(0, n, t):
+            for b0 in range(0, b, bn):
+                nb = min(bn, b - b0)
+                for q in range(split):
+                    c, c_end = q * nchunks // split, (q + 1) * nchunks // split
+                    sums = torch.zeros((TORUS_LIMBS, t, bn),
+                                       dtype=torch.int32, device=d.device)
+                    while c < c_end:
+                        p, ch0 = c // nchunk, c % nchunk
+                        nseg = min(c_end - c, nchunk - ch0,
+                                   WG_SEG_COLS // kc)
+                        tile = wgmma_toeplitz_tile(
+                            mma_planes(bk_i[p, o], jb, ch0 * kc, nseg * kc,
+                                       t=t),
+                            t, nseg * kc).to(torch.int32)
+                        for i in range(nseg):
+                            stage = wgmma_stage_model(d, p, (ch0 + i) * kc,
+                                                      b0, bn, kc)
+                            sums += torch.einsum(
+                                "vjk,kn->vjn",
+                                tile[:, :, i * kc:(i + 1) * kc],
+                                stage[reads].to(torch.int32))
+                        c += nseg
+                    out[o, b0:b0 + nb, jb:jb + t] += \
+                        wgmma_epilogue_model(sums)[:nb]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # external product, accumulator fused
 # ---------------------------------------------------------------------------
@@ -844,18 +1170,60 @@ def _external_product_launch(wrapper, entry: str, plain, d: torch.Tensor,
         return plain(d, bk_i, params, acc)
 
     _refuse(kernels_refusal("tr" if tr else "split", rows, n))
-    out = torch.empty((kp1, *shape), dtype=torch.int32, device=d.device)
     if b == 0:
-        return out
+        return torch.empty((kp1, *shape), dtype=torch.int32, device=d.device)
     lib, stream = _launch_context(d)
-    code = getattr(lib, entry)(
-        d.data_ptr(), bk_i.data_ptr(),
-        None if acc is None else acc.data_ptr(), out.data_ptr(),
-        rows, kp1, b, n, stream,
-    )
-    _build.check(lib, code, entry)
+    if tr:
+        out = torch.empty((kp1, *shape), dtype=torch.int32, device=d.device)
+        code = getattr(lib, entry)(
+            d.data_ptr(), bk_i.data_ptr(),
+            None if acc is None else acc.data_ptr(), out.data_ptr(),
+            rows, kp1, b, n, stream,
+        )
+        _build.check(lib, code, entry)
+    else:
+        out = _external_product_entry(
+            d, bk_i, params, acc,
+            product_launch(b, kp1, n, rows, _sm_count(d.device)))
     wrapper.launches += 1
     return out
+
+
+def _external_product_entry(d: torch.Tensor, bk_i: torch.Tensor,
+                            params: TFHEParams, acc: torch.Tensor | None,
+                            launch: ProductLaunch) -> torch.Tensor:
+    """One launch of ``ieache_external_product`` on checked CUDA tensors
+    with the launch shape ``launch``, uncounted: the wrapper's launch, and
+    the one chip_smoke and ``tools/tile_bench.py`` give every form, batch
+    tile and split by."""
+    rows, kp1, n = params.trgsw_rows, params.k + 1, params.N
+    b = d.shape[1]
+    out = torch.empty((kp1, b, n), dtype=torch.int32, device=d.device)
+    lib, stream = _launch_context(d)
+    code = lib.ieache_external_product(
+        d.data_ptr(), bk_i.data_ptr(),
+        None if acc is None else acc.data_ptr(), out.data_ptr(),
+        rows, kp1, b, n, PRODUCT_FORMS.index(launch.form), launch.tile,
+        launch.cols, launch.split, stream,
+    )
+    _build.check(lib, code, "external_product")
+    return out
+
+
+def external_product_as(d: torch.Tensor, bk_i: torch.Tensor,
+                        params: TFHEParams, acc: torch.Tensor | None,
+                        launch: ProductLaunch) -> torch.Tensor:
+    """The product under ``launch``, uncounted, whatever the policy picks:
+    :func:`_external_product_entry` on CUDA tensors, the plain model of
+    that form on CPU tensors (:func:`external_product_wgmma_model`, or
+    :func:`external_product_mma_model`).  chip_smoke and
+    ``tools/tile_bench.py`` hold every launch shape to the twin by it."""
+    if d.is_cuda:
+        return _external_product_entry(d, bk_i, params, acc, launch)
+    if launch.form == "wgmma":
+        return external_product_wgmma_model(d, bk_i, params, acc,
+                                            launch=launch)
+    return external_product_mma_model(d, bk_i, params, acc)
 
 
 def external_product(d: torch.Tensor, bk_i: torch.Tensor, params: TFHEParams,
@@ -864,7 +1232,7 @@ def external_product(d: torch.Tensor, bk_i: torch.Tensor, params: TFHEParams,
     d (rows, B, N) int8, bk_i (rows, k+1, N) int32, acc (k+1, B, N)
     int32 or None -> (k+1, B, N) int32; the kernel on CUDA tensors (which
     raises ``ValueError`` for a shape :func:`mma_tile_check` refuses),
-    the plain twin on CPU."""
+    launched as :func:`product_launch` says, the plain twin on CPU."""
     return _external_product_launch(
         external_product, "ieache_external_product", external_product_plain,
         d, bk_i, params, acc, tr=False)

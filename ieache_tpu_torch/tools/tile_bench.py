@@ -26,7 +26,10 @@ by its slab and by its gather (``rotate_sublane_route_ms``; the pick is
 ``rot_tr_route``); at each scan batch the scan kernel at every other
 split of a tile's sum and run of tiles a work item
 (``blind_rotate_scan_launch_ms``, "split S, per_item P"; the pick is
-``scan_launch``); each held against its twin first.  Run from the root
+``scan_launch``); at each product batch ``external_product`` in every form
+and batch tile ``product_launch`` picks from, at its default split
+(``external_product_launch_ms``, "mma" and "wgmma BN x T"; the pick is
+``product_launch``); each held against its twin first.  Run from the root
 of a checkout, on a CUDA device:
 
     python -m ieache_tpu_torch.tools.tile_bench
@@ -124,6 +127,17 @@ def rotation_variants(p, acc, bara, acc_tr) -> dict:
     return calls
 
 
+def product_launch_variants(p, b: int, sms: int = 132) -> dict:
+    """The product's launch shapes :func:`run` times beside the policy's
+    pick (``kernels.product_launch``) at batch ``b``: every shape of
+    ``kernels.product_launch_shapes`` but the pick's."""
+    args = (b, p.k + 1, p.N, p.trgsw_rows, sms)
+    pick = kernels.product_launch(*args)
+    return {name: launch
+            for name, launch in kernels.product_launch_shapes(*args).items()
+            if launch != pick}
+
+
 def scan_launch_variants(p, b: int, sms: int = 132,
                          per_sm: int = 2) -> dict:
     """The scan kernel's launch shapes :func:`run` times beside the
@@ -148,7 +162,10 @@ def scan_launch_variants(p, b: int, sms: int = 132,
 
 def run(p, product_b, scan_b, device, check: bool = True,
         timed: bool = True, step_b=()) -> dict:
-    """The record: ``external_product_ms``, ``cmux_step_ms``,
+    """The record: ``external_product_ms`` and its launch variants
+    (:func:`product_launch_variants`, ``external_product_launch_ms``;
+    on CPU tensors through each form's plain model),
+    ``cmux_step_ms``,
     ``cmux_step_overlap_ms``, ``blind_rotate_scan_ms``,
     ``rot_diff_decompose_ms``, ``rot_diff_decompose_tr_ms``,
     ``external_product_tr_ms`` and ``rotate_sublane_ms`` by batch, and
@@ -164,7 +181,7 @@ def run(p, product_b, scan_b, device, check: bool = True,
            "rot_diff_decompose_ms": {}, "rot_diff_decompose_tr_ms": {},
            "external_product_tr_ms": {}, "rotate_sublane_ms": {},
            "rot_diff_decompose_launch_ms": {}, "rotate_sublane_route_ms": {},
-           "blind_rotate_scan_launch_ms": {}}
+           "blind_rotate_scan_launch_ms": {}, "external_product_launch_ms": {}}
     for b in product_b:
         d, bk_i, acc = product_inputs(p, b, device, rng)
         if check and not torch.equal(
@@ -177,6 +194,17 @@ def run(p, product_b, scan_b, device, check: bool = True,
                 graph_ms(lambda: kernels.external_product(d, bk_i, p,
                                                           acc=acc), 50)
                 for _ in range(3))
+        sms = kernels._sm_count(device) if device.type == "cuda" else 132
+        want = kernels.external_product_plain(d, bk_i, p, acc)
+        for name, launch in product_launch_variants(p, b, sms).items():
+            call = (lambda launch=launch: kernels.external_product_as(
+                d, bk_i, p, acc, launch))
+            if check and not torch.equal(call(), want):
+                raise AssertionError(f"external_product ({name}) differs "
+                                     f"from its twin at B={b}")
+            if timed:
+                rec["external_product_launch_ms"].setdefault(b, {})[name] = \
+                    statistics.median(graph_ms(call, 50) for _ in range(3))
     for b in step_b:
         acc, bara, bk_i = step_inputs(p, b, device, rng)
         acc_tr = acc.transpose(1, 2).contiguous()            # (k+1, N, B)

@@ -205,6 +205,19 @@ def test_tensor_core_tile_phase_passes_on_cpu_twins(rows):
     assert [q.trgsw_rows for q in cs.MMA_PARAMS] == [4, 6]
 
 
+@pytest.mark.parametrize("rows", [4, 6])
+def test_product_launch_phase_passes_on_cpu_models(rows):
+    """Phase 3's pass over every launch shape of external_product (the
+    mma.sync tile and each wgmma tile, random and extreme operands, with
+    and without the accumulator), on the forms' plain models at 4 and 6
+    TRGSW rows, batches either side of a wgmma tile."""
+    cs = _chip_smoke()
+    p = dataclasses.replace(P.TEST_TINY, l=rows // 2, name=f"tiny_{rows}rows")
+    errs = cs.check_product_launches(p, torch.device("cpu"), (1, 5, 33))
+    assert errs == {"external_product": 0}
+    assert cs.PRODUCT_BATCHES == (24, 64)
+
+
 def test_step_calls_and_lines_of_the_timing_phase():
     """Phase 7's per-step calls at a small batch run and agree with
     their twins on CPU tensors, and its line names what it times."""
@@ -301,7 +314,8 @@ def test_tile_bench_checks_on_cpu_twins():
                    "external_product_tr_ms": {}, "rotate_sublane_ms": {},
                    "rot_diff_decompose_launch_ms": {},
                    "rotate_sublane_route_ms": {},
-                   "blind_rotate_scan_launch_ms": {}}
+                   "blind_rotate_scan_launch_ms": {},
+                   "external_product_launch_ms": {}}
     # the launch variants it times: both run lengths of the split
     # rotation, the sublane rotation's slab and gather
     acc, bara, _ = tile_bench.step_inputs(p, 5, dev, np.random.RandomState(1))
@@ -323,6 +337,16 @@ def test_tile_bench_checks_on_cpu_twins():
     assert bara.shape == (3, p.n) and int(bara.max()) < 2 * p.N
     assert bk.shape == (p.n, p.trgsw_rows, p.k + 1, p.N)
     assert set(tile_bench.PARAMS) == {"ieache_110", "ieache_110_l2"}
+    # the product's launch shapes it times beside the pick: all but the
+    # pick's, each held against the twin on its plain model above
+    q = P.IEACHE_110_FAST
+    for b in (8, 1024):
+        pick = kernels.product_launch(b, q.k + 1, q.N, q.trgsw_rows)
+        variants = tile_bench.product_launch_variants(q, b)
+        assert set(variants) == set(kernels.product_launch_shapes(
+            b, q.k + 1, q.N, q.trgsw_rows)) - {
+                f"wgmma {pick.tile} x {pick.cols}"
+                if pick.form == "wgmma" else "mma"}
 
 
 def test_step_mode_phases_pass_on_cpu_twins():

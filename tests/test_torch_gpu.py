@@ -764,9 +764,9 @@ def test_external_product_kernel_extreme_operands(cuda, p, b, with_acc):
                          ids=lambda p: p.name)
 @pytest.mark.parametrize("b", [256, 257])
 def test_external_product_kernel_either_side_of_the_split(cuda, p, b):
-    """At N=1024, 256 lanes are 128 tiles (fewer than the SMs: each
-    tile's sum is split over two blocks that add atomically) and 257
-    lanes 136 tiles (one block a tile)."""
+    """At N=1024, 256 lanes are 128 tiles of the launch's 32 x 128 wgmma
+    tile (fewer than the SMs: each tile's sum is split over two blocks
+    that add atomically) and 257 lanes 144 tiles (one block a tile)."""
     rng = np.random.RandomState(b)
     d = _rand(rng, (p.trgsw_rows, b, p.N), -128, 128, np.int8, cuda)
     bk_i = _rand(rng, (p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31, np.int32,
@@ -777,6 +777,66 @@ def test_external_product_kernel_either_side_of_the_split(cuda, p, b):
         want = kernels.external_product_plain(d, bk_i, p, a)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("p", [P.IEACHE_110_FAST, P.IEACHE_110],
+                         ids=lambda p: p.name)
+@pytest.mark.parametrize("b", [1, 5, 8, 1024])
+def test_external_product_every_form_and_launch(cuda, p, b):
+    """Both forms of the product (csrc/external_product.cu): every launch
+    shape product_launch picks from at its default split, and each wgmma
+    tile whole and split over every (p, chunk) pair, through the uncounted
+    entry, with and without the accumulator, on random operands and on
+    key words where a carry between limbs goes wrong: equal to the twin,
+    and no launch counted."""
+    rng = np.random.RandomState(400 + b)
+    rows, kp1 = p.trgsw_rows, p.k + 1
+    d = _rand(rng, (rows, b, p.N), -128, 128, np.int8, cuda)
+    acc = _rand(rng, (kp1, b, p.N), -2**31, 2**31, np.int32, cuda)
+    sms = kernels._sm_count(cuda)
+    shapes = dict(kernels.product_launch_shapes(b, kp1, p.N, rows, sms))
+    nchunks = rows * p.N // kernels.wgmma_chunk_cols(p.N)
+    for bn, cols in kernels.wgmma_tiles(p.N):
+        for split in (1, nchunks):
+            shapes[f"wgmma {bn} x {cols} split {split}"] = \
+                kernels.product_shape(b, kp1, p.N, rows, "wgmma", bn, cols,
+                                      split=split)
+    assert {launch.form for launch in shapes.values()} == {"mma", "wgmma"}
+    counts = [w.launches for w in WRAPPERS.values()]
+    for bk_i in (_rand(rng, (rows, kp1, p.N), -2**31, 2**31, np.int32, cuda),
+                 _edge_key((rows, kp1, p.N), cuda)):
+        for a in (None, acc):
+            want = kernels.external_product_plain(d, bk_i, p, a)
+            for name, launch in shapes.items():
+                got = kernels._external_product_entry(d, bk_i, p, a, launch)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (name, a is not None)
+    assert [w.launches for w in WRAPPERS.values()] == counts
+
+
+def test_external_product_entry_refuses_bad_launches(cuda):
+    """The C entry takes the launch it is given and refuses what neither
+    form has: an unknown form, a tile or a coefficient count the form does
+    not have, a split outside 1 .. a tile's (p, chunk) pairs."""
+    p = P.IEACHE_110_FAST
+    rows, kp1, n = p.trgsw_rows, p.k + 1, p.N
+    d = torch.zeros((rows, 8, n), dtype=torch.int8, device=cuda)
+    bk = torch.zeros((rows, kp1, n), dtype=torch.int32, device=cuda)
+    out = torch.empty((kp1, 8, n), dtype=torch.int32, device=cuda)
+    lib = kernels._build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def entry(form, tile, cols, split):
+        return lib.ieache_external_product(
+            d.data_ptr(), bk.data_ptr(), None, out.data_ptr(), rows, kp1, 8,
+            n, form, tile, cols, split, stream)
+
+    assert entry(0, 16, 256, 1) == 0 and entry(1, 64, 128, 16) == 0
+    for bad in ((2, 16, 256, 1), (0, 32, 256, 1), (0, 16, 128, 1),
+                (1, 16, 128, 1), (1, 64, 256, 1), (1, 32, 128, 0),
+                (1, 32, 128, 17), (0, 16, 256, 17)):
+        assert entry(*bad) != 0, bad
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("steps", SCAN_STEPS)
@@ -841,9 +901,10 @@ def test_tensor_core_kernels_refuse_shapes_over_their_bounds(cuda, p):
     lib = kernels._build.library()
     stream = torch.cuda.current_stream().cuda_stream
     out = torch.empty_like(acc)
-    assert lib.ieache_external_product(
-        d.data_ptr(), bk.data_ptr(), None, out.data_ptr(), rows, kp1, 1, n,
-        stream) != 0
+    for form, tile, cols in ((0, 16, min(n, 256)), (1, 32, min(n, 128))):
+        assert lib.ieache_external_product(
+            d.data_ptr(), bk.data_ptr(), None, out.data_ptr(), rows, kp1, 1,
+            n, form, tile, cols, 1, stream) != 0
     for entry in (lib.ieache_cmux_step, lib.ieache_cmux_step_overlap):
         assert entry(acc.data_ptr(), bara.data_ptr(), bk.data_ptr(),
                      out.data_ptr(), rows, kp1, 1, n, p.bg_bit, p.l, 0,
