@@ -281,6 +281,13 @@ TIMED_EXPRESSION_MODES = ("split", "fused2", "overlap", "overlap2", "scan",
 #: the IEACHE_PALLAS routes phase 4 runs, and the modes it runs them under
 ROUTES, ROUTE_MODES = ("0", "interpret", "1"), ("split", "tr")
 
+#: a NAND batch at which the fused step and scan take their wgmma form
+#: (at IEACHE_110_FAST step_launch's B = 257 .. 512, scan_launch's 272 ..
+#: 512), and the
+#: modes phases 5 and 7 run it under beside the main batch
+WGMMA_NAND_B = 384
+WGMMA_NAND_MODES = ("fused2", "scan")
+
 #: the rotation probe's batch, and the sizes step_bench runs at here
 PROBE_B = 2048
 STEP_BENCH = {"b": 1024, "steps": 32, "iters": 2}
@@ -578,15 +585,36 @@ def extreme_accumulators(p, b, device, rng):
            edge_key(shape_k, device))
 
 
+def _resident(p, device, kernel):
+    """``kernel``'s (cluster, clusters held at once) pairs at the
+    policies' tile: the occupancy query's on the card, the H100's on the
+    CPU (None)."""
+    if device.type != "cuda":
+        return None
+    return kernels._wgmma_resident(device, kernel, p.trgsw_rows, p.k + 1,
+                                   p.N)
+
+
+def _card_sms(device):
+    """The card's SMs, or the H100's on the CPU."""
+    return kernels._sm_count(device) if device.type == "cuda" else 132
+
+
 def check_scan_turns(p, device, batches=SCAN_TURN_BATCHES,
                      steps=SCAN_TURN_STEPS, seed=11):
     """Phase 3: blind_rotate_scan against its twin over the first
     ``steps`` steps of a random key (the edge amounts in the first three)
-    at each of ``batches``, its input accumulator unchanged by the call.
-    Returns max abs error per kernel."""
+    at each of ``batches``, its input accumulator unchanged by the call;
+    and, through the uncounted entry, under every launch shape
+    scan_launch picks from there (its mma.sync form, and the wgmma form
+    at each tile and cluster that fits).  Returns max abs error per
+    kernel."""
     rng = np.random.RandomState(seed)
     errs = {}
     most = max(steps)
+    sms = _card_sms(device)
+    per_sm = (kernels._scan_per_sm(device, p.trgsw_rows, p.N)
+              if device.type == "cuda" else 2)
     bk = _rand(rng, (most, p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
                np.int32, device)
     for b in batches:
@@ -594,18 +622,78 @@ def check_scan_turns(p, device, batches=SCAN_TURN_BATCHES,
         bara = _rand(rng, (b, most), 0, 2 * p.N, np.int32, device)
         bara[:, :3] = torch.tensor([0, p.N, 2 * p.N - 1], dtype=torch.int32,
                                    device=device)
+        shapes = kernels.scan_launch_shapes(
+            b, p.k + 1, p.N, p.trgsw_rows, sms, per_sm,
+            _resident(p, device, "blind_rotate_scan"))
         for n in steps:
             args = (acc, bara[:, :n].contiguous(), bk[:n].contiguous())
             before = acc.clone()
+            want = kernels.blind_rotate_scan_plain(*args, p)
             _compare("blind_rotate_scan", kernels.blind_rotate_scan(*args, p),
-                     kernels.blind_rotate_scan_plain(*args, p), errs, device,
-                     f"{p.name} B={b} steps={n}")
+                     want, errs, device, f"{p.name} B={b} steps={n}")
+            for shape, launch in shapes.items():
+                _compare("blind_rotate_scan",
+                         kernels.blind_rotate_scan_as(*args, p, launch), want,
+                         errs, device, f"{p.name} B={b} steps={n} {shape}")
             if not torch.equal(acc, before):
                 raise AssertionError(f"blind_rotate_scan wrote its input "
                                      f"accumulator at B={b} steps={n}")
-    log(f"phase 3 scan turns: {p.name} blind_rotate_scan equal at "
-        f"B={'/'.join(map(str, batches))} over "
-        f"{'/'.join(map(str, steps))} steps, its input unchanged")
+        pick = kernels.scan_launch(b, p.k + 1, p.N, p.trgsw_rows, sms,
+                                   per_sm,
+                                   _resident(p, device, "blind_rotate_scan"))
+        log(f"phase 3 scan turns: {p.name} B={b} blind_rotate_scan equal "
+            f"over {'/'.join(map(str, steps))} steps under the policy (the "
+            f"pick: {pick.form} {pick.tile} rows, cluster {pick.cluster}, "
+            f"grid {pick.grid}) and under {', '.join(shapes)}, its input "
+            f"unchanged")
+    return errs
+
+
+def step_crossovers(p, sms=132, resident=None, most=4096):
+    """The batches up to ``most`` at which step_launch changes form at
+    ``p`` (the first of the new form's)."""
+    forms = [kernels.step_launch(b, p.k + 1, p.N, p.trgsw_rows, sms,
+                                 resident=resident).form
+             for b in range(1, most + 1)]
+    return [b for b in range(2, most + 1) if forms[b - 1] != forms[b - 2]]
+
+
+def check_step_launches(p, device, batches, seed=41):
+    """Phase 3: cmux_step at ``p`` under every launch shape step_launch
+    picks from at each of ``batches`` (the mma.sync form, and each wgmma
+    tile in each cluster that fits), whatever the policy picks there,
+    through the uncounted entry: random operands (the edge amounts first)
+    and the extreme accumulators of :func:`extreme_accumulators`, each
+    equal to the twin.  Returns max abs error."""
+    rng = np.random.RandomState(seed)
+    errs = {}
+    sms = _card_sms(device)
+    per_sm = (kernels._step_per_sm(device, p.trgsw_rows, p.N)
+              if device.type == "cuda" else 2)
+    for b in batches:
+        bara = _rand(rng, (b,), 0, 2 * p.N, np.int32, device)
+        bara[:3] = torch.tensor([0, p.N, 2 * p.N - 1], dtype=torch.int32,
+                                device=device)[:b]
+        cases = [("random",
+                  _rand(rng, (p.k + 1, b, p.N), -2**31, 2**31, np.int32,
+                        device), bara,
+                  _rand(rng, (p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
+                        np.int32, device)),
+                 *extreme_accumulators(p, b, device, rng)]
+        shapes = kernels.step_launch_shapes(b, p.k + 1, p.N, p.trgsw_rows,
+                                            sms, per_sm)
+        for name, a, bara_c, bk_i in cases:
+            want = kernels.cmux_step_plain(a, bara_c, bk_i, p)
+            for shape, launch in shapes.items():
+                _compare("cmux_step",
+                         kernels.cmux_step_as(a, bara_c, bk_i, p, launch),
+                         want, errs, device, f"{p.name} B={b} {name} {shape}")
+        pick = kernels.step_launch(b, p.k + 1, p.N, p.trgsw_rows, sms, per_sm,
+                                   _resident(p, device, "cmux_step"))
+        log(f"phase 3 step launches: {p.name} B={b} cmux_step equal under "
+            f"{', '.join(shapes)} (the pick: {pick.form} {pick.tile} x "
+            f"{pick.cols}, split {pick.split}, cluster {pick.cluster}) on "
+            f"random and {len(cases) - 1} extreme accumulator sets")
     return errs
 
 
@@ -1043,6 +1131,38 @@ def run_mode(ks, key, mode, nand_in, expr_in, mul_in, device):
         raise AssertionError(f"NAND under {mode}: decrypt_errors={errors}")
     check_mode_launches(mode, launches, device)
     return errors, nand_s, expr_s, nand_launches, launches
+
+
+def run_wgmma_nand(ks, key, p, nand_in, device):
+    """Phase 5 at :data:`WGMMA_NAND_B`: NAND under each of
+    :data:`WGMMA_NAND_MODES`, every launch count set to 0 just before and
+    read just after, on a batch at which the mode's kernel runs its wgmma
+    form (checked first); returns {mode: (seconds, launches)}."""
+    b, kp1, rows = len(nand_in[0]), p.k + 1, p.trgsw_rows
+    cuda = device.type == "cuda"
+    forms = {"fused2": kernels.step_launch(
+                 b, kp1, p.N, rows, _card_sms(device),
+                 kernels._step_per_sm(device, rows, p.N) if cuda else 2,
+                 _resident(p, device, "cmux_step")).form,
+             "scan": kernels.scan_launch(
+                 b, kp1, p.N, rows, _card_sms(device),
+                 kernels._scan_per_sm(device, rows, p.N) if cuda else 2,
+                 _resident(p, device, "blind_rotate_scan")).form}
+    out = {}
+    for mode in WGMMA_NAND_MODES:
+        if forms[mode] != "wgmma":
+            raise AssertionError(f"{mode} at B={b} picks its {forms[mode]} "
+                                 f"form, not wgmma")
+        kernels.reset_launch_counts()
+        with step_mode(mode):
+            errors, secs = run_nand(ks, key, nand_in, device)
+        launches = kernels.launch_counts()
+        if errors:
+            raise AssertionError(f"NAND B={b} under {mode}: "
+                                 f"decrypt_errors={errors}")
+        check_mode_launches(mode, launches, device)
+        out[mode] = secs, launches
+    return out
 
 
 def check_mode_launches(mode, launches, device):
@@ -2013,6 +2133,14 @@ def main() -> int:
                 mma_p, device, (*MMA_BATCHES, *PRODUCT_BATCHES,
                                 *MMA_SPLIT_EDGE)).items():
             errs[name] = max(errs[name], err)
+        cross = step_crossovers(mma_p, _card_sms(device),
+                                _resident(mma_p, device, "cmux_step"))
+        for name, err in check_step_launches(
+                mma_p, device, sorted({*MMA_BATCHES, *PRODUCT_BATCHES,
+                                       *MMA_SPLIT_EDGE,
+                                       *(b + d for b in cross
+                                         for d in (-1, 0, 1))})).items():
+            errs[name] = max(errs[name], err)
     errs.update(check_mm_kernels(device))
 
     # keys and operands (set-up), and the keygen phase: the device
@@ -2084,6 +2212,16 @@ def main() -> int:
         for k in MODES[mode]:
             launches[k] += counts[k]
             nand_launches[k] += nand_counts[k]
+    wg_in = nand_inputs(ks, WGMMA_NAND_B, device)
+    for mode, (secs, counts) in run_wgmma_nand(ks, key, p, wg_in,
+                                               device).items():
+        log(f"phase 5 NAND B={WGMMA_NAND_B} {p.name} {mode} (wgmma form): "
+            f"decrypt_errors=0 on the host and on the device ({secs:.3f} "
+            f"s, first call); launches "
+            f"{ {k: counts[k] for k in MODES[mode]} }, others 0")
+        for k in MODES[mode]:
+            launches[k] += counts[k]
+            nand_launches[k] += counts[k]
     log(f"main-path launches: {launches}")
     log(f"main-path launches of the NAND batches alone: {nand_launches}")
 
@@ -2101,36 +2239,57 @@ def main() -> int:
             line += (f"; A+B-C width 16 B=8 latency median "
                      f"{statistics.median(lat):.3f} s ({len(lat)} repeats)")
         log(line)
+    for mode in WGMMA_NAND_MODES:
+        rates = nand_rates(ks, key, mode, wg_in, device)
+        log(f"phase 7 {mode}: NAND B={WGMMA_NAND_B} (wgmma form) "
+            f"bootstraps/s median {statistics.median(rates):.1f} min "
+            f"{min(rates):.1f} max {max(rates):.1f} ({len(rates)} repeats)")
     steps = step_times(p, device, batch, reps=20)
     for name, t in steps.items():
         log(step_line(name, PROBE_B if name.startswith("rotate_") else batch,
                       t))
     # the split pair beside the two fused steps and the tr pair at the
     # batches of A + B - C, and the sublane rotation's gather
-    by_batch = {batch: steps["external_product"]}
+    by_batch = {name: {batch: steps[name]}
+                for name in ("external_product", "cmux_step")}
     for b in SMALL_BATCHES:
         for name, t in step_times(p, device, b, reps=20,
                                   names=SMALL_BATCH_KERNELS,
                                   probe_b=b).items():
             log(step_line(name, b, t))
-            if name == "external_product":
-                by_batch[b] = t
+            if name in by_batch:
+                by_batch[name][b] = t
+    t = step_times(p, device, WGMMA_NAND_B, reps=20,
+                   names=("cmux_step",))["cmux_step"]
+    log(step_line("cmux_step", WGMMA_NAND_B, t))
+    by_batch["cmux_step"][WGMMA_NAND_B] = t
     sms = kernels._sm_count(device)
-    product_by_batch = {
-        b: {"ms": t["ms"], "bound_ms": t["bound_ms"],
-            "form": kernels.product_launch(b, p.k + 1, p.N, p.trgsw_rows,
-                                           sms).form}
-        for b, t in sorted(by_batch.items())}
+    step_per_sm = kernels._step_per_sm(device, p.trgsw_rows, p.N)
+    forms = {"external_product": lambda b: kernels.product_launch(
+                 b, p.k + 1, p.N, p.trgsw_rows, sms).form,
+             "cmux_step": lambda b: kernels.step_launch(
+                 b, p.k + 1, p.N, p.trgsw_rows, sms, step_per_sm,
+                 _resident(p, device, "cmux_step")).form,
+             "blind_rotate_scan": lambda b: kernels.scan_launch(
+                 b, p.k + 1, p.N, p.trgsw_rows, sms,
+                 kernels._scan_per_sm(device, p.trgsw_rows, p.N),
+                 _resident(p, device, "blind_rotate_scan")).form}
     # the rotations again with the L2 cold: their bytes from HBM
     for name, t in cold_times(p, device, batch).items():
         log(cold_line(name, t))
-    for b in (8, batch):
+    by_batch["blind_rotate_scan"] = {}
+    for b in (*SMALL_BATCHES, WGMMA_NAND_B, batch):
         t = scan_times(p, device, b, reps=2)
-        log(f"phase 7 blind_rotate_scan B={b}: kernel {t['ms']:.3f} ms, "
-            f"plain twin {t['plain_ms']:.3f} ms per rotation of {p.n} "
-            f"steps (CUDA events around the call); bound "
-            f"{t['bound_ms']:.3f} ms ({t['bound_by']})")
+        log(f"phase 7 blind_rotate_scan B={b} ({forms['blind_rotate_scan'](b)}"
+            f"): kernel {t['ms']:.3f} ms, plain twin {t['plain_ms']:.3f} ms "
+            f"per rotation of {p.n} steps (CUDA events around the call); "
+            f"bound {t['bound_ms']:.3f} ms ({t['bound_by']})")
+        by_batch["blind_rotate_scan"][b] = t
     steps["blind_rotate_scan"] = t
+    by_batch = {name: {b: {"ms": t["ms"], "bound_ms": t["bound_ms"],
+                           "form": forms[name](b)}
+                       for b, t in sorted(times.items())}
+                for name, times in by_batch.items()}
     probe, probe_launches = run_probe(device)
     log("phase 7 transposed_probe: " + json.dumps(probe))
     mm_probe, mm_launches = run_mm_probe(device)
@@ -2225,8 +2384,7 @@ def main() -> int:
          "bound_ms": steps[name]["bound_ms"],
          "bound_by": steps[name]["bound_by"],
          "library_ms": steps[name]["library_ms"],
-         **({"by_batch": product_by_batch}
-            if name == "external_product" else {})}
+         **({"by_batch": by_batch[name]} if name in by_batch else {})}
         for name, src, rep in KERNELS
     ]}
     device_rec = {"platform": "gpu", "kind": kind,

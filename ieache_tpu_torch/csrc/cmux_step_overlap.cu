@@ -48,9 +48,11 @@
 //
 // A batch with fewer tiles than SMs (B <= 256 at N=1024) would leave most
 // of the card idle under whole tiles, and a persistent block cannot split
-// a tile's sum without decomposing for every part: the launch then runs
-// the kernel of cmux_step.cu (cmux_step_parts.cuh), which splits each
-// tile's sum over (p, chunk) parts.  The launch refuses what the tile
+// a tile's sum without decomposing for every part: there ops/kernels.py
+// (_cmux_step_launch) passes the mma.sync launch of cmux_step.cu's kernel
+// (cmux_step_parts.cuh; step_shape: split, per_item, cluster), which
+// splits each tile's sum over (p, chunk) parts, and the entry runs it as
+// it is; a split of 0 runs this kernel.  The launch refuses what the tile
 // refuses (cudaErrorInvalidValue), and two stages that do not fit the
 // block's shared memory.
 
@@ -139,18 +141,23 @@ __global__ void __launch_bounds__(kThreads, 1) cmux_step_overlap_kernel(
   }
 }
 
-// The launch for N's tile, NI = min(N, 256) / 32.
+// The launch for N's tile, NI = min(N, 256) / 32: this kernel, or with
+// parts_split >= 1 the fused2 kernel under (parts_split, parts_per_item,
+// parts_cluster).
 template <int NI>
 int launch(const void* acc, const void* bara, const void* bk, void* out,
            int rows, int kp1, int batch, int n, int bg_bit, int l,
-           uint32_t offset, int sms, int smem_optin, cudaStream_t s) {
+           uint32_t offset, int parts_split, int parts_per_item,
+           int parts_cluster, int sms, int smem_optin, cudaStream_t s) {
   using S = mma::Shape<NI>;
   const int nbt = (batch + mma::BM - 1) / mma::BM, group = (n / S::T) * kp1;
   const size_t smem = S::kPlanesBytes + 2 * digit_tile_bytes(rows, n);
   if (smem > (size_t)smem_optin) return (int)cudaErrorInvalidValue;
-  if (nbt * group < sms)
-    return fused::launch_step_parts<NI>(acc, bara, bk, out, rows, kp1, batch, n,
-                                 bg_bit, l, offset, sms, smem_optin, s);
+  if (parts_split >= 1)
+    return fused::launch_step_parts<NI>(acc, bara, bk, out, rows, kp1, batch,
+                                        n, bg_bit, l, offset, parts_split,
+                                        parts_per_item, parts_cluster,
+                                        smem_optin, s);
   cudaError_t err = allow_smem(cmux_step_overlap_kernel<NI>, smem);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0;
@@ -169,10 +176,14 @@ int launch(const void* acc, const void* bara, const void* bk, void* out,
 
 }  // namespace
 
+// parts_split 0: this kernel; >= 1: the fused2 kernel's parts under the
+// launch (parts_split, parts_per_item, parts_cluster) ops/kernels.py gives.
 extern "C" int ieache_cmux_step_overlap(const void* acc, const void* bara,
                                         const void* bk, void* out, int rows,
                                         int kp1, int batch, int n, int bg_bit,
-                                        int l, uint32_t offset, void* stream) {
+                                        int l, uint32_t offset,
+                                        int parts_split, int parts_per_item,
+                                        int parts_cluster, void* stream) {
   if (!mma::shape_ok(rows, n)) return (int)cudaErrorInvalidValue;
   int sms = 0, smem_optin = 0;
   const cudaError_t err = fused::device_limits(&sms, &smem_optin);
@@ -180,10 +191,13 @@ extern "C" int ieache_cmux_step_overlap(const void* acc, const void* bara,
   const cudaStream_t s = (cudaStream_t)stream;
   if (n >= 256)
     return launch<8>(acc, bara, bk, out, rows, kp1, batch, n, bg_bit, l,
-                     offset, sms, smem_optin, s);
+                     offset, parts_split, parts_per_item, parts_cluster, sms,
+                     smem_optin, s);
   if (n == 128)
     return launch<4>(acc, bara, bk, out, rows, kp1, batch, n, bg_bit, l,
-                     offset, sms, smem_optin, s);
+                     offset, parts_split, parts_per_item, parts_cluster, sms,
+                     smem_optin, s);
   return launch<2>(acc, bara, bk, out, rows, kp1, batch, n, bg_bit, l, offset,
-                   sms, smem_optin, s);
+                   parts_split, parts_per_item, parts_cluster, sms, smem_optin,
+                   s);
 }

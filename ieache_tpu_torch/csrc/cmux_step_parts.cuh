@@ -10,16 +10,15 @@
 // rotates, diffs and decomposes its 16 rows into shared memory once
 // (ieache::decompose_tile) and runs mma::product_accumulate_mma from that
 // tile for a run of `per_item` of the rows' tiles, adding the accumulator
-// and storing each.  per_item is the run that ends soonest when the
-// launch's blocks are dealt to the card's places (tiles_per_item): the
-// longer the run, the fewer blocks decompose the same rows.  The blocks
-// that share batch rows, (x, 0 .. gridDim.y - 1), are launched in
-// thread-block clusters of up to kMaxCluster neighbours along y: a block
+// and storing each: the longer the run, the fewer blocks decompose the
+// same rows.  The blocks that share batch rows, (x, 0 .. gridDim.y - 1),
+// are launched in thread-block clusters of neighbours along y: a block
 // decomposes its share of the 16 rows and copies the others from its
 // peers' shared memory.
 //
-// A launch with fewer tiles than SMs instead splits each tile's sum
-// (per_item is then 1): a block computes part q of `split` of one tile,
+// The launch (split, per_item, cluster) is ops/kernels.py's step_launch,
+// taken as it is.  A launch with fewer tiles than SMs splits each tile's
+// sum (per_item is then 1): a block computes part q of `split` of one tile,
 // the (p, chunk) pairs q * nchunks / split .. (q + 1) * nchunks / split - 1,
 // pair c = p * (N / T) + chunk, and decomposes only the digits those pairs
 // read (part_range: one digit row's columns of its chunks, or all columns
@@ -38,17 +37,14 @@ namespace fused {
 
 namespace cg = cooperative_groups;
 
-// Blocks a cluster: two halve the decomposition; four were slower (the
-// card then holds fewer blocks at once).
-constexpr int kMaxCluster = 2;
-
 // Shared memory of a block: the byte planes, then one digit tile.
 template <int NI>
 __host__ __device__ inline size_t step_smem_bytes(int rows, int n) {
   return mma::Shape<NI>::kPlanesBytes + digit_tile_bytes(rows, n);
 }
 
-// Tiles per block (or per work item of the overlap kernel): of the ways to
+// Tiles per work item of the overlap kernel (ops/kernels.py's
+// tiles_per_item, which step_launch gives the fused2 kernel): of the ways to
 // cut a row group's `group` tiles into equal runs, the one whose busiest
 // place ends soonest when `nbt` row groups are dealt to `places` blocks
 // resident at once, a run costing its tiles and a quarter of a tile for
@@ -237,51 +233,48 @@ __global__ void __launch_bounds__(mma::kThreads, 2) cmux_step_parts_kernel(
                                t0, t1, split > 1, nullptr, false, threadIdx.x);
 }
 
-// The launch for N's tile, NI = min(N, 256) / 32; `out` must not alias
-// `acc`, which blocks read while others write `out`.  A digit tile that
-// does not fit the block's shared memory is refused.
+// The launch for N's tile, NI = min(N, 256) / 32, as ops/kernels.py's
+// step_launch gives it: each tile's sum in `split` parts over its (p,
+// chunk) pairs, runs of `per_item` tiles a block, the blocks that share
+// batch rows in clusters of `cluster`; the C side computes none of these
+// and refuses what the kernel cannot run (cudaErrorInvalidValue).  `out`
+// must not alias `acc`, which blocks read while others write `out`.  A
+// digit tile that does not fit the block's shared memory is refused.
 template <int NI>
 int launch_step_parts(const void* acc, const void* bara, const void* bk,
                       void* out, int rows, int kp1, int batch, int n,
-                      int bg_bit, int l, uint32_t offset, int sms,
-                      int smem_optin, cudaStream_t s) {
+                      int bg_bit, int l, uint32_t offset, int split,
+                      int per_item, int cluster, int smem_optin,
+                      cudaStream_t s) {
   using S = mma::Shape<NI>;
   const size_t smem = step_smem_bytes<NI>(rows, n);
   if (smem > (size_t)smem_optin) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(cmux_step_parts_kernel<NI>, smem);
-  if (err != cudaSuccess) return (int)err;
   const int nbt = (batch + mma::BM - 1) / mma::BM, njt = n / S::T;
   const int group = njt * kp1;
-  const int split = mma::split_for(nbt * group, rows * njt, sms);
-  int per_item = 1;
+  const int nper = per_item < 1 ? 0 : (group + per_item - 1) / per_item;
+  if (split < 1 || split > rows * njt || per_item < 1 || per_item > group ||
+      (split > 1 && per_item != 1) || cluster < 1 || cluster > 8 ||
+      nper % cluster)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(cmux_step_parts_kernel<NI>, smem);
+  if (err != cudaSuccess) return (int)err;
   if (split > 1) {
     err = cudaMemcpyAsync(out, acc, (size_t)kp1 * batch * n * sizeof(uint32_t),
                           cudaMemcpyDeviceToDevice, s);
     if (err != cudaSuccess) return (int)err;
-  } else {
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, cmux_step_parts_kernel<NI>, mma::kThreads, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    per_item = tiles_per_item(nbt, group, sms * per_sm);
   }
-  const int nper = (group + per_item - 1) / per_item;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(nbt * split, nper);
   config.blockDim = dim3(mma::kThreads);
   config.dynamicSmemBytes = smem;
   config.stream = s;
-  // the blocks that share batch rows in clusters of the largest size up to
-  // kMaxCluster that divides their number
-  cudaLaunchAttribute cluster = {};
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = 1;
-  int csize = split == 1 ? kMaxCluster : 1;
-  while (nper % csize) --csize;
-  cluster.val.clusterDim.y = csize;
-  cluster.val.clusterDim.z = 1;
-  config.attrs = &cluster;
+  // the blocks that share batch rows (along y) in clusters
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = cluster;
+  attr.val.clusterDim.z = 1;
+  config.attrs = &attr;
   config.numAttrs = 1;
   err = cudaLaunchKernelEx(&config, cmux_step_parts_kernel<NI>,
                            (const uint32_t*)acc, (const int32_t*)bara,
@@ -289,6 +282,18 @@ int launch_step_parts(const void* acc, const void* bara, const void* bk,
                            batch, n, bg_bit, l, offset, split, per_item);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Blocks of the kernel for N's tile an SM holds at once at (rows, N), into
+// *blocks; ops/kernels.py's step_launch reads it.
+template <int NI>
+int step_parts_per_sm(int rows, int n, int smem_optin, int* blocks) {
+  const size_t smem = step_smem_bytes<NI>(rows, n);
+  if (smem > (size_t)smem_optin) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(cmux_step_parts_kernel<NI>, smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, cmux_step_parts_kernel<NI>, mma::kThreads, smem);
 }
 
 // The SM count and the most dynamic shared memory a block may ask for on

@@ -272,16 +272,19 @@ __device__ __forceinline__ void mma_async<64>(int32_t (&d)[32],
 
 
 // The planes of one key polynomial g = bk[p, o, :] for the tile of T
-// coefficients at jb, digit columns ma .. ma + mcols - 1, by the producer's
-// builders (tid 0 .. kBuilders - 1): mma::build_planes with this tile's width and copy stride (word
-// x of copy s of limb v holds R_v[lo + 4x + s ..+3], lo = N - jb - T + ma).
+// coefficients at jb, digit columns ma .. ma + mcols - 1, by `nthreads`
+// builders (tid 0 .. nthreads - 1; by default the producer's three
+// warps): mma::build_planes with this tile's width and TL's copy stride
+// (word x of copy s of limb v holds R_v[lo + 4x + s ..+3], lo = N - jb -
+// T + ma).
 template <class TL, int T>
 __device__ __forceinline__ void build_planes(uint32_t* planes,
                                              const uint32_t* g, int n, int jb,
-                                             int ma, int mcols, int tid) {
+                                             int ma, int mcols, int tid,
+                                             int nthreads = kBuilders) {
   constexpr uint32_t kBias = 0x80808080u;
   const int nwords = (T + mcols) / 4;
-  for (int x = tid; x < nwords; x += kBuilders) {
+  for (int x = tid; x < nwords; x += nthreads) {
     const int i0 = n - 1 + jb + T - ma - 4 * x;
     uint32_t bx[7];  // the biased words: byte v is limb v
 #pragma unroll
@@ -506,8 +509,9 @@ __device__ __forceinline__ void zero(int32_t (&acc)[C][BN / 2]) {
 // (batch row by its warpgroup's coefficients); 16-byte quads of a
 // warpgroup's four slabs are then added.  Run by the consumer warpgroups
 // (tid 0 .. 128 W - 1) after their last chunk: every write of the producer
-// has landed by then.  Reuses all of smem.
-template <int BN, int T, int KC>
+// has landed by then.  Reuses all of smem.  kCg reads add through L2
+// only, for an addend other blocks wrote earlier in the launch.
+template <int BN, int T, int KC, bool kCg = false>
 __device__ __forceinline__ void store_tile(
     const int32_t (&acc)[Tile<BN, T, KC>::C][BN / 2], uint8_t* smem, int o,
     int jb, int b0, int tid, const uint32_t* add, uint32_t* out, int batch,
@@ -553,7 +557,7 @@ __device__ __forceinline__ void store_tile(
       atomicAdd(dst + 3, s.w);
     } else {
       if (add != nullptr) {
-        const uint4 a = *reinterpret_cast<const uint4*>(add + at);
+        const uint4 a = load_quad<true, kCg>(add + at);
         s.x += a.x;
         s.y += a.y;
         s.z += a.z;

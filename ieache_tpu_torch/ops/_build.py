@@ -133,20 +133,35 @@ def _load() -> ctypes.CDLL:
     lib.ieache_rotate_sublane.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
     lib.ieache_rotate_lane.restype = i32
     lib.ieache_rotate_sublane.restype = i32
-    for fn in (lib.ieache_cmux_step, lib.ieache_cmux_step_overlap):
-        fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
-                       ctypes.c_uint32, vp]
-        fn.restype = i32
-    # the launch shape (ops/kernels.py:scan_launch) comes last but for
-    # the stream: split, per_item, grid, cluster
+    # the fused step's launch (ops/kernels.py:step_launch) comes last but
+    # for the stream: form (which implies the batch tile and coefficients),
+    # split, per_item, cluster; the overlap entry's small-batch route:
+    # split, per_item, cluster (split 0: its own kernel)
+    lib.ieache_cmux_step.argtypes = [
+        vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, ctypes.c_uint32,
+        i32, i32, i32, i32, vp]
+    lib.ieache_cmux_step_overlap.argtypes = [
+        vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, ctypes.c_uint32,
+        i32, i32, i32, vp]
+    # the scan's launch (ops/kernels.py:scan_launch) comes last but for
+    # the stream: split, per_item, grid, cluster, form
     lib.ieache_blind_rotate_scan.argtypes = [
         vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
-        ctypes.c_uint32, i32, i32, i32, i32, vp,
+        ctypes.c_uint32, i32, i32, i32, i32, i32, vp,
     ]
-    lib.ieache_blind_rotate_scan.restype = i32
     lib.ieache_blind_rotate_scan_per_sm.argtypes = [
         i32, i32, ctypes.POINTER(i32)]
-    lib.ieache_blind_rotate_scan_per_sm.restype = i32
+    lib.ieache_cmux_step_per_sm.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    for fn in (lib.ieache_blind_rotate_scan_clusters,
+               lib.ieache_cmux_step_clusters):
+        fn.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i32)]
+    for fn in (lib.ieache_cmux_step, lib.ieache_cmux_step_overlap,
+               lib.ieache_blind_rotate_scan,
+               lib.ieache_blind_rotate_scan_per_sm,
+               lib.ieache_cmux_step_per_sm,
+               lib.ieache_blind_rotate_scan_clusters,
+               lib.ieache_cmux_step_clusters):
+        fn.restype = i32
     for fn in (lib.ieache_mm_s8, lib.ieache_mm_bf16):
         fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
         fn.restype = i32

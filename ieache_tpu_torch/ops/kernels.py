@@ -21,10 +21,15 @@ through the kernels of the step mode ``IEACHE_PALLAS_STEP`` selects:
   and :func:`external_product_mma_model` model that tile's operand
   construction), for the CPU tests;
 * ``fused2``: :func:`cmux_step` (``csrc/cmux_step.cu``, replaces
-  ``cmux_step_pallas``), the whole step in one kernel: the same
-  tensor-core tile fed from digits the block decomposes into its own
-  shared memory (:func:`cmux_digit_tile`, :func:`cmux_part_ranges` and
-  :func:`cmux_step_mma_model` are the plain model of that);
+  ``cmux_step_pallas``), the whole step in one kernel, in the form
+  :func:`step_launch` picks by batch: the warpgroup tile with a producer
+  that decomposes the digits straight into its stages, shared across a
+  cluster of the blocks of the same batch rows (``csrc/wgmma_step.cuh``;
+  :func:`wgmma_step_unit_model`, :func:`wgmma_step_copy_ranges`,
+  :func:`wgmma_step_stages` and :func:`cmux_step_wgmma_model` are its
+  plain model), or the ``mma.sync`` tile fed from digits the block
+  decomposes into its own shared memory (:func:`cmux_digit_tile`,
+  :func:`cmux_part_ranges` and :func:`cmux_step_mma_model`);
 * ``overlap``/``overlap2``: :func:`cmux_step_overlap`
   (``csrc/cmux_step_overlap.cu``, replaces ``cmux_step_overlap_pallas``
   and ``cmux_step_overlap2_pallas``), the step with the next batch rows'
@@ -32,12 +37,12 @@ through the kernels of the step mode ``IEACHE_PALLAS_STEP`` selects:
   :func:`cmux_step_overlap_mma_model` model its order of work);
 * ``scan``: :func:`blind_rotate_scan` (``csrc/blind_rotate_scan.cu``,
   replaces ``blind_rotate_scan_pallas``), all n steps in one persistent
-  cooperative launch: each step is fused2's work (digits decomposed into
-  each block's shared memory, the same tensor-core tile) over the whole
-  grid, one grid barrier a step, the accumulator turning through two
-  buffers (three when the tiles' sums are split into parts that add
-  atomically), launched as :func:`scan_launch` says
-  (:func:`blind_rotate_scan_schedule_model` walks that schedule);
+  cooperative launch: each step is fused2's work (in the form fused2
+  takes at the batch) over the whole grid, one grid barrier a step, the
+  accumulator turning through two buffers (three when the tiles' sums
+  are split into parts that add atomically), launched as
+  :func:`scan_launch` says (:func:`blind_rotate_scan_schedule_model`
+  walks that schedule);
 * ``tr``: :func:`rot_diff_decompose_tr`
   (``csrc/rot_diff_decompose_tr.cu``, replaces
   ``rot_diff_decompose_pallas_tr``) then :func:`external_product_tr`
@@ -1374,9 +1379,11 @@ def tiles_per_item(nbt: int, group: int, places: int) -> int:
     return best
 
 
-def step_work_items(batch: int, n: int, kp1: int, places: int) -> list:
+def step_work_items(batch: int, n: int, kp1: int, places: int,
+                    per_item: int | None = None) -> list:
     """The step kernels' work items in their order, as (b0, [(jb, o),
-    ...]): 16 batch rows from b0 and a run of their N/T x (k+1) output
+    ...]): 16 batch rows from b0 and a run of ``per_item`` (by default
+    :func:`tiles_per_item`'s on ``places``) of their N/T x (k+1) output
     tiles, tile t at coefficient jb = (t % (N/T)) * T of component
     o = t // (N/T).  Under fused2 item (x, y) is block (x, y) of the
     grid; block x of the overlap kernel's grid of g takes items x,
@@ -1384,7 +1391,8 @@ def step_work_items(batch: int, n: int, kp1: int, places: int) -> list:
     t = min(n, MMA_TILE_COLS)
     njt = n // t
     nbt, group = -(-batch // MMA_TILE_ROWS), njt * kp1
-    per = tiles_per_item(nbt, group, places)
+    per = tiles_per_item(nbt, group, places) if per_item is None \
+        else per_item
     return [(bt * MMA_TILE_ROWS,
              [((tl % njt) * t, tl // njt)
               for tl in range(t0, min(t0 + per, group))])
@@ -1392,13 +1400,16 @@ def step_work_items(batch: int, n: int, kp1: int, places: int) -> list:
 
 
 class ScanLaunch(NamedTuple):
-    """The scan kernel's launch shape (:func:`scan_launch`): the last
-    arguments of ``ieache_blind_rotate_scan`` before the stream."""
+    """The scan kernel's launch shape (:func:`scan_launch`): but the
+    tile, which follows from the form, the last arguments of
+    ``ieache_blind_rotate_scan`` before the stream."""
 
     split: int      # parts of each tile's sum over its (p, chunk) pairs
     per_item: int   # output tiles a block computes from one decomposition
     grid: int       # blocks, every one resident at once
     cluster: int    # blocks a thread-block cluster
+    form: str = "mma"   # the step's form: "mma" or "wgmma" (STEP_FORMS)
+    tile: int = MMA_TILE_ROWS   # batch rows of a block's tile
 
 
 def scan_shape(batch: int, kp1: int, n: int, split: int, per_item: int,
@@ -1417,20 +1428,56 @@ def scan_shape(batch: int, kp1: int, n: int, split: int, per_item: int,
     return ScanLaunch(split, per_item, grid, cluster)
 
 
+def scan_wgmma_shape(batch: int, kp1: int, n: int, tile: int, cluster: int,
+                     clusters: int) -> ScanLaunch:
+    """The scan kernel's wgmma form: ``tile`` rows x min(N, 128)
+    coefficients a block, each tile whole, the blocks of a batch tile in
+    clusters of ``cluster`` (a cluster's work item: one tile a rank), a
+    grid of every item's cluster or of the ``clusters`` the card holds at
+    once, whichever is fewer."""
+    group = n // min(n, 128) * kp1
+    items = -(-batch // tile) * (group // cluster)
+    return ScanLaunch(1, 1, min(items, clusters) * cluster, cluster, "wgmma",
+                      tile)
+
+
+#: the fewest lanes at which the scan takes its wgmma form: at B=257 the
+#: mma.sync form's last 16-row tile holds one lane, the blocks that share
+#: an SM are light, and at 4 rows it won (tools/tile_bench.py on the H100,
+#: PERF.md); from 272 lanes the wgmma form won wherever the step takes it
+SCAN_WGMMA_MIN_BATCH = 272
+
+
 def scan_launch(batch: int, kp1: int, n: int, rows: int, sms: int = 132,
-                per_sm: int = 2) -> ScanLaunch:
+                per_sm: int = 2, resident: tuple | None = None) -> ScanLaunch:
     """The launch of ``csrc/blind_rotate_scan.cu`` on a card of ``sms``
-    SMs that hold ``per_sm`` of its blocks each, which the kernel takes
-    as it is (:func:`scan_shape`).  A step is fused2's work over the whole
-    grid: each tile's sum cut in :func:`mma_split_for` parts while the
-    tiles are fewer than the SMs; the output tiles of each row group, or
-    of each part, cut into runs of ``per_item`` (:func:`tiles_per_item`
-    over the row groups times the parts, dealt to the ``sms * per_sm``
-    places), a run being one block's work item from one decomposition;
-    each tile whole where :func:`scan_add_tile_fits` says no.  Of every
-    split and run tools/tile_bench.py times beside it on the H100, none
-    was faster at B = 8, 16, 256 or 1024, and one by 0.4% at 272
-    (PERF.md)."""
+    SMs that hold ``per_sm`` of its mma.sync form's blocks each, which the
+    kernel takes as it is.  Where the fused step takes its wgmma form
+    (:func:`step_launch`, on ``resident``, the scan kernel's (cluster,
+    clusters held at once) pairs) and the batch has at least
+    :data:`SCAN_WGMMA_MIN_BATCH` lanes, the scan's
+    (:func:`scan_wgmma_shape`): the same tile and cluster, a grid of the
+    clusters held at once.  Else
+    :func:`scan_shape`: a step is fused2's
+    work over the whole grid: each tile's sum cut in :func:`mma_split_for`
+    parts while the tiles are fewer than the SMs; the output tiles of each
+    row group, or of each part, cut into runs of ``per_item``
+    (:func:`tiles_per_item` over the row groups times the parts, dealt to
+    the ``sms * per_sm`` places), a run being one block's work item from
+    one decomposition; each tile whole where :func:`scan_add_tile_fits`
+    says no.  Of every split and run tools/tile_bench.py times beside it
+    on the H100, none was faster at B = 8, 16, 256 or 1024, and one by
+    0.4% at 272 (PERF.md)."""
+    step = step_launch(batch, kp1, n, rows, sms, per_sm, resident)
+    if step.form == "wgmma" and batch >= SCAN_WGMMA_MIN_BATCH:
+        return scan_wgmma_shape(batch, kp1, n, step.tile, step.cluster,
+                                _resident(sms, resident)[step.cluster])
+    return _scan_mma_launch(batch, kp1, n, rows, sms, per_sm)
+
+
+def _scan_mma_launch(batch: int, kp1: int, n: int, rows: int, sms: int,
+                     per_sm: int) -> ScanLaunch:
+    """:func:`scan_launch`'s mma.sync form (:func:`scan_shape`)."""
     t = min(n, MMA_TILE_COLS)
     nbt, group = -(-batch // MMA_TILE_ROWS), n // t * kp1
     split = (mma_split_for(nbt * group, rows * (n // t), sms)
@@ -1440,12 +1487,41 @@ def scan_launch(batch: int, kp1: int, n: int, rows: int, sms: int = 132,
                       tiles_per_item(nbt * split, group, places), places)
 
 
+def scan_launch_shapes(batch: int, kp1: int, n: int, rows: int,
+                       sms: int = 132, per_sm: int = 2,
+                       resident: tuple | None = None) -> dict:
+    """The launches :func:`scan_launch` picks from: "mma" (its mma.sync
+    form's) and "wgmma BN x T, cluster c" (BN = :data:`WG_STEP_TILE`) for
+    each cluster of :func:`wgmma_step_clusters`, on a grid of the clusters
+    held at once (``resident``, as :func:`step_launch` takes it)."""
+    shapes = {"mma": _scan_mma_launch(batch, kp1, n, rows, sms, per_sm)}
+    if wgmma_step_refusal(rows, kp1, n) is not None:
+        return shapes
+    held = _resident(sms, resident)
+    for c in wgmma_step_clusters(WG_STEP_TILE, n, kp1, rows // kp1):
+        shapes[f"wgmma {WG_STEP_TILE} x {min(n, 128)}, cluster {c}"] = \
+            scan_wgmma_shape(batch, kp1, n, WG_STEP_TILE, c, held[c])
+    return shapes
+
+
 def scan_work_items(launch: ScanLaunch, batch: int, n: int,
                     kp1: int) -> list:
     """The work items of one scan step in the kernel's order, as (b0, q,
     tiles): batch rows b0 .. b0 + 15, part q of the split, and the
     output tiles [(jb, o), ...] of the item's run (run y of a row group
-    is block y % cluster of its cluster)."""
+    is block y % cluster of its cluster).  Under the wgmma form an item
+    is a cluster's: batch rows b0 .. b0 + tile - 1 and one tile a rank,
+    rank r's at [r]."""
+    if launch.form == "wgmma":
+        t = min(n, 128)
+        njt = n // t
+        group = njt * kp1
+        return [(bt * launch.tile, 0,
+                 [((tl % njt) * t, tl // njt)
+                  for tl in range(y * launch.cluster,
+                                  (y + 1) * launch.cluster)])
+                for bt in range(-(-batch // launch.tile))
+                for y in range(group // launch.cluster)]
     t = min(n, MMA_TILE_COLS)
     njt = n // t
     nbt, group = -(-batch // MMA_TILE_ROWS), njt * kp1
@@ -1460,23 +1536,29 @@ def scan_work_items(launch: ScanLaunch, batch: int, n: int,
 def cmux_step_mma_model(acc: torch.Tensor, bara: torch.Tensor,
                         bk_i: torch.Tensor, params: TFHEParams,
                         sms: int = 132, blocks_per_sm: int = 2,
-                        cluster: bool = True) -> torch.Tensor:
-    """The fused2 kernel's work in plain ops, block by block, on a card
-    of ``sms`` SMs that hold ``blocks_per_sm`` of its blocks each.  With
-    fewer tiles than SMs: per 16 batch rows and part of the split, the
-    digit tile the block decomposes (:func:`cmux_digit_tile` over
+                        cluster: bool = True,
+                        launch: StepLaunch | None = None) -> torch.Tensor:
+    """The fused2 kernel's mma.sync form in plain ops, block by block,
+    under ``launch`` (by default :func:`step_shape`'s mma form on a card
+    of ``sms`` SMs that hold ``blocks_per_sm`` of its blocks each).  With
+    a split: per 16 batch rows and part of the split, the digit tile the
+    block decomposes (:func:`cmux_digit_tile` over
     :func:`cmux_part_ranges`), cut to the part's (p, chunk) pairs, through
     :func:`external_product_mma_model`, the parts' shares added to a copy
     of the accumulator.  Else per work item of :func:`step_work_items`
-    one whole digit tile (with ``cluster`` put together from the shares
-    of :func:`step_cluster_shares`) and, from it, each of the item's
-    output tiles, every output written once.  Same arguments and result
-    as :func:`cmux_step_plain`."""
+    (runs of the launch's ``per_item`` tiles) one whole digit tile (with
+    ``cluster`` put together from the shares of the launch's cluster) and,
+    from it, each of the item's output tiles, every output written once.
+    Same arguments and result as :func:`cmux_step_plain`."""
     rows, kp1, n = bk_i.shape
     b = acc.shape[1]
     t = min(n, MMA_TILE_COLS)
     nbt = -(-b // MMA_TILE_ROWS)
-    split = mma_split_for(nbt * (n // t) * kp1, rows * (n // t), sms)
+    launch = launch or step_shape(b, kp1, n, rows, "mma", MMA_TILE_ROWS,
+                                  sms=sms, per_sm=blocks_per_sm)
+    if launch.form != "mma":
+        raise ValueError(f"not an mma.sync launch: {launch}")
+    split = launch.split
     if split > 1:
         out = acc.clone()
         for b0 in range(0, b, MMA_TILE_ROWS):
@@ -1493,9 +1575,10 @@ def cmux_step_mma_model(acc: torch.Tensor, bara: torch.Tensor,
         return out
     out = torch.zeros_like(acc)
     written = torch.zeros_like(acc)
-    items = step_work_items(b, n, kp1, sms * blocks_per_sm)
-    shares = step_cluster_shares(len(items) // nbt, split) if cluster \
-        else [(0, MMA_TILE_ROWS)]
+    items = step_work_items(b, n, kp1, sms * blocks_per_sm, launch.per_item)
+    c = launch.cluster if cluster else 1
+    shares = [(r * MMA_TILE_ROWS // c, (r + 1) * MMA_TILE_ROWS // c)
+              for r in range(c)]
     for b0, tiles in items:
         nb = min(MMA_TILE_ROWS, b - b0)
         # a cluster's blocks each decompose a share of the rows; every
@@ -1526,6 +1609,344 @@ def cmux_step_overlap_mma_model(acc: torch.Tensor, bara: torch.Tensor,
                                cluster=False)
 
 
+# The fused step on the warpgroup tile (csrc/wgmma_step.cuh): the
+# producer warpgroup rotates, diffs and decomposes the digits straight
+# into the swizzled stages the wgmmas read, shared across a cluster of the
+# blocks of the same batch rows; a plain model of that, and the launch
+# policy of both step forms.
+
+#: the fused step's kernel forms: mma.sync on the 16-row tile of
+#: csrc/cmux_step_parts.cuh, and wgmma on csrc/wgmma_step.cuh's
+STEP_FORMS = ("mma", "wgmma")
+
+#: the most gadget levels l a unit (the l stages of one rotation) holds
+WG_STEP_MAX_LEVELS = 4
+
+#: the cluster sizes the wgmma form takes (a power of two up to 8 that
+#: divides the N/T x (k+1) blocks of a batch tile)
+WG_STEP_CLUSTERS = (1, 2, 4, 8)
+
+#: the largest cluster the policies give the wgmma form
+WG_STEP_CLUSTER = 4
+
+#: the batch rows of the wgmma form's tile (a 32-row tile lost to it at
+#: every batch tools/tile_bench.py swept, PERF.md)
+WG_STEP_TILE = 64
+
+#: clusters of each size the H100 holds at once of a one-block-an-SM
+#: wgmma step kernel (the runtime's occupancy query, PERF.md): whole
+#: clusters sit inside a GPC, so four and eight leave 12 SMs idle
+H100_RESIDENT_CLUSTERS = ((1, 132), (2, 66), (4, 30), (8, 15))
+
+
+class StepLaunch(NamedTuple):
+    """The fused step's launch (:func:`step_launch`): form, split,
+    per_item and cluster are the last arguments of ``ieache_cmux_step``
+    before the stream; the tile follows from the form, the grid from
+    the rest."""
+
+    form: str       # "mma" (cmux_step_parts.cuh) or "wgmma" (wgmma_step.cuh)
+    tile: int       # batch rows of a block's tile: 16, or a wgmma's n
+    cols: int       # coefficients of a block's tile
+    split: int      # parts of each tile's sum over its (p, chunk) pairs
+    per_item: int   # output tiles a block computes from one decomposition
+    cluster: int    # blocks a thread-block cluster
+    grid: int       # blocks
+
+
+def wgmma_step_smem_bytes(bn: int, n: int, l: int, cluster: int) -> int:
+    """Shared memory of a wgmma step block (``StepTile::smem_bytes``): from
+    a 1024-byte boundary, two unit buffers of l stages of bn x KC digits,
+    two plane buffers and the rank's bn / cluster rows of one polynomial
+    of the accumulator (the epilogue's slabs over all three), then five
+    mbarriers and bn amounts."""
+    t, kc = min(n, 128), wgmma_chunk_cols(n)
+    words = (t + kc) // 4
+    stride = words + (8 - words % 32) % 32
+    main = 2 * l * bn * kc + 2 * 16 * stride * 4 + bn // cluster * n * 4
+    slabs = 4 * (t // 64) * bn * WG_SLAB_PITCH * 4
+    return 1024 + -(-max(main, slabs) // 16) * 16 + 8 * 5 + 4 * bn
+
+
+def wgmma_step_clusters(bn: int, n: int, kp1: int, l: int) -> tuple:
+    """The clusters the wgmma step takes for a batch tile of ``bn`` rows:
+    those of :data:`WG_STEP_CLUSTERS` that divide its N/T x (k+1) blocks
+    and whose rows of the accumulator fit a block's shared memory beside
+    the stages (:func:`wgmma_step_smem_bytes`)."""
+    group = n // min(n, 128) * kp1
+    return tuple(c for c in WG_STEP_CLUSTERS if group % c == 0 and
+                 wgmma_step_smem_bytes(bn, n, l, c) <= SMEM_BLOCK_BYTES)
+
+
+def wgmma_step_cluster(bn: int, n: int, kp1: int, l: int,
+                       most: int = WG_STEP_CLUSTER) -> int:
+    """The policies' cluster for a batch tile of ``bn`` rows: the largest
+    of :func:`wgmma_step_clusters` up to ``most``, else the smallest."""
+    takes = wgmma_step_clusters(bn, n, kp1, l)
+    return max((c for c in takes if c <= most), default=min(takes))
+
+
+def step_shape(batch: int, kp1: int, n: int, rows: int, form: str,
+               tile: int, cluster: int | None = None, sms: int = 132,
+               per_sm: int = 2) -> StepLaunch:
+    """The fused step's launch in ``form`` on a card of ``sms`` SMs.
+    "mma": 16-row tiles of min(N, 256) coefficients, each tile's sum cut
+    in :func:`mma_split_for`'s parts while the tiles are fewer than the
+    SMs, else runs of :func:`tiles_per_item` tiles a block over the
+    ``sms * per_sm`` blocks resident at once, the runs of a row group in
+    clusters as :func:`step_cluster_shares` pairs them.  "wgmma": ``tile``
+    rows x min(N, 128) coefficients a block, each tile whole, the blocks
+    of a batch tile in clusters of ``cluster`` (by default
+    :func:`wgmma_step_cluster`'s)."""
+    if form == "mma":
+        t = min(n, MMA_TILE_COLS)
+        nbt, group = -(-batch // MMA_TILE_ROWS), n // t * kp1
+        split = mma_split_for(nbt * group, rows * (n // t), sms)
+        per_item = (tiles_per_item(nbt, group, sms * per_sm) if split == 1
+                    else 1)
+        nper = -(-group // per_item)
+        return StepLaunch("mma", MMA_TILE_ROWS, t, split, per_item,
+                          len(step_cluster_shares(nper, split)),
+                          nbt * split * nper)
+    cols = min(n, 128)
+    cluster = (wgmma_step_cluster(tile, n, kp1, rows // kp1)
+               if cluster is None else cluster)
+    return StepLaunch("wgmma", tile, cols, 1, 1, cluster,
+                      -(-batch // tile) * (n // cols) * kp1)
+
+
+def step_launch_shapes(batch: int, kp1: int, n: int, rows: int,
+                       sms: int = 132, per_sm: int = 2) -> dict:
+    """The launches :func:`step_launch` picks from: "mma", and "wgmma BN x
+    T, cluster c" (BN = :data:`WG_STEP_TILE`) for each cluster of
+    :func:`wgmma_step_clusters` (none where the wgmma form refuses the
+    shape: :func:`wgmma_step_refusal`)."""
+    shapes = {"mma": step_shape(batch, kp1, n, rows, "mma", MMA_TILE_ROWS,
+                                sms=sms, per_sm=per_sm)}
+    if wgmma_step_refusal(rows, kp1, n) is not None:
+        return shapes
+    for c in wgmma_step_clusters(WG_STEP_TILE, n, kp1, rows // kp1):
+        shapes[f"wgmma {WG_STEP_TILE} x {min(n, 128)}, cluster {c}"] = \
+            step_shape(batch, kp1, n, rows, "wgmma", WG_STEP_TILE, c, sms=sms)
+    return shapes
+
+
+def wgmma_step_refusal(rows: int, kp1: int, n: int) -> str | None:
+    """Why the fused step's wgmma form refuses a shape the mma form takes,
+    or None: a unit holds at most :data:`WG_STEP_MAX_LEVELS` stages."""
+    if rows // kp1 > WG_STEP_MAX_LEVELS:
+        return (f"the wgmma step holds at most {WG_STEP_MAX_LEVELS} gadget "
+                f"levels a unit, got l={rows // kp1}")
+    return None
+
+
+def _resident(sms: int, resident: tuple | None) -> dict:
+    """{cluster: clusters held at once} of a one-block-an-SM wgmma kernel:
+    ``resident`` as the occupancy query gives it, else the H100's
+    (:data:`H100_RESIDENT_CLUSTERS`) on 132 SMs, else one block an SM."""
+    if resident is not None:
+        return dict(resident)
+    if sms == 132:
+        return dict(H100_RESIDENT_CLUSTERS)
+    return {c: sms // c for c in WG_STEP_CLUSTERS}
+
+
+@functools.cache
+def step_launch(batch: int, kp1: int, n: int, rows: int, sms: int = 132,
+                per_sm: int = 2, resident: tuple | None = None) -> StepLaunch:
+    """The launch of ``csrc/cmux_step.cu`` on a card of ``sms`` SMs that
+    hold ``per_sm`` of its mma.sync form's blocks each, which the kernel
+    takes as it is.  The wgmma form's :data:`WG_STEP_TILE`-row tile where
+    the mma.sync form keeps every tile whole and the card holds the wgmma
+    grid in one wave: in clusters of :data:`WG_STEP_CLUSTER`, else of
+    fewer (``resident``: (cluster, clusters the card holds at once) pairs
+    from the occupancy query; by default the H100's).  Elsewhere the
+    mma.sync form (:func:`step_shape`), whose tiles' sums split over the
+    SMs at small batches.  Set from tools/tile_bench.py's sweeps at 4 and
+    6 rows on the H100 (PERF.md): the wgmma form won in one wave (4 rows,
+    B = 257 .. 512; 6 rows, B = 257 .. 448) and lost in more."""
+    mma = step_shape(batch, kp1, n, rows, "mma", MMA_TILE_ROWS, sms=sms,
+                     per_sm=per_sm)
+    if mma.split > 1 or wgmma_step_refusal(rows, kp1, n) is not None:
+        return mma
+    held = _resident(sms, resident)
+    blocks = -(-batch // WG_STEP_TILE) * (n // min(n, 128)) * kp1
+    for c in sorted(wgmma_step_clusters(WG_STEP_TILE, n, kp1, rows // kp1),
+                    reverse=True):
+        if c <= WG_STEP_CLUSTER and blocks <= held.get(c, 0) * c:
+            return step_shape(batch, kp1, n, rows, "wgmma", WG_STEP_TILE, c,
+                              sms=sms)
+    return mma
+
+
+def overlap_parts_launch(batch: int, kp1: int, n: int, rows: int,
+                         sms: int = 132,
+                         per_sm: int = 2) -> StepLaunch | None:
+    """The overlap kernel's small-batch route: where its whole tiles are
+    fewer than the ``sms`` SMs, the launch of the fused2 kernel's mma.sync
+    form it runs instead (:func:`step_shape`), else None (its own
+    persistent kernel)."""
+    t = min(n, MMA_TILE_COLS)
+    if -(-batch // MMA_TILE_ROWS) * (n // t) * kp1 >= sms:
+        return None
+    return step_shape(batch, kp1, n, rows, "mma", MMA_TILE_ROWS, sms=sms,
+                      per_sm=per_sm)
+
+
+def wgmma_step_rank_rows(bn: int, cluster: int, rank: int) -> tuple:
+    """The batch rows (lo, hi) of a stage that cluster rank ``rank`` of
+    ``cluster`` decomposes into every rank's stages."""
+    return rank * bn // cluster, (rank + 1) * bn // cluster
+
+
+def wgmma_step_copy_ranges(bn: int, kc: int, cluster: int, rank: int,
+                           l: int) -> list:
+    """The bulk copies that send cluster rank ``rank``'s share of a unit
+    from its stages into every peer's: (byte offset in the unit buffer,
+    bytes) for each stage jl and box of the stage, the rank's rows of the
+    box (its rows lie whole and contiguous in a box: the swizzle permutes
+    16-byte pieces within a row)."""
+    sw = wgmma_swizzle(kc)
+    lo, hi = wgmma_step_rank_rows(bn, cluster, rank)
+    return [(jl * bn * kc + box * bn * sw + lo * sw, (hi - lo) * sw)
+            for jl in range(l) for box in range(kc // sw)]
+
+
+def wgmma_step_unit_model(acc: torch.Tensor, bara: torch.Tensor,
+                          params: TFHEParams, u: int, ch: int, b0: int,
+                          bn: int, kc: int, rank: int = 0,
+                          cluster: int = 1) -> list:
+    """What cluster rank ``rank`` decomposes into its own stages for unit
+    (polynomial ``u``, chunk ``ch``) of the batch tile at ``b0``, and its
+    copies (:func:`wgmma_step_copy_ranges`) bring to every peer's: for
+    each gadget level jl (the stage of digit row u l + jl), (offsets,
+    bytes), int64 and int8, one entry a byte.  Its rows
+    (:func:`wgmma_step_rank_rows`) x the chunk's kc columns (the kernel's
+    threads take runs of 8): X^bara·acc[u] - acc[u] + offset, each 4
+    packed by :func:`digit_word_model` into a word of digits, at
+    :func:`wgmma_stage_offset`; rows past the batch zero."""
+    kp1, b, n = acc.shape
+    lo, hi = wgmma_step_rank_rows(bn, cluster, rank)
+    dev = acc.device
+    row = torch.arange(lo, hi, device=dev)
+    col = torch.arange(kc, device=dev)
+    lane = (b0 + row).clamp(max=b - 1)
+    valid = (b0 + row < b)[:, None]
+    j = ch * kc + col                                           # (kc,)
+    i = (j[None, :] - bara.to(torch.int64)[lane][:, None]) & (2 * n - 1)
+    c = _u32(acc[u])                                            # (B, N)
+    rot = torch.where(i < n, c[lane[:, None], i % n],
+                      (-c[lane[:, None], i % n]) & 0xFFFFFFFF)
+    v = (rot - c[lane][:, j] + _offset(params.bg_bit, params.l)) \
+        & 0xFFFFFFFF                                            # (rows, kc)
+    offsets = wgmma_stage_offset(row[:, None], col[None, :], bn, kc)
+    shifts = 8 * torch.arange(4, device=dev)
+    out = []
+    for jl in range(params.l):
+        words = digit_word_model(v.reshape(len(row), kc // 4, 4), jl,
+                                 params.bg_bit)
+        digits = ((words[..., None] >> shifts) & 0xFF).reshape(len(row), kc)
+        digits = torch.where(valid, digits, torch.zeros_like(digits))
+        out.append((offsets.reshape(-1),
+                    (digits - ((digits & 0x80) << 1)).to(torch.int8)
+                    .reshape(-1)))
+    return out
+
+
+def wgmma_step_stages(acc: torch.Tensor, bara: torch.Tensor,
+                      params: TFHEParams, u: int, ch: int, b0: int, bn: int,
+                      kc: int, cluster: int = 1) -> torch.Tensor:
+    """The l stages (l, bn * kc) int8 of unit (``u``, ``ch``) in every
+    rank, put together from each rank's share
+    (:func:`wgmma_step_unit_model`) through its copies
+    (:func:`wgmma_step_copy_ranges`); raises unless the ranks' copies
+    write every byte exactly once, each within the rank's own share."""
+    unit = torch.zeros(params.l * bn * kc, dtype=torch.int8,
+                       device=acc.device)
+    written = torch.zeros(params.l * bn * kc, dtype=torch.int32,
+                          device=acc.device)
+    for rank in range(cluster):
+        own = torch.zeros_like(unit)
+        mine = torch.zeros_like(written)
+        for jl, (at, vals) in enumerate(wgmma_step_unit_model(
+                acc, bara, params, u, ch, b0, bn, kc, rank, cluster)):
+            own[jl * bn * kc + at] = vals
+            mine[jl * bn * kc + at] += 1
+        for start, size in wgmma_step_copy_ranges(bn, kc, cluster, rank,
+                                                  params.l):
+            if not bool((mine[start:start + size] == 1).all()):
+                raise AssertionError("a rank copies bytes it did not write")
+            unit[start:start + size] = own[start:start + size]
+            written[start:start + size] += 1
+    if not bool((written == 1).all()):
+        raise AssertionError("the cluster's copies do not write every "
+                             "staged byte once")
+    return unit.reshape(params.l, bn * kc)
+
+
+def _wgmma_step_tile(acc: torch.Tensor, bara: torch.Tensor,
+                     bk_i: torch.Tensor, params: TFHEParams, b0: int, bn: int,
+                     t: int, o: int, jb: int, cluster: int) -> torch.Tensor:
+    """One wgmma step block's sum, before the accumulator is added: for
+    each unit (u, chunk) its stages (:func:`wgmma_step_stages`), and for
+    each of its pairs (p = u l + jl) the A tile from the pair's planes
+    (:func:`mma_planes` of kc columns, :func:`wgmma_toeplitz_tile`) times
+    the stage as the descriptor of each k-step reads it, one int32 sum per
+    limb; then the epilogue's fold (:func:`wgmma_epilogue_model`).
+    Returns (rows of the batch from b0, t) int32."""
+    rows, kp1, n = bk_i.shape
+    kc = wgmma_chunk_cols(n)
+    reads = torch.cat([wgmma_descriptor_reads(bn, kc, ks)
+                       for ks in range(kc // 32)]).to(acc.device)
+    sums = torch.zeros((TORUS_LIMBS, t, bn), dtype=torch.int32,
+                       device=acc.device)
+    for u in range(kp1):
+        for ch in range(n // kc):
+            stages = wgmma_step_stages(acc, bara, params, u, ch, b0, bn, kc,
+                                       cluster)
+            for jl in range(params.l):
+                tile = wgmma_toeplitz_tile(
+                    mma_planes(bk_i[u * params.l + jl, o], jb, ch * kc, kc,
+                               t=t), t, kc).to(torch.int32)
+                sums += torch.einsum("vjk,kn->vjn", tile,
+                                     stages[jl][reads].to(torch.int32))
+    return wgmma_epilogue_model(sums)[:acc.shape[1] - b0]
+
+
+def cmux_step_wgmma_model(acc: torch.Tensor, bara: torch.Tensor,
+                          bk_i: torch.Tensor, params: TFHEParams,
+                          launch: StepLaunch | None = None,
+                          sms: int = 132) -> torch.Tensor:
+    """The fused step's wgmma form in plain ops, block by block, under
+    ``launch`` (by default :func:`step_shape`'s wgmma form on ``sms``
+    SMs): for each T x BN tile
+    (:func:`_wgmma_step_tile`, its digits from the cluster's ranks'
+    shares) acc's tile + the folded sum, every output written once.  Same
+    arguments and result as :func:`cmux_step_plain`."""
+    rows, kp1, n = bk_i.shape
+    _refuse(kernels_refusal("fused2", rows, n)
+            or wgmma_step_refusal(rows, kp1, n))
+    b = acc.shape[1]
+    launch = launch or step_shape(b, kp1, n, rows, "wgmma", WG_STEP_TILE,
+                                  sms=sms)
+    if launch.form != "wgmma" or launch.split != 1:
+        raise ValueError(f"not a wgmma launch of whole tiles: {launch}")
+    bn, t = launch.tile, launch.cols
+    out = torch.zeros_like(acc)
+    written = torch.zeros_like(acc)
+    for o in range(kp1):
+        for jb in range(0, n, t):
+            for b0 in range(0, b, bn):
+                at = (o, slice(b0, b0 + bn), slice(jb, jb + t))
+                out[at] = acc[at] + _wgmma_step_tile(
+                    acc, bara, bk_i, params, b0, bn, t, o, jb,
+                    launch.cluster)
+                written[at] += 1
+    if not bool((written == 1).all()):
+        raise AssertionError("the tiles do not write every output once")
+    return out
+
+
 def blind_rotate_scan_schedule_model(acc: torch.Tensor, bara: torch.Tensor,
                                      bk: torch.Tensor, params: TFHEParams,
                                      sms: int = 132, per_sm: int = 2,
@@ -1554,6 +1975,8 @@ def blind_rotate_scan_schedule_model(acc: torch.Tensor, bara: torch.Tensor,
     b = acc.shape[1]
     if launch is None:
         launch = scan_launch(b, kp1, n, rows, sms, per_sm)
+    if launch.form == "wgmma":
+        return _scan_wgmma_schedule(acc, bara, bk, params, launch, order)
     atomic = launch.split > 1
     t = min(n, MMA_TILE_COLS)
     parts = cmux_part_ranges(rows, n, launch.split)
@@ -1612,14 +2035,54 @@ def blind_rotate_scan_schedule_model(acc: torch.Tensor, bara: torch.Tensor,
     return dst(nsteps - 1)
 
 
+def _scan_wgmma_schedule(acc: torch.Tensor, bara: torch.Tensor,
+                         bk: torch.Tensor, params: TFHEParams,
+                         launch: ScanLaunch, order=None) -> torch.Tensor:
+    """:func:`blind_rotate_scan_schedule_model` under the wgmma form: the
+    clusters' work items (:func:`scan_work_items`) of each step in the
+    order ``order(items)`` gives, each rank's tile the wgmma step block's
+    (:func:`_wgmma_step_tile` from the step's current accumulator, its
+    digits from every rank's share) stored as cur + sum into the buffer
+    the step does not read; two buffers, the last step landing in the
+    first."""
+    nsteps, rows, kp1, n = bk.shape
+    b = acc.shape[1]
+    bn, t = launch.tile, min(n, 128)
+    items = scan_work_items(launch, b, n, kp1)
+    if order is not None:
+        items = order(items)
+    ring = [torch.full_like(acc, 0x5A5A5A5A) for _ in range(2)]
+
+    def dst(s):
+        return ring[(nsteps - 1 - s) % 2]
+
+    for s in range(nsteps):
+        cur, out = (acc if s == 0 else dst(s - 1)), dst(s)
+        bara_s = bara[:, s].contiguous()
+        count = torch.zeros_like(acc)
+        for b0, _, tiles in items:
+            for jb, o in tiles:
+                at = (o, slice(b0, b0 + bn), slice(jb, jb + t))
+                out[at] = cur[at] + _wgmma_step_tile(
+                    cur, bara_s, bk[s], params, b0, bn, t, o, jb,
+                    launch.cluster)
+                count[at] += 1
+        if not bool((count == 1).all()):
+            raise AssertionError(f"step {s}'s work items do not cover every "
+                                 f"output word once")
+    return dst(nsteps - 1)
+
+
 def _cmux_step_launch(wrapper, entry: str, mode: str, acc: torch.Tensor,
                       bara: torch.Tensor, bk_i: torch.Tensor,
                       params: TFHEParams) -> torch.Tensor:
     """Both step kernels' wrapper body: the new accumulator from the C
     entry point ``entry`` on CUDA tensors (which raises ``ValueError``
-    for a shape :func:`kernels_refusal` refuses under ``mode``), counted
-    on ``wrapper``, or from the plain twin on CPU tensors.  The output
-    never aliases ``acc``: blocks read it while others write."""
+    for a shape :func:`kernels_refusal` refuses under ``mode``), launched
+    as :func:`step_launch` (fused2) or :func:`overlap_parts_launch` (the
+    overlap kernel's small-batch route) says, counted on ``wrapper``, or
+    from the plain twin on CPU tensors.  The output never aliases
+    ``acc``: blocks read it while others write."""
     _require_single_limb(params)
     rows, kp1, b, n = params.trgsw_rows, params.k + 1, bara.numel(), params.N
     _check(acc, "acc", torch.int32, (kp1, b, n), acc.device, align=16)
@@ -1629,18 +2092,78 @@ def _cmux_step_launch(wrapper, entry: str, mode: str, acc: torch.Tensor,
         return cmux_step_plain(acc, bara, bk_i, params)
 
     _refuse(kernels_refusal(mode, rows, n))
+    if b == 0:
+        return torch.empty_like(acc)
+    sms = _sm_count(acc.device)
+    per_sm = _step_per_sm(acc.device, rows, n)
+    if mode == "fused2":
+        out = _cmux_step_entry(acc, bara, bk_i, params, step_launch(
+            b, kp1, n, rows, sms, per_sm,
+            _wgmma_resident(acc.device, "cmux_step", rows, kp1, n)))
+    else:
+        out = torch.empty_like(acc)
+        parts = overlap_parts_launch(b, kp1, n, rows, sms, per_sm)
+        lib, stream = _launch_context(acc)
+        code = getattr(lib, entry)(
+            acc.data_ptr(), bara.data_ptr(), bk_i.data_ptr(), out.data_ptr(),
+            rows, kp1, b, n, params.bg_bit, params.l,
+            _offset(params.bg_bit, params.l),
+            *((parts.split, parts.per_item, parts.cluster) if parts
+              else (0, 0, 0)), stream,
+        )
+        _build.check(lib, code, entry)
+    wrapper.launches += 1
+    return out
+
+
+@functools.cache
+def _step_per_sm(device: torch.device, rows: int, n: int) -> int:
+    """Blocks of the fused step's mma.sync form an SM of ``device`` (the
+    current one) holds at once at (rows, N), as the runtime's occupancy
+    query says."""
+    lib = _build.library()
+    blocks = ctypes.c_int(0)
+    _build.check(lib, lib.ieache_cmux_step_per_sm(rows, n,
+                                                  ctypes.byref(blocks)),
+                 "cmux_step_per_sm")
+    return blocks.value
+
+
+def _cmux_step_entry(acc: torch.Tensor, bara: torch.Tensor,
+                     bk_i: torch.Tensor, params: TFHEParams,
+                     launch: StepLaunch) -> torch.Tensor:
+    """One launch of ``ieache_cmux_step`` on checked CUDA tensors with the
+    launch shape ``launch``, uncounted: the wrapper's launch, and the one
+    chip_smoke and ``tools/tile_bench.py`` give every form, tile and
+    cluster by."""
+    rows, kp1, n = params.trgsw_rows, params.k + 1, params.N
+    b = bara.numel()
     out = torch.empty_like(acc)
     if b == 0:
         return out
     lib, stream = _launch_context(acc)
-    code = getattr(lib, entry)(
+    code = lib.ieache_cmux_step(
         acc.data_ptr(), bara.data_ptr(), bk_i.data_ptr(), out.data_ptr(),
         rows, kp1, b, n, params.bg_bit, params.l,
-        _offset(params.bg_bit, params.l), stream,
+        _offset(params.bg_bit, params.l), STEP_FORMS.index(launch.form),
+        launch.split, launch.per_item, launch.cluster, stream,
     )
-    _build.check(lib, code, entry)
-    wrapper.launches += 1
+    _build.check(lib, code, "cmux_step")
     return out
+
+
+def cmux_step_as(acc: torch.Tensor, bara: torch.Tensor, bk_i: torch.Tensor,
+                 params: TFHEParams, launch: StepLaunch) -> torch.Tensor:
+    """The fused step under ``launch``, uncounted, whatever the policy
+    picks: :func:`_cmux_step_entry` on CUDA tensors, the plain model of
+    that form on CPU tensors (:func:`cmux_step_wgmma_model`, or
+    :func:`cmux_step_mma_model`).  chip_smoke and ``tools/tile_bench.py``
+    hold every launch shape to the twin by it."""
+    if acc.is_cuda:
+        return _cmux_step_entry(acc, bara, bk_i, params, launch)
+    if launch.form == "wgmma":
+        return cmux_step_wgmma_model(acc, bara, bk_i, params, launch=launch)
+    return cmux_step_mma_model(acc, bara, bk_i, params, launch=launch)
 
 
 def cmux_step(acc: torch.Tensor, bara: torch.Tensor, bk_i: torch.Tensor,
@@ -1706,8 +2229,10 @@ def blind_rotate_scan(acc: torch.Tensor, bara: torch.Tensor, bk: torch.Tensor,
     if b == 0 or steps == 0:
         return acc.clone()
     _launch_context(acc)
-    launch = scan_launch(b, kp1, n, rows, _sm_count(acc.device),
-                         _scan_per_sm(acc.device, rows, n))
+    launch = scan_launch(
+        b, kp1, n, rows, _sm_count(acc.device),
+        _scan_per_sm(acc.device, rows, n),
+        _wgmma_resident(acc.device, "blind_rotate_scan", rows, kp1, n))
     out = _blind_rotate_scan_entry(acc, bara, bk, params, launch)
     blind_rotate_scan.launches += 1
     return out
@@ -1723,6 +2248,35 @@ def _scan_per_sm(device: torch.device, rows: int, n: int) -> int:
     _build.check(lib, lib.ieache_blind_rotate_scan_per_sm(
         rows, n, ctypes.byref(blocks)), "blind_rotate_scan_per_sm")
     return blocks.value
+
+
+@functools.cache
+def _wgmma_clusters(device: torch.device, kernel: str, rows: int, kp1: int,
+                    n: int, cluster: int) -> int:
+    """Clusters of ``cluster`` blocks of ``kernel``'s wgmma form
+    ("cmux_step" or "blind_rotate_scan"; its :data:`WG_STEP_TILE`) ``device``
+    (the current one) holds at once at (rows, k+1, N), as the runtime's
+    occupancy query says: the scan's cooperative launch needs every block
+    resident, and the step's policy wants its grid in one wave."""
+    lib = _build.library()
+    count = ctypes.c_int(0)
+    entry = f"ieache_{kernel}_clusters"
+    _build.check(lib, getattr(lib, entry)(rows, kp1, n, cluster,
+                                          ctypes.byref(count)), entry)
+    return count.value
+
+
+@functools.cache
+def _wgmma_resident(device: torch.device, kernel: str, rows: int, kp1: int,
+                    n: int) -> tuple | None:
+    """The (cluster, clusters held at once) pairs of ``kernel``'s wgmma
+    form at the policies' tile on ``device``, for every cluster it takes
+    there; None where the form refuses the shape."""
+    if wgmma_step_refusal(rows, kp1, n) is not None:
+        return None
+    return tuple((c, _wgmma_clusters(device, kernel, rows, kp1, n, c))
+                 for c in wgmma_step_clusters(WG_STEP_TILE, n, kp1,
+                                              rows // kp1))
 
 
 def _blind_rotate_scan_entry(acc: torch.Tensor, bara: torch.Tensor,
@@ -1744,10 +2298,25 @@ def _blind_rotate_scan_entry(acc: torch.Tensor, bara: torch.Tensor,
     code = lib.ieache_blind_rotate_scan(
         acc.data_ptr(), bara.data_ptr(), bk.data_ptr(), *ptrs,
         barrier.data_ptr(), rows, kp1, b, n, steps, params.bg_bit, params.l,
-        _offset(params.bg_bit, params.l), *launch, stream,
+        _offset(params.bg_bit, params.l), launch.split, launch.per_item,
+        launch.grid, launch.cluster, STEP_FORMS.index(launch.form), stream,
     )
     _build.check(lib, code, "blind_rotate_scan")
     return bufs[0]
+
+
+def blind_rotate_scan_as(acc: torch.Tensor, bara: torch.Tensor,
+                         bk: torch.Tensor, params: TFHEParams,
+                         launch: ScanLaunch) -> torch.Tensor:
+    """The whole rotation under ``launch``, uncounted, whatever the policy
+    picks: :func:`_blind_rotate_scan_entry` on CUDA tensors, the schedule
+    model of that form on CPU tensors
+    (:func:`blind_rotate_scan_schedule_model`).  chip_smoke and
+    ``tools/tile_bench.py`` hold every launch shape to the twin by it."""
+    if acc.is_cuda:
+        return _blind_rotate_scan_entry(acc, bara, bk, params, launch)
+    return blind_rotate_scan_schedule_model(acc, bara, bk, params,
+                                            launch=launch)
 
 
 blind_rotate_scan.launches = 0

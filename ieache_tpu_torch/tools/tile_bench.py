@@ -29,7 +29,11 @@ split of a tile's sum and run of tiles a work item
 ``scan_launch``); at each product batch ``external_product`` in every form
 and batch tile ``product_launch`` picks from, at its default split
 (``external_product_launch_ms``, "mma" and "wgmma BN x T"; the pick is
-``product_launch``); each held against its twin first.  Run from the root
+``product_launch``); at each step batch ``cmux_step`` in every form, tile
+and cluster ``step_launch`` picks from (``cmux_step_launch_ms``, "mma" and
+"wgmma BN x T, cluster c"), and at each scan batch the scan kernel in the
+other form too ("mma", "wgmma BN x T, cluster c"); each held against its
+twin first.  Run from the root
 of a checkout, on a CUDA device:
 
     python -m ieache_tpu_torch.tools.tile_bench
@@ -138,17 +142,39 @@ def product_launch_variants(p, b: int, sms: int = 132) -> dict:
             if launch != pick}
 
 
-def scan_launch_variants(p, b: int, sms: int = 132,
-                         per_sm: int = 2) -> dict:
+def step_launch_variants(p, b: int, sms: int = 132, per_sm: int = 2,
+                         resident=None) -> dict:
+    """The fused step's launch shapes :func:`run` times beside the
+    policy's pick (``kernels.step_launch`` on ``resident``, the occupancy
+    query's clusters on the card) at batch ``b``: every shape of
+    ``kernels.step_launch_shapes`` but the pick's ("mma", "wgmma BN x T,
+    cluster c")."""
+    args = (b, p.k + 1, p.N, p.trgsw_rows, sms, per_sm)
+    pick = kernels.step_launch(*args, resident)
+    return {name: launch
+            for name, launch in kernels.step_launch_shapes(*args).items()
+            if launch != pick}
+
+
+def scan_launch_variants(p, b: int, sms: int = 132, per_sm: int = 2,
+                         resident=None) -> dict:
     """The scan kernel's launch shapes :func:`run` times beside the
-    policy's pick (``kernels.scan_launch``) at batch ``b``: "split S,
-    per_item P" -> ``kernels.scan_shape`` for every split S that divides
-    a tile's (p, chunk) pairs and every run of P tiles, P a power of two
-    up to the tiles of a row group."""
+    policy's pick (``kernels.scan_launch``) at batch ``b``: every shape of
+    ``kernels.scan_launch_shapes`` but the pick ("mma", the mma.sync
+    form's own, and "wgmma BN x T, cluster c"), and "split S, per_item P"
+    -> ``kernels.scan_shape`` for every split S that divides a tile's (p,
+    chunk) pairs and every run of P tiles, P a power of two up to the
+    tiles of a row group, but the mma.sync form's own pick.  ``resident``
+    is the wgmma form's (cluster, clusters held at once) pairs (the
+    occupancy query's on the card)."""
     t = min(p.N, kernels.MMA_TILE_COLS)
     nchunks, group = p.trgsw_rows * (p.N // t), p.N // t * (p.k + 1)
-    pick = kernels.scan_launch(b, p.k + 1, p.N, p.trgsw_rows, sms, per_sm)
-    shapes = {}
+    args = (b, p.k + 1, p.N, p.trgsw_rows, sms, per_sm)
+    pick = kernels.scan_launch(*args, resident)
+    forms = kernels.scan_launch_shapes(*args, resident)
+    shapes = {name: launch for name, launch in forms.items()
+              if launch != pick}
+    pick = forms["mma"]
     for split in (s for s in range(1, nchunks + 1) if nchunks % s == 0):
         per_item = 1
         while per_item <= group:
@@ -165,7 +191,8 @@ def run(p, product_b, scan_b, device, check: bool = True,
     """The record: ``external_product_ms`` and its launch variants
     (:func:`product_launch_variants`, ``external_product_launch_ms``;
     on CPU tensors through each form's plain model),
-    ``cmux_step_ms``,
+    ``cmux_step_ms`` and its launch variants
+    (:func:`step_launch_variants`, ``cmux_step_launch_ms``),
     ``cmux_step_overlap_ms``, ``blind_rotate_scan_ms``,
     ``rot_diff_decompose_ms``, ``rot_diff_decompose_tr_ms``,
     ``external_product_tr_ms`` and ``rotate_sublane_ms`` by batch, and
@@ -177,6 +204,7 @@ def run(p, product_b, scan_b, device, check: bool = True,
     they differ; ``timed=False`` (the CPU rehearsal) only checks."""
     rng = np.random.RandomState(0)
     rec = {"params": p.name, "external_product_ms": {}, "cmux_step_ms": {},
+           "cmux_step_launch_ms": {},
            "cmux_step_overlap_ms": {}, "blind_rotate_scan_ms": {},
            "rot_diff_decompose_ms": {}, "rot_diff_decompose_tr_ms": {},
            "external_product_tr_ms": {}, "rotate_sublane_ms": {},
@@ -230,6 +258,18 @@ def run(p, product_b, scan_b, device, check: bool = True,
                 lambda: kernels.rotate_sublane(acc_tr, bara),
                 lambda: kernels.rotate_sublane_plain(acc_tr, bara))}
         variants = rotation_variants(p, acc, bara, acc_tr)
+        sms, per_sm, resident = (
+            (kernels._sm_count(device),
+             kernels._step_per_sm(device, p.trgsw_rows, p.N),
+             kernels._wgmma_resident(device, "cmux_step", p.trgsw_rows,
+                                     p.k + 1, p.N))
+            if device.type == "cuda" else (132, 2, None))
+        for name, launch in step_launch_variants(p, b, sms, per_sm,
+                                                 resident).items():
+            variants[f"cmux_step {name}"] = (
+                lambda launch=launch: kernels.cmux_step_as(acc, bara, bk_i, p,
+                                                           launch),
+                calls["cmux_step"][1])
         for name, (kern, plain) in {**calls, **variants}.items():
             if check and not torch.equal(kern(), plain()):
                 raise AssertionError(f"{name} differs from its twin at "
@@ -241,24 +281,24 @@ def run(p, product_b, scan_b, device, check: bool = True,
                 rec[name + "_ms"][b] = ms
             else:
                 kernel, shape = name.split(" ", 1)
-                key = ("rot_diff_decompose_launch_ms"
-                       if kernel == "rot_diff_decompose"
-                       else "rotate_sublane_route_ms")
+                key = {"rot_diff_decompose": "rot_diff_decompose_launch_ms",
+                       "cmux_step": "cmux_step_launch_ms",
+                       "rotate_sublane": "rotate_sublane_route_ms"}[kernel]
                 rec[key].setdefault(b, {})[shape] = ms
     for b in scan_b:
         acc, bara, bk = scan_inputs(p, b, device, rng)
         calls = {None: lambda: kernels.blind_rotate_scan(acc, bara, bk, p)}
+        cuda = device.type == "cuda"
         sms, per_sm = ((kernels._sm_count(device),
                         kernels._scan_per_sm(device, p.trgsw_rows, p.N))
-                       if device.type == "cuda" else (132, 2))
-        for name, launch in scan_launch_variants(p, b, sms, per_sm).items():
-            calls[name] = (
-                (lambda launch=launch: kernels._blind_rotate_scan_entry(
-                    acc, bara, bk, p, launch))
-                if device.type == "cuda" else
-                (lambda launch=launch:
-                 kernels.blind_rotate_scan_schedule_model(
-                     acc, bara, bk, p, launch=launch)))
+                       if cuda else (132, 2))
+        resident = (kernels._wgmma_resident(
+            device, "blind_rotate_scan", p.trgsw_rows, p.k + 1, p.N)
+            if cuda else None)
+        for name, launch in scan_launch_variants(p, b, sms, per_sm,
+                                                 resident).items():
+            calls[name] = (lambda launch=launch: kernels.blind_rotate_scan_as(
+                acc, bara, bk, p, launch))
         want = (kernels.blind_rotate_scan_plain(acc, bara, bk, p)
                 if check and b <= SCAN_CHECK_MAX_B else None)
         for name, call in calls.items():

@@ -141,6 +141,31 @@ def test_fused2_runs_the_expressions_of_the_counted_path():
     assert not any(launches.values())
 
 
+def test_wgmma_nand_phase_passes_on_cpu_twins():
+    """Phase 5's second NAND batch: under fused2 and scan at a batch where
+    both take their wgmma form (at TEST_TINY, the first such batch),
+    every bit right and no launch on CPU tensors; a batch where either
+    keeps mma.sync is refused."""
+    cs = _chip_smoke()
+    dev = torch.device("cpu")
+    p = P.TEST_TINY
+    assert cs.WGMMA_NAND_MODES == ("fused2", "scan")
+    fast = P.IEACHE_110_FAST
+    for mode_launch in (kernels.step_launch, kernels.scan_launch):
+        assert mode_launch(cs.WGMMA_NAND_B, fast.k + 1, fast.N,
+                           fast.trgsw_rows).form == "wgmma"
+    b = next(b for b in range(1, 4096)
+             if kernels.step_launch(b, p.k + 1, p.N,
+                                    p.trgsw_rows).form == "wgmma")
+    ks = keygen.generate_secret_keyset(p)
+    key = bootstrap.pack_cloud_key(ks.cloud, dev)
+    out = cs.run_wgmma_nand(ks, key, p, cs.nand_inputs(ks, b, dev), dev)
+    assert set(out) == {"fused2", "scan"}
+    assert not any(n for _, counts in out.values() for n in counts.values())
+    with pytest.raises(AssertionError, match="form, not wgmma"):
+        cs.run_wgmma_nand(ks, key, p, cs.nand_inputs(ks, b - 1, dev), dev)
+
+
 def test_bounds_are_the_larger_of_bytes_and_operations():
     cs = _chip_smoke()
     p = P.IEACHE_110_FAST
@@ -216,6 +241,21 @@ def test_product_launch_phase_passes_on_cpu_models(rows):
     errs = cs.check_product_launches(p, torch.device("cpu"), (1, 5, 33))
     assert errs == {"external_product": 0}
     assert cs.PRODUCT_BATCHES == (24, 64)
+
+
+@pytest.mark.parametrize("rows", [4, 6])
+def test_step_launch_phase_passes_on_cpu_models(rows):
+    """Phase 3's pass over every launch shape of cmux_step (the mma.sync
+    form and each wgmma tile and cluster, random and extreme
+    accumulators), on the forms' plain models at 4 and 6 TRGSW rows,
+    batches either side of a wgmma tile; and the crossover batches it
+    adds are where step_launch changes form (the H100's clusters)."""
+    cs = _chip_smoke()
+    p = dataclasses.replace(P.TEST_TINY, l=rows // 2, name=f"tiny_{rows}rows")
+    errs = cs.check_step_launches(p, torch.device("cpu"), (1, 8, 33))
+    assert errs == {"cmux_step": 0}
+    assert cs.step_crossovers(P.IEACHE_110_FAST) == [257, 513]
+    assert cs.step_crossovers(P.IEACHE_110) == [257, 449]
 
 
 def test_step_calls_and_lines_of_the_timing_phase():
@@ -315,7 +355,8 @@ def test_tile_bench_checks_on_cpu_twins():
                    "rot_diff_decompose_launch_ms": {},
                    "rotate_sublane_route_ms": {},
                    "blind_rotate_scan_launch_ms": {},
-                   "external_product_launch_ms": {}}
+                   "external_product_launch_ms": {},
+                   "cmux_step_launch_ms": {}}
     # the launch variants it times: both run lengths of the split
     # rotation, the sublane rotation's slab and gather
     acc, bara, _ = tile_bench.step_inputs(p, 5, dev, np.random.RandomState(1))
@@ -347,6 +388,12 @@ def test_tile_bench_checks_on_cpu_twins():
             b, q.k + 1, q.N, q.trgsw_rows)) - {
                 f"wgmma {pick.tile} x {pick.cols}"
                 if pick.form == "wgmma" else "mma"}
+        # the fused step's: every form, tile and cluster but the pick
+        pick = kernels.step_launch(b, q.k + 1, q.N, q.trgsw_rows)
+        variants = tile_bench.step_launch_variants(q, b)
+        shapes = kernels.step_launch_shapes(b, q.k + 1, q.N, q.trgsw_rows)
+        assert set(variants) == {k for k, s in shapes.items() if s != pick}
+        assert len(variants) == len(shapes) - 1
 
 
 def test_step_mode_phases_pass_on_cpu_twins():

@@ -905,10 +905,11 @@ def test_tensor_core_kernels_refuse_shapes_over_their_bounds(cuda, p):
         assert lib.ieache_external_product(
             d.data_ptr(), bk.data_ptr(), None, out.data_ptr(), rows, kp1, 1,
             n, form, tile, cols, 1, stream) != 0
-    for entry in (lib.ieache_cmux_step, lib.ieache_cmux_step_overlap):
-        assert entry(acc.data_ptr(), bara.data_ptr(), bk.data_ptr(),
-                     out.data_ptr(), rows, kp1, 1, n, p.bg_bit, p.l, 0,
-                     stream) != 0
+    args = (acc.data_ptr(), bara.data_ptr(), bk.data_ptr(), out.data_ptr(),
+            rows, kp1, 1, n, p.bg_bit, p.l, 0)
+    for form, cluster in ((0, 1), (1, 2)):
+        assert lib.ieache_cmux_step(*args, form, 1, 1, cluster, stream) != 0
+    assert lib.ieache_cmux_step_overlap(*args, 0, 0, 0, stream) != 0
     torch.cuda.synchronize()
 
 
@@ -936,9 +937,12 @@ def test_step_kernels_refuse_digit_tiles_over_shared_memory(cuda, step, rows):
         getattr(kernels, step)(acc, bara[:, 0].contiguous(), bk[0], p)
     lib = kernels._build.library()
     out = torch.empty_like(acc)
+    launch = kernels.step_shape(2, rows, p.N, rows, "mma", 16)
+    extra = ((0, 16, 256, launch.split, launch.per_item, launch.cluster)
+             if step == "cmux_step" else (0, 0, 0))
     assert getattr(lib, "ieache_" + step)(
         acc.data_ptr(), bara.data_ptr(), bk.data_ptr(), out.data_ptr(), rows,
-        rows, 2, p.N, p.bg_bit, p.l, 0,
+        rows, 2, p.N, p.bg_bit, p.l, 0, *extra,
         torch.cuda.current_stream().cuda_stream) != 0
     acc0 = acc.transpose(0, 1).contiguous()
     with _step_mode(mode):
@@ -1325,3 +1329,116 @@ def test_dryrun_on_four_cards(four_cards):
         for mode in dryrun.MODES:
             assert set(report["launches"][mode]) == set(MODES[mode])
             assert all(report["launches"][mode].values()), (mode, report)
+
+
+#: the parameter sets of the wgmma step's checks: 4 and 6 TRGSW rows at
+#: N=1024, 8 rows with digits by shift and mask, and N=128
+WG_STEP_PARAMS = [P.IEACHE_110_FAST, P.IEACHE_110,
+                  dataclasses.replace(P.TEST_SMALL_NOISY, bg_bit=4, l=4,
+                                      name="small_bg4"),
+                  dataclasses.replace(P.TEST_TINY, N=128, name="tiny_n128")]
+
+
+@pytest.mark.parametrize("p", WG_STEP_PARAMS, ids=lambda p: p.name)
+@pytest.mark.parametrize("b", [8, 40, 257, 1056])
+def test_cmux_step_every_form_and_launch(cuda, p, b):
+    """Both forms of the fused step (csrc/cmux_step.cu): every launch
+    shape step_launch picks from (mma.sync, and the wgmma tile in each
+    cluster that fits), through the uncounted entry, on random operands
+    and on key words where a carry between limbs goes wrong: equal to the
+    twin, and no launch counted."""
+    rng = np.random.RandomState(700 + b)
+    rows, kp1 = p.trgsw_rows, p.k + 1
+    acc = _rand(rng, (kp1, b, p.N), -2**31, 2**31, np.int32, cuda)
+    bara = _rand(rng, (b,), 0, 2 * p.N, np.int32, cuda)
+    bara[:3] = torch.tensor([0, p.N, 2 * p.N - 1], dtype=torch.int32,
+                            device=cuda)[:b]
+    shapes = kernels.step_launch_shapes(b, kp1, p.N, rows,
+                                        kernels._sm_count(cuda))
+    assert {launch.form for launch in shapes.values()} == {"mma", "wgmma"}
+    counts = [w.launches for w in WRAPPERS.values()]
+    for bk_i in (_rand(rng, (rows, kp1, p.N), -2**31, 2**31, np.int32, cuda),
+                 _edge_key((rows, kp1, p.N), cuda)):
+        want = kernels.cmux_step_plain(acc, bara, bk_i, p)
+        for name, launch in shapes.items():
+            got = kernels._cmux_step_entry(acc, bara, bk_i, p, launch)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), name
+    assert [w.launches for w in WRAPPERS.values()] == counts
+
+
+@pytest.mark.parametrize("p", WG_STEP_PARAMS, ids=lambda p: p.name)
+@pytest.mark.parametrize("b", [40, 272])
+def test_blind_rotate_scan_every_wgmma_launch(cuda, p, b):
+    """The scan kernel's wgmma form over 3 steps in each cluster that
+    fits, its grid of the clusters the card holds at once and of a single
+    cluster (which walks every work item), equal to the twin, its input
+    unchanged."""
+    p = dataclasses.replace(p, n=3)
+    rng = np.random.RandomState(800 + b)
+    rows, kp1 = p.trgsw_rows, p.k + 1
+    acc = _rand(rng, (kp1, b, p.N), -2**31, 2**31, np.int32, cuda)
+    bara = _rand(rng, (b, p.n), 0, 2 * p.N, np.int32, cuda)
+    bk = _rand(rng, (p.n, rows, kp1, p.N), -2**31, 2**31, np.int32, cuda)
+    want = kernels.blind_rotate_scan_plain(acc, bara, bk, p)
+    before = acc.clone()
+    bn = kernels.WG_STEP_TILE
+    for c in kernels.wgmma_step_clusters(bn, p.N, kp1, p.l):
+        most = kernels._wgmma_clusters(cuda, "blind_rotate_scan", rows, kp1,
+                                       p.N, c)
+        for resident in (most, 1):
+            launch = kernels.scan_wgmma_shape(b, kp1, p.N, bn, c, resident)
+            got = kernels._blind_rotate_scan_entry(acc, bara, bk, p, launch)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), launch
+    assert torch.equal(acc, before)
+
+
+def test_cmux_step_entry_refuses_bad_launches(cuda):
+    """The C entry takes the launch it is given and refuses what neither
+    form has: an unknown form, a wgmma tile split into parts, a cluster
+    that does not divide a batch tile's blocks or whose rows do not fit,
+    an mma.sync split or run out of range."""
+    p = P.IEACHE_110_FAST
+    rows, kp1, n = p.trgsw_rows, p.k + 1, p.N
+    acc = torch.zeros((kp1, 64, n), dtype=torch.int32, device=cuda)
+    bara = torch.zeros(64, dtype=torch.int32, device=cuda)
+    bk = torch.zeros((rows, kp1, n), dtype=torch.int32, device=cuda)
+    out = torch.empty_like(acc)
+    lib = kernels._build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def entry(*launch):
+        return lib.ieache_cmux_step(
+            acc.data_ptr(), bara.data_ptr(), bk.data_ptr(), out.data_ptr(),
+            rows, kp1, 64, n, p.bg_bit, p.l, 0, *launch, stream)
+
+    assert entry(0, 4, 1, 1) == 0
+    assert entry(1, 1, 1, 4) == 0 and entry(1, 1, 1, 2) == 0
+    for bad in ((2, 1, 1, 1), (1, 2, 1, 4), (1, 1, 2, 4), (1, 1, 1, 3),
+                (1, 1, 1, 1), (1, 1, 1, 16), (0, 17, 1, 1), (0, 1, 9, 1),
+                (0, 2, 2, 1)):
+        assert entry(*bad) != 0, bad
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("step", ["cmux_step", "cmux_step_overlap",
+                                  "blind_rotate_scan"])
+def test_step_wrappers_count_no_launch_at_an_empty_batch(cuda, step):
+    """At B=0 the fused steps and scan launch nothing, so their counts,
+    which chip_smoke reads, stay as they were; each returns an
+    accumulator of the right shape."""
+    p = P.IEACHE_110_FAST
+    rows, kp1, n = p.trgsw_rows, p.k + 1, p.N
+    acc = torch.zeros((kp1, 0, n), dtype=torch.int32, device=cuda)
+    bk = torch.zeros((2, rows, kp1, n), dtype=torch.int32, device=cuda)
+    counts = [w.launches for w in WRAPPERS.values()]
+    if step == "blind_rotate_scan":
+        bara = torch.zeros((0, 2), dtype=torch.int32, device=cuda)
+        got = kernels.blind_rotate_scan(acc, bara, bk, p)
+    else:
+        bara = torch.zeros(0, dtype=torch.int32, device=cuda)
+        got = getattr(kernels, step)(acc, bara, bk[0], p)
+    torch.cuda.synchronize()
+    assert got.shape == acc.shape and got.is_cuda
+    assert _launched(counts) == set()

@@ -350,6 +350,20 @@ _SEALED = textwrap.dedent("""
     (report,) = dryrun.dryrun_multichip(1, device="cpu")
     assert report["launches"]["split"] == {"rot_diff_decompose": 0,
                                            "external_product": 0}, report
+    from ieache_tpu_torch.ops import kernels
+    rng = np.random.RandomState(3)
+    acc = torch.from_numpy(rng.randint(-2**31, 2**31, (2, 40, 64),
+                                       dtype=np.int64).astype(np.int32))
+    bara = torch.from_numpy(rng.randint(0, 128, (40, 2)).astype(np.int32))
+    bk = torch.from_numpy(rng.randint(-2**31, 2**31, (2, 4, 2, 64),
+                                      dtype=np.int64).astype(np.int32))
+    step = kernels.step_shape(40, 2, 64, 4, "wgmma", 64, 2)
+    one = bara[:, 0].contiguous()
+    assert torch.equal(kernels.cmux_step_as(acc, one, bk[0], p, step),
+                       kernels.cmux_step_plain(acc, one, bk[0], p))
+    scan = kernels.scan_wgmma_shape(40, 2, 64, 64, 2, 1)
+    assert torch.equal(kernels.blind_rotate_scan_as(acc, bara, bk, p, scan),
+                       kernels.blind_rotate_scan_plain(acc, bara, bk, p))
     assert not any(m.split(".")[0] in REFUSED for m in sys.modules)
     print("SEALED-OK", len(names))
 """)
@@ -361,8 +375,9 @@ def test_port_imports_nothing_of_the_jax_package():
     the codec, the native binding, the protocol and the CLI among them)
     and chip_smoke import, and a TEST_TINY device keygen, NAND, 4-bit
     multiply, ``A + B - C`` through the evaluator and through the
-    six-role flow (SAE on the port's native scalar multiplication) and
-    the dist layer's dry run on one gloo rank run and decrypt right."""
+    six-role flow (SAE on the port's native scalar multiplication), the
+    dist layer's dry run on one gloo rank, and the wgmma step's and scan's
+    plain models run and decrypt (or equal their twins) right."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _SEALED], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)

@@ -109,11 +109,15 @@ def _check_model(p, b, nsteps, order, word=None):
 @pytest.mark.parametrize("b,split,grid", [(8, 16, 128), (256, 2, 256),
                                           (272, 1, 136), (1024, 1, 256)])
 def test_scan_launch_at_the_full_size(b, split, grid):
-    """N=1024, k=1, 4 rows, 132 SMs holding two blocks each: 8 lanes split
-    each tile's sum 16 ways (8 tiles, 128 parts), 256 lanes 2 ways; from
-    272 lanes each tile is whole, the runs of a row group in clusters of
-    two."""
-    launch = kernels.scan_launch(b, 2, 1024, 4, 132, 2)
+    """N=1024, k=1, 4 rows, 132 SMs holding two blocks each, the mma.sync
+    form (the policy's pick but where the wgmma form's grid fits the card
+    in one wave, 272 to 512 lanes): 8 lanes split each tile's sum 16 ways
+    (8 tiles, 128 parts), 256 lanes 2 ways; from 272 lanes each tile is
+    whole, the runs of a row group in clusters of two."""
+    pick = kernels.scan_launch(b, 2, 1024, 4, 132, 2)
+    assert pick.form == ("wgmma" if 272 <= b <= 512 else "mma")
+    launch = kernels.scan_launch_shapes(b, 2, 1024, 4, 132, 2)["mma"]
+    assert launch.form == "mma" and (pick.form == "wgmma" or launch == pick)
     assert (launch.split, launch.grid) == (split, grid)
     nbt = -(-b // 16)
     assert launch.cluster == (2 if split == 1 else 1)
@@ -127,12 +131,19 @@ def test_scan_launch_at_the_full_size(b, split, grid):
 @pytest.mark.parametrize("b", [1, 8, 24, 100, 256, 257, 272, 1024, 1056,
                                2048])
 def test_scan_launch_agrees_with_the_fused_step(b, per_sm):
-    """The split is ``mma_split_for``'s; with one part a tile the runs are
+    """The mma.sync form's launch (the policy's pick where the fused step
+    takes mma.sync or the batch is below SCAN_WGMMA_MIN_BATCH, the form
+    scan_launch picks from elsewhere): the split
+    is ``mma_split_for``'s; with one part a tile the runs are
     ``step_work_items``' and the cluster ``step_cluster_shares``'; every
     block is resident (grid <= SMs x blocks an SM) in whole clusters; the
     work items cover every output tile of every part once."""
     n, kp1, rows, sms = 1024, 2, 4, 132
-    launch = kernels.scan_launch(b, kp1, n, rows, sms, per_sm)
+    launch = kernels.scan_launch_shapes(b, kp1, n, rows, sms, per_sm)["mma"]
+    pick = kernels.scan_launch(b, kp1, n, rows, sms, per_sm)
+    assert pick.form == (kernels.step_launch(b, kp1, n, rows, sms).form
+                         if b >= kernels.SCAN_WGMMA_MIN_BATCH else "mma")
+    assert pick == launch or pick.form == "wgmma"
     nbt = -(-b // 16)
     assert launch.split == kernels.mma_split_for(nbt * 8, 16, sms)
     items = kernels.scan_work_items(launch, b, n, kp1)
@@ -157,26 +168,41 @@ def test_scan_launch_takes_a_split():
     split, and the grid is every work item or every resident block."""
     launch = kernels.scan_shape(8, 2, 1024, 4, 1, 264)
     assert launch == kernels.ScanLaunch(4, 1, 32, 1)
-    assert kernels.scan_shape(8, 2, 1024, 16, 8, 264) == (16, 8, 16, 1)
-    assert kernels.scan_shape(1024, 2, 1024, 1, 1, 264) == (1, 1, 264, 2)
-    assert kernels.scan_shape(1024, 2, 1024, 1, 8, 264) == (1, 8, 64, 1)
+    assert launch == (4, 1, 32, 1, "mma", 16)
+    assert kernels.scan_shape(8, 2, 1024, 16, 8, 264) == (16, 8, 16, 1,
+                                                          "mma", 16)
+    assert kernels.scan_shape(1024, 2, 1024, 1, 1, 264) == (1, 1, 264, 2,
+                                                            "mma", 16)
+    assert kernels.scan_shape(1024, 2, 1024, 1, 8, 264) == (1, 8, 64, 1,
+                                                            "mma", 16)
 
 
 def test_tile_bench_times_the_smaller_splits():
-    """tools/tile_bench.py times the scan kernel at every split that
-    divides a tile's 16 pairs and every run of 1, 2, 4 or 8 of a row
-    group's 8 tiles, but the policy's pick."""
+    """tools/tile_bench.py times the scan kernel's mma.sync form at every
+    split that divides a tile's 16 pairs and every run of 1, 2, 4 or 8 of
+    a row group's 8 tiles but the form's own pick, and every other shape
+    scan_launch picks from (the mma.sync form's pick where the policy
+    takes the wgmma form, each wgmma tile and cluster), but the policy's
+    pick."""
     from ieache_tpu_torch.tools import tile_bench
 
     p = TP.IEACHE_110_FAST
     for b in (8, 256, 1024):
         shapes = tile_bench.scan_launch_variants(p, b, 132)
         pick = kernels.scan_launch(b, 2, 1024, 4, 132, 2)
-        assert len(shapes) == 19 and pick not in shapes.values()
-        assert {(s.split, s.per_item) for s in shapes.values()} | {
-            (pick.split, pick.per_item)} == {
+        mma = kernels.scan_launch_shapes(b, 2, 1024, 4, 132, 2)["mma"]
+        splits = {k: s for k, s in shapes.items() if k.startswith("split")}
+        assert len(splits) == 19 and mma not in splits.values()
+        assert pick not in shapes.values()
+        assert {(s.split, s.per_item) for s in splits.values()} | {
+            (mma.split, mma.per_item)} == {
             (s, q) for s in (1, 2, 4, 8, 16) for q in (1, 2, 4, 8)}
-        assert all(s.grid <= 264 for s in shapes.values())
+        assert all(s.grid <= 264 for s in splits.values())
+        others = {k for k in shapes if not k.startswith("split")}
+        assert others == set(kernels.scan_launch_shapes(
+            b, 2, 1024, 4, 132, 2)) - {
+            k for k, s in kernels.scan_launch_shapes(
+                b, 2, 1024, 4, 132, 2).items() if s == pick}
     assert "split 16, per_item 2" in tile_bench.scan_launch_variants(p, 8)
 
 
@@ -216,7 +242,7 @@ def test_scan_holds_its_digit_tile_to_a_block_s_shared_memory():
     assert kernels.scan_add_tile_fits(11, 1024)
     assert not kernels.scan_add_tile_fits(12, 1024)
     assert kernels.scan_launch(8, 2, 1024, 11).split == 22
-    assert kernels.scan_launch(8, 2, 1024, 12) == (1, 1, 8, 2)
+    assert kernels.scan_launch(8, 2, 1024, 12) == (1, 1, 8, 2, "mma", 16)
 
 
 # ---------------------------------------------------------------------------
