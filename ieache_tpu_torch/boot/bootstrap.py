@@ -24,6 +24,7 @@ from ieache_tpu_torch.lwe.types import (
 from ieache_tpu_torch.ops.blind_rotate import blind_rotate
 from ieache_tpu_torch.ops.keyswitch import keyswitch, pack_ks_limbs, pad_ks_limbs
 from ieache_tpu_torch.params import TFHEParams
+from ieache_tpu_torch.utils import trace
 
 #: torus encoding of a gate-bootstrapping bit (1/8); a test pins it to
 #: the JAX package's
@@ -145,9 +146,11 @@ def bootstrap_no_ks(lwe: torch.Tensor, key: DeviceCloudKey, mu: int = MU,
     (the reference the CUDA kernels are compared with).
     """
     p = key.params
-    acc0, bara = initial_accumulator(lwe, p, mu)
-    acc = blind_rotate(acc0, bara, key.bk, p, plain=plain)
-    return sample_extract(acc, p)
+    # one wave: its lanes are the ciphertexts bootstrapped
+    with trace.span("bootstrap", lanes=lwe.shape[0]):
+        acc0, bara = initial_accumulator(lwe, p, mu)
+        acc = blind_rotate(acc0, bara, key.bk, p, plain=plain)
+        return sample_extract(acc, p)
 
 
 def bootstrap(lwe: torch.Tensor, key: DeviceCloudKey, mu: int = MU,

@@ -45,7 +45,7 @@ from ieache_tpu_torch.circuits import arith, words
 from ieache_tpu_torch.circuits import fused as fz
 from ieache_tpu_torch.lwe import encrypt
 from ieache_tpu_torch.lwe.types import SecretKeySet
-from ieache_tpu_torch.utils import prng
+from ieache_tpu_torch.utils import prng, trace
 
 #: operation codes as written to operator.txt by the Output CLI
 #: (+ -> 1, - -> 2, * and / -> 4)
@@ -416,16 +416,18 @@ class CloudEvaluator:
         """
         nbit = self.nbit_ks
         batch = result.shape[0]
-        stream = prng.fresh_stream(
-            0xA27, op, width, int(answer_codes.sum()) & 0x7FFFFFFF
-        )
-        device = result.device
-        neg_word = encrypt.encrypt_bits_device(
-            nbit, words.values_to_bits(answer_codes.tolist(), META_WIDTH),
-            prng.derive(stream, 0), device)
-        bit_word = encrypt.encrypt_bits_device(
-            nbit, words.values_to_bits([out_width] * batch, META_WIDTH),
-            prng.derive(stream, 1), device)
+        with trace.span("evaluator.finish", lanes=batch):
+            stream = prng.fresh_stream(
+                0xA27, op, width, int(answer_codes.sum()) & 0x7FFFFFFF
+            )
+            device = result.device
+            neg_word = encrypt.encrypt_bits_device(
+                nbit, words.values_to_bits(answer_codes.tolist(),
+                                           META_WIDTH),
+                prng.derive(stream, 0), device)
+            bit_word = encrypt.encrypt_bits_device(
+                nbit, words.values_to_bits([out_width] * batch, META_WIDTH),
+                prng.derive(stream, 1), device)
         answer = Operand(neg_word, bit_word, result, carry_word)
         info = {
             "op": op,
@@ -475,7 +477,10 @@ class CloudEvaluator:
         round trips; the whole per-lane sign dataflow is planned on the
         host up front.
         """
-        args, planned = self._chain_args(steps, operands, True)
+        # the host's planning: metadata decrypted, masks uploaded
+        with trace.span("evaluator.plan", lanes=operands[0].batch,
+                        steps=len(steps)):
+            args, planned = self._chain_args(steps, operands, True)
         plan, _, _, answer_codes, combined, step_w = planned
         result = _chain_exec(*args)
         final_op = steps[-1][0]

@@ -45,6 +45,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import hashlib
+import hmac
 import logging
 import os
 import queue
@@ -72,7 +73,18 @@ from ieache_tpu_torch.utils import prng, trace
 
 DEFAULT_WIDTH = 32
 
+#: what a job's trace id is derived from the job's PMK with
+JOB_ID_LABEL = b"ieache trace job id"
+
 log = logging.getLogger("ieache.mp.nodes")
+
+
+def job_id(pmk: bytes) -> str:
+    """The trace id of the job whose SAE handshake gave ``pmk``, which
+    the Output and the Cloud derive alike, with nothing on the wire:
+    the first 8 bytes of HMAC-SHA256(pmk, :data:`JOB_ID_LABEL`), hex.
+    Only this derived value enters a span, never the key."""
+    return hmac.new(pmk, JOB_ID_LABEL, hashlib.sha256).digest()[:8].hex()
 
 
 def _resolve(device) -> torch.device:
@@ -627,33 +639,40 @@ class CloudNode:
 
         return scheduler.walk_postfix(postfix, self._fetch, compute)
 
-    def _serve_job(self, conn, postfix: str):
+    def _serve_job(self, conn, postfix: str, trace_id: str | None = None):
         """On the device thread: run the job, ship the answer or the
-        failure."""
-        try:
-            answer, _ = self.run_job(postfix)
-        except (scheduler.JobError, ev.MulWidthError) as e:
-            log.warning("cloud: job %s failed: %s", postfix, e)
-            transport.send_msg(conn, schema.DataIndicator,
-                               {"data": f"error: {e}"})
-            return
-        except Exception as e:  # noqa: BLE001 - reported, kept
-            # a fault of the evaluation itself (a CUDA error, a kernel
-            # that refuses): Output's job fails with it, and the node
-            # keeps it for its process to exit on
-            log.exception("cloud: job %s failed on %s", postfix, self.device)
-            self.failures.append(e)
-            transport.send_msg(conn, schema.DataIndicator,
-                               {"data": f"error: {type(e).__name__}: {e}"})
-            return
-        with self.trace.span("answer_ship"):
-            blob = wire.operand_to_bytes(answer, self.evaluator.dck.params,
-                                         self.evaluator.nbit_ks.params)
-            transport.send_msg(conn, schema.DataIndicator, {"data": "answer"})
-            transport.send_blob(conn, blob, size_schema=schema.DataAnsSize,
-                                content_schema=schema.DataAnswer,
-                                chunk=self.cfg.chunk_size)
-        log.info("cloud: answer shipped (%d bytes)", len(blob))
+        failure; every span opened meanwhile carries ``trace_id``
+        (:func:`job_id`)."""
+        with trace.job(trace_id):
+            try:
+                answer, _ = self.run_job(postfix)
+            except (scheduler.JobError, ev.MulWidthError) as e:
+                log.warning("cloud: job %s failed: %s", postfix, e)
+                transport.send_msg(conn, schema.DataIndicator,
+                                   {"data": f"error: {e}"})
+                return
+            except Exception as e:  # noqa: BLE001 - reported, kept
+                # a fault of the evaluation itself (a CUDA error, a kernel
+                # that refuses): Output's job fails with it, and the node
+                # keeps it for its process to exit on
+                log.exception("cloud: job %s failed on %s", postfix,
+                              self.device)
+                self.failures.append(e)
+                transport.send_msg(
+                    conn, schema.DataIndicator,
+                    {"data": f"error: {type(e).__name__}: {e}"})
+                return
+            with self.trace.span("answer_ship"):
+                blob = wire.operand_to_bytes(
+                    answer, self.evaluator.dck.params,
+                    self.evaluator.nbit_ks.params)
+                transport.send_msg(conn, schema.DataIndicator,
+                                   {"data": "answer"})
+                transport.send_blob(conn, blob,
+                                    size_schema=schema.DataAnsSize,
+                                    content_schema=schema.DataAnswer,
+                                    chunk=self.cfg.chunk_size)
+            log.info("cloud: answer shipped (%d bytes)", len(blob))
 
     def start_job_server(self, host="127.0.0.1", port=0):
         """Accept a job from Output over SAE; reply with the answer."""
@@ -664,10 +683,11 @@ class CloudNode:
                 # job_receive: SAE + descriptor decode — the Cloud half
                 # of the reference's "user-input processing" phase
                 # (`dragonfly_cipher_cloud.py:600-715`)
-                with self.trace.span("job_receive"):
+                with self.trace.span("job_receive") as span:
                     pmk, _ = transport.sae_handshake(
                         conn, self.password, self.mac
                     )
+                    trace_id = span["job"] = job_id(pmk)
                     job = transport.recv_msg(conn, schema.DataUserInput)
                     postfix = keywrap.decrypt_bytes(
                         pmk, job["postfix"]["postfix"]
@@ -686,7 +706,8 @@ class CloudNode:
                         host, port = hostport.rsplit(":", 1)
                         self.client_addrs[letter] = (host, int(port))
                 transport.send_ack(conn)
-                self._device_thread.run(self._serve_job, conn, postfix)
+                self._device_thread.run(self._serve_job, conn, postfix,
+                                        trace_id)
             finally:
                 conn.close()
                 with self._jobs:
@@ -762,13 +783,13 @@ class OutputNode:
         `validateIP` + ping gate (`output_dynamic.py:1096-1113`)."""
         from ieache_tpu_torch.cli import convert
 
-        s = None
+        s = trace_id = None
         try:
             # "user-input processing" (`AC058.pdf` p.4 §III.E, mean
             # 6.90 s; hook `output_dynamic.py:849-857`): validation +
             # SAE with Cloud + per-field AES wrap + BER job send + ack
             with self.trace.span("user_input_processing",
-                                 postfix=postfix):
+                                 postfix=postfix) as span:
                 for letter in sorted(client_addrs):
                     chost, cport = client_addrs[letter]
                     if not convert.validate_ipv4(chost):
@@ -789,6 +810,7 @@ class OutputNode:
                 s.settimeout(timeout)
                 pmk, _ = transport.sae_handshake(s, self.password,
                                                  self.mac)
+                trace_id = span["job"] = job_id(pmk)
                 letters, _ops = scheduler.parse_postfix(postfix)
                 ipfields = {}
                 for i, letter in enumerate(letters):
@@ -817,7 +839,8 @@ class OutputNode:
                 )
                 if not transport.recv_ack(s):
                     raise ConnectionError("job rejected")
-            with self.trace.span("answer_wait", postfix=postfix):
+            with trace.job(trace_id), \
+                    self.trace.span("answer_wait", postfix=postfix):
                 status = transport.recv_msg(
                     s, schema.DataIndicator)["data"]
                 if status != "answer":
@@ -831,7 +854,8 @@ class OutputNode:
             if s is not None:
                 s.close()
         # the ./verif role (`Output/verif.c`), on the host
-        with self.trace.span("verify", postfix=postfix):
+        with trace.job(trace_id), \
+                self.trace.span("verify", postfix=postfix):
             answer = wire.operand_from_bytes(blob, "cpu")
             last_op = _ops[-1]
             return ev.decrypt_answer(

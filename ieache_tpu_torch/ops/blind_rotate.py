@@ -71,6 +71,7 @@ from ieache_tpu_torch.core.poly import (
 )
 from ieache_tpu_torch.ops.decompose import gadget_decompose
 from ieache_tpu_torch.params import TFHEParams
+from ieache_tpu_torch.utils import trace
 
 
 def make_step_gmatrix(bk_step: torch.Tensor, params: TFHEParams) -> torch.Tensor:
@@ -343,6 +344,22 @@ def blind_rotate(
         raise RuntimeError(
             f"IEACHE_PALLAS=1 asks for the CUDA kernels, but the tensors "
             f"are on {acc0.device}, where no kernel runs")
+    # the host's dispatch of the rotation, with the launches it made
+    with trace.span("blind_rotate", mode=mode, lanes=acc0.shape[0],
+                    steps=bk.shape[0]) as rec:
+        before = kernels.mode_launches(mode) if rec is not None else 0
+        acc = _rotate_by_mode(acc0, bara, bk, params, mode, route)
+        if rec is not None:
+            rec["launches"] = kernels.mode_launches(mode) - before
+    return acc
+
+
+def _rotate_by_mode(acc0: torch.Tensor, bara: torch.Tensor,
+                    bk: torch.Tensor, params: TFHEParams, mode: str,
+                    route: str) -> torch.Tensor:
+    """The n steps through step mode ``mode``'s wrappers, or their
+    plain twins under ``route`` ``interpret``."""
+    from ieache_tpu_torch.ops import kernels
 
     def pick(name):
         """The wrapper ``name``, or its plain twin under interpret."""

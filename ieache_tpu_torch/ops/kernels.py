@@ -2575,6 +2575,12 @@ def launch_counts() -> dict:
     return {name: globals()[name].launches for name in WRAPPERS}
 
 
+def mode_launches(mode: str) -> int:
+    """Launches so far of the wrappers of step mode ``mode``'s kernels
+    (:data:`MODE_KERNELS`)."""
+    return sum(globals()[name].launches for name in MODE_KERNELS[mode])
+
+
 def reset_launch_counts() -> None:
     """Sets every wrapper's ``launches`` to 0."""
     for name in WRAPPERS:

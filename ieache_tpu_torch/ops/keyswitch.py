@@ -15,6 +15,7 @@ import torch
 from ieache_tpu_torch.core.poly import TORUS_LIMBS, _dot_i8, split_i8_limbs
 from ieache_tpu_torch.ops.decompose import gadget_decompose
 from ieache_tpu_torch.params import TFHEParams
+from ieache_tpu_torch.utils import trace
 
 
 def pad_ks_limbs(limbs: torch.Tensor, device) -> torch.Tensor:
@@ -68,5 +69,7 @@ def keyswitch(lwe_ext: torch.Tensor, ks_limbs: torch.Tensor,
     ``ks_limbs`` is (TORUS_LIMBS, kN*t, M) int8 with M >= n+1; columns
     past n+1 are padding and are dropped.
     """
-    d8, body = keyswitch_digits(lwe_ext, params)
-    return keyswitch_finish(keyswitch_products(d8, ks_limbs), body, params)
+    with trace.span("keyswitch", lanes=lwe_ext.shape[0]):
+        d8, body = keyswitch_digits(lwe_ext, params)
+        return keyswitch_finish(keyswitch_products(d8, ks_limbs), body,
+                                params)

@@ -1,4 +1,4 @@
-"""Tracing / profiling utilities.
+"""Tracing utilities.
 
 The port's counterpart of :mod:`ieache_tpu.utils.trace`.  The
 reference's observability is wall-clock prints and two append-only
@@ -6,10 +6,19 @@ files (``timings.txt``, ``averagestandard.txt`` — SURVEY §5.1).  This
 module provides the structured counterpart:
 
 * :class:`Timings` — named spans + counters, JSONL export (the
-  timings.txt replacement used by the CLI and nodes), as in the JAX
-  package;
-* :func:`device_trace` — context manager around ``torch.profiler``
-  (CPU and CUDA activities), a Chrome trace exported to the log dir;
+  timings.txt replacement used by the CLI and nodes).  Every span is
+  one record: ``name``, ``start_ns`` and ``end_ns`` (on the clock
+  ``torch.profiler`` gives device operations, see :func:`now_ns`),
+  ``seconds``, ``id``, ``parent`` (the ``id`` of the span open around
+  it on the same thread, or None), ``job`` (see :func:`job`, or None)
+  and its attributes;
+* the process tracer, off by default: :func:`enable`, :func:`disable`,
+  :func:`recorded`, and :func:`span`, which records into it while it
+  is on and is one shared no-op while it is off.  While it is on, the
+  spans of every :class:`Timings` (the nodes') are recorded in it too,
+  so that one job's spans form one tree;
+* :func:`job` — tags the spans opened inside it, on this thread, with
+  a job id;
 * :func:`sync` — the fence a span around device work ends with:
   ``torch.cuda.synchronize`` on a CUDA device, so that the span covers
   the computation and not its enqueue;
@@ -19,11 +28,33 @@ module provides the structured counterpart:
 from __future__ import annotations
 
 import contextlib
+import contextvars
+import itertools
 import json
-import os
 import time
 
 import torch
+
+#: span ids, unique in the process
+_ids = itertools.count(1)
+#: the id of the span open on this thread (each thread has its own
+#: context), and the job its spans belong to
+_parent = contextvars.ContextVar("ieache_trace_parent", default=None)
+_job = contextvars.ContextVar("ieache_trace_job", default=None)
+
+#: the process tracer while it is on, and the last one enabled
+_process = None
+_recorded = None
+
+#: what :func:`span` returns while the process tracer is off
+_NOOP = contextlib.nullcontext()
+
+
+def now_ns() -> int:
+    """The spans' clock: CLOCK_REALTIME in nanoseconds since the epoch,
+    the clock ``torch.profiler`` (kineto) puts host and device events
+    on, so that a span and a device operation compare directly."""
+    return time.time_ns()
 
 
 class Timings:
@@ -32,14 +63,23 @@ class Timings:
         self.counters = {}
 
     @contextlib.contextmanager
-    def span(self, name: str, **meta):
-        t0 = time.perf_counter()
+    def span(self, name: str, **attrs):
+        """Records the block as a span; yields its record, to which the
+        block may add attributes."""
+        rec = {"name": name, "id": next(_ids), "parent": _parent.get(),
+               "job": _job.get(), **attrs}
+        token = _parent.set(rec["id"])
+        rec["start_ns"] = start = now_ns()
         try:
-            yield
+            yield rec
         finally:
-            self.spans.append(
-                {"name": name, "seconds": time.perf_counter() - t0, **meta}
-            )
+            rec["end_ns"] = end = now_ns()
+            rec["seconds"] = (end - start) * 1e-9
+            _parent.reset(token)
+            self.spans.append(rec)
+            process = _process
+            if process is not None and process is not self:
+                process.spans.append(rec)
 
     def count(self, name: str, n: int = 1):
         self.counters[name] = self.counters.get(name, 0) + n
@@ -54,26 +94,51 @@ class Timings:
         return sum(s["seconds"] for s in self.spans if s["name"] == name)
 
 
+def enable() -> Timings:
+    """Turns the process tracer on, with a new record; returns it."""
+    global _process, _recorded
+    _process = _recorded = Timings()
+    return _process
+
+
+def disable() -> Timings | None:
+    """Turns the process tracer off; returns what it recorded."""
+    global _process
+    _process = None
+    return _recorded
+
+
+def recorded() -> Timings | None:
+    """The process tracer's record since the last :func:`enable` (None
+    if it was never on)."""
+    return _recorded
+
+
+def span(name: str, **attrs):
+    """A span of the process tracer, yielding its record; while the
+    tracer is off, one shared no-op that yields None."""
+    process = _process
+    if process is None:
+        return _NOOP
+    return process.span(name, **attrs)
+
+
+@contextlib.contextmanager
+def job(job_id: str | None):
+    """Tags every span opened inside the block on this thread, in any
+    :class:`Timings`, with ``job_id``."""
+    token = _job.set(job_id)
+    try:
+        yield
+    finally:
+        _job.reset(token)
+
+
 def sync(device) -> None:
     """Wait for the work queued on ``device`` (nothing to wait for on
     the CPU)."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
-
-
-@contextlib.contextmanager
-def device_trace(logdir: str, name: str = "trace"):
-    """``torch.profiler`` trace of the block (CPU activity, and CUDA's
-    where a CUDA device is present), written to ``logdir/<name>.json``
-    as a Chrome trace (``chrome://tracing``, Perfetto).  Yields the
-    profiler."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(logdir, f"{name}.json"))
 
 
 def bootstraps_per_sec(gates: int, seconds: float) -> float:

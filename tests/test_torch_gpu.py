@@ -1442,3 +1442,36 @@ def test_step_wrappers_count_no_launch_at_an_empty_batch(cuda, step):
     torch.cuda.synchronize()
     assert got.shape == acc.shape and got.is_cuda
     assert _launched(counts) == set()
+
+
+def test_a_span_holds_its_kernels_device_interval(cuda):
+    """The tracer's clock is the profiler's: a span of the process
+    tracer around one launched and synchronised ``external_product``
+    contains that kernel's interval in a ``torch.profiler`` trace, each
+    end of it on the epoch clock the spans read."""
+    from ieache_tpu_torch.utils import trace
+
+    p = P.IEACHE_110_FAST
+    rng = np.random.RandomState(7)
+    d = _rand(rng, (p.trgsw_rows, 1024, p.N), -128, 128, np.int8, cuda)
+    bk_i = _rand(rng, (p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
+                 np.int32, cuda)
+    kernels.external_product(d, bk_i, p)          # built and warm
+    torch.cuda.synchronize()
+    record = trace.enable()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with trace.span("product"):
+                kernels.external_product(d, bk_i, p)
+                torch.cuda.synchronize()
+    finally:
+        trace.disable()
+    (span,) = record.spans
+    device = torch.autograd.DeviceType.CUDA
+    ops = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == device and "external_product" in e.name()]
+    assert len(ops) == 1, [e.name() for e in ops]
+    start, end = ops[0].start_ns(), ops[0].start_ns() + ops[0].duration_ns()
+    assert span["start_ns"] <= start <= end <= span["end_ns"], \
+        (span["start_ns"], start, end, span["end_ns"])
