@@ -52,12 +52,33 @@ branch (Toeplitz operand + int8 limb products), on any device, as does
 ``plain=True`` whatever the mode: the reference the kernel paths are
 compared with.  Under ``ntt`` the compat gadget warns, as in the JAX
 package, before it takes that step.
+
+Where the kernels of a per-step mode (:data:`GRAPHED_MODES`) run on
+CUDA tensors, the rotation's n steps are one CUDA graph: a key (device,
+stream, the mode's wrappers, parameters, shapes and the key ``bk``)
+runs the loop at its first rotation, captures the loop's launches at
+its second, and replays them, on copies of its inputs, at every later
+one (:func:`graph_counts`).  The arrays and the wrappers' ``launches``
+are those of the loop.
+
+A capture constrains the rest of the process while it lasts (a key's
+second rotation, once): PyTorch registers its default CUDA generator
+with every capture, so a draw from that generator on another thread
+raises meanwhile ("Offset increment outside graph capture").  Replays
+do not, and a replay runs while another thread captures a graph of
+its own.  The port draws from no torch generator.  A program that
+draws from torch's CUDA generator on threads beside the port's
+rotations sets ``IEACHE_PALLAS_STEP=scan`` (one launch, no graph) or
+draws elsewhere.
 """
 
 from __future__ import annotations
 
+import collections
 import os
+import threading
 import warnings
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -314,6 +335,11 @@ def blind_rotate(
     acc0: (B, k+1, N) int32 — rotated test-vector accumulator.
     bara: (B, n) int32 in [0, 2N) — mod-switched mask coefficients.
     bk:   (n, rows, k+1, N) int32 — bootstrapping key.
+
+    Under a per-step kernel mode on CUDA tensors, a key's second call
+    captures a CUDA graph: while it does, another thread's draw from
+    torch's CUDA generator raises (the module's docstring says why and
+    what to do).
     """
     if not plain:
         mode, route = step_mode(), pallas_route()
@@ -348,17 +374,21 @@ def blind_rotate(
     with trace.span("blind_rotate", mode=mode, lanes=acc0.shape[0],
                     steps=bk.shape[0]) as rec:
         before = kernels.mode_launches(mode) if rec is not None else 0
-        acc = _rotate_by_mode(acc0, bara, bk, params, mode, route)
+        acc, how = _rotate_by_mode(acc0, bara, bk, params, mode, route)
+        with _graph_lock:
+            _graph_counts[_COUNT_OF[how]] += 1
         if rec is not None:
             rec["launches"] = kernels.mode_launches(mode) - before
+            rec["graph"] = how
     return acc
 
 
 def _rotate_by_mode(acc0: torch.Tensor, bara: torch.Tensor,
                     bk: torch.Tensor, params: TFHEParams, mode: str,
-                    route: str) -> torch.Tensor:
+                    route: str) -> tuple[torch.Tensor, str]:
     """The n steps through step mode ``mode``'s wrappers, or their
-    plain twins under ``route`` ``interpret``."""
+    plain twins under ``route`` ``interpret``; with how they ran:
+    ``"capture"`` or ``"replay"`` (:func:`_graphed`), else ``"eager"``."""
     from ieache_tpu_torch.ops import kernels
 
     def pick(name):
@@ -366,24 +396,199 @@ def _rotate_by_mode(acc0: torch.Tensor, bara: torch.Tensor,
         return getattr(kernels, name + "_plain" if route == "interpret"
                        else name)
 
-    # (k+1, N, B) under tr, else (k+1, B, N); and back at exit
-    layout, back = ((1, 2, 0), (2, 0, 1)) if mode == "tr" else ((1, 0, 2),) * 2
-    acc_t = acc0.permute(*layout).contiguous()
+    layout, back = _LAYOUTS[mode == "tr"]
     if mode == "scan":
-        acc_t = pick("blind_rotate_scan")(acc_t, bara.contiguous(), bk,
-                                          params)
-        return acc_t.permute(*back).contiguous()
+        acc_t = pick("blind_rotate_scan")(acc0.permute(*layout).contiguous(),
+                                          bara.contiguous(), bk, params)
+        return acc_t.permute(*back).contiguous(), "eager"
 
-    bara_t = bara.t().contiguous()                         # (n, B)
     if mode in ("split", "tr"):
         suffix = "_tr" if mode == "tr" else ""
-        rot = pick("rot_diff_decompose" + suffix)
-        ext = pick("external_product" + suffix)
-        for i in range(bk.shape[0]):
-            acc_t = ext(rot(acc_t, bara_t[i], params), bk[i], params,
-                        acc=acc_t)
+        fns = (pick("rot_diff_decompose" + suffix),
+               pick("external_product" + suffix))
     else:
-        step = pick("cmux_step" if mode == "fused2" else "cmux_step_overlap")
-        for i in range(bk.shape[0]):
-            acc_t = step(acc_t, bara_t[i], bk[i], params)
-    return acc_t.permute(*back).contiguous()
+        fns = (pick("cmux_step" if mode == "fused2" else "cmux_step_overlap"),)
+
+    def run(acc_t, bara_t):
+        """The n steps on acc_t in the mode's layout, bara_t (n, B)."""
+        if len(fns) == 2:
+            rot, ext = fns
+            for i in range(bk.shape[0]):
+                acc_t = ext(rot(acc_t, bara_t[i], params), bk[i], params,
+                            acc=acc_t)
+        else:
+            (step,) = fns
+            for i in range(bk.shape[0]):
+                acc_t = step(acc_t, bara_t[i], bk[i], params)
+        return acc_t
+
+    stream = _graph_stream(acc0, bk, mode, route)
+    if stream is not None:
+        graphed = _graphed(run, acc0, bara, bk, params, mode, stream)
+        if graphed is not None:
+            return graphed
+    acc_t = run(acc0.permute(*layout).contiguous(), bara.t().contiguous())
+    return acc_t.permute(*back).contiguous(), "eager"
+
+
+# ---------------------------------------------------------------------------
+# the rotation as one CUDA graph
+# ---------------------------------------------------------------------------
+
+#: the step modes whose n steps the loop launches kernel by kernel
+GRAPHED_MODES = ("split", "tr", "fused2", "overlap", "overlap2")
+
+#: the most rotation graphs kept at once, the least recently used
+#: evicted, and the most keys remembered from their first rotation: one
+#: job of the evaluator's Kogge–Stone multiply rotates at up to 37
+#: batch sizes, each a key
+GRAPH_CACHE_SIZE = 64
+
+#: the accumulator's (layout, back): (k+1, N, B) under tr, else
+#: (k+1, B, N), from and to the caller's (B, k+1, N)
+_LAYOUTS = {True: ((1, 2, 0), (2, 0, 1)), False: ((1, 0, 2), (1, 0, 2))}
+
+#: the rotations of the kernel modes by how they ran, and the graphs
+#: the cache dropped
+_graph_counts = dict.fromkeys(("captures", "replays", "eager",
+                               "evictions"), 0)
+_COUNT_OF = {"capture": "captures", "replay": "replays", "eager": "eager"}
+
+#: key -> _RotationGraph, least recently used first; and the keys whose
+#: first rotation ran the loop, least recently seen first.  One lock
+#: guards both and the counts, and is held from the lookup through a
+#: capture or a replay to its copy out, so that two threads never
+#: interleave their inputs.  It serialises the graph path of every
+#: device and stream of the process: a capture holds it for its length
+#: (one to two loops' time, once a key), a replay for its copies and
+#: launch.
+_graphs: collections.OrderedDict = collections.OrderedDict()
+_seen: collections.OrderedDict = collections.OrderedDict()
+_graph_lock = threading.Lock()
+
+
+class _RotationGraph(NamedTuple):
+    """A captured rotation: its graph, the input buffers it reads (the
+    accumulator in the mode's layout, bara (n, B)), the output it
+    writes, the launches each wrapper made in it, and the key's ``bk``,
+    held so that its address is not reused while the entry lives."""
+
+    graph: object
+    acc: torch.Tensor
+    bara: torch.Tensor
+    out: torch.Tensor
+    launches: tuple
+    bk: torch.Tensor
+
+
+def graph_counts() -> dict:
+    """The kernel modes' rotations since the last
+    :func:`reset_graph_counts`, by how they ran: ``captures`` (a graph
+    captured, then replayed), ``replays`` (a cached graph replayed),
+    ``eager`` (the loop, a key's first rotation among them, or scan's
+    launch, or the plain twins); and ``evictions``, the graphs the
+    cache dropped."""
+    with _graph_lock:
+        return dict(_graph_counts)
+
+
+def reset_graph_counts() -> None:
+    """Sets every count of :func:`graph_counts` to 0."""
+    with _graph_lock:
+        for name in _graph_counts:
+            _graph_counts[name] = 0
+
+
+def _graph_stream(acc0: torch.Tensor, bk: torch.Tensor, mode: str,
+                  route: str) -> int | None:
+    """The CUDA stream a graph of this rotation replays on (the current
+    one), or None where the rotation takes the loop: a mode other than
+    :data:`GRAPHED_MODES`, the ``interpret`` route, CPU tensors, no lane
+    or no step, or a stream that is being captured already."""
+    if (mode not in GRAPHED_MODES or route not in ("auto", "1")
+            or not acc0.is_cuda or acc0.shape[0] == 0 or bk.shape[0] == 0
+            or torch.cuda.is_current_stream_capturing()):
+        return None
+    return torch.cuda.current_stream(acc0.device).cuda_stream
+
+
+def _graphed(run, acc0: torch.Tensor, bara: torch.Tensor, bk: torch.Tensor,
+             params: TFHEParams, mode: str,
+             stream: int) -> tuple[torch.Tensor, str] | None:
+    """``run`` (the n steps through mode ``mode``'s wrappers) as the
+    cached graph of its key, replayed on copies of acc0 and bara; or
+    None at the key's first rotation, which the caller runs as the loop
+    (remembered, so that the next one captures: a batch size seen once
+    costs the loop, not a capture).  A capture evicts the least
+    recently used graph past :data:`GRAPH_CACHE_SIZE`.  Each replay
+    adds the launches the capture made to the wrappers' counts; the
+    result is a copy, never the graph's own memory."""
+    from ieache_tpu_torch.ops import kernels
+
+    names = kernels.MODE_KERNELS[mode]
+    layout, back = _LAYOUTS[mode == "tr"]
+    key = (acc0.device, stream, names, params, acc0.shape, acc0.dtype,
+           bara.shape, bara.dtype, bk.data_ptr(), bk.shape, bk.stride(),
+           bk.dtype)
+    with _graph_lock:
+        entry, how = _graphs.get(key), "replay"
+        if entry is not None:
+            _graphs.move_to_end(key)
+        elif _seen.pop(key, False):
+            entry, how = _capture_rotation(run, acc0, bara, bk, names,
+                                           layout), "capture"
+            _graphs[key] = entry
+            if len(_graphs) > GRAPH_CACHE_SIZE:
+                _graphs.popitem(last=False)
+                _graph_counts["evictions"] += 1
+        else:
+            _seen[key] = True
+            if len(_seen) > GRAPH_CACHE_SIZE:
+                _seen.popitem(last=False)
+            return None
+        entry.acc.copy_(acc0.permute(*layout))
+        entry.bara.copy_(bara.t())
+        entry.graph.replay()
+        for name, n in entry.launches:
+            getattr(kernels, name).launches += n
+        out = entry.out.permute(*back).clone(
+            memory_format=torch.contiguous_format)
+    return out, how
+
+
+def _capture_rotation(run, acc0: torch.Tensor, bara: torch.Tensor,
+                      bk: torch.Tensor, names: tuple,
+                      layout: tuple) -> _RotationGraph:
+    """The graph of ``run`` on new input buffers shaped as the loop's;
+    the launches the wrappers ``names`` counted while it was captured
+    (none ran) are taken back and kept for the replays to add."""
+    from ieache_tpu_torch.ops import kernels
+
+    acc = torch.empty([acc0.shape[i] for i in layout], dtype=acc0.dtype,
+                      device=acc0.device)
+    bara_t = torch.empty(bara.t().shape, dtype=bara.dtype,
+                         device=bara.device)
+    before = [getattr(kernels, name).launches for name in names]
+    graph, out = _capture(run, acc, bara_t)
+    launches = []
+    for name, was in zip(names, before):
+        wrapper = getattr(kernels, name)
+        launches.append((name, wrapper.launches - was))
+        wrapper.launches -= launches[-1][1]
+    return _RotationGraph(graph, acc, bara_t, out, tuple(launches), bk)
+
+
+def _capture(run, acc_t: torch.Tensor, bara_t: torch.Tensor) -> tuple:
+    """(graph, output) of ``run(acc_t, bara_t)`` captured on a side
+    stream, in thread-local mode: what other threads do on the card
+    meanwhile cannot break the capture.  The key's first rotation, the
+    loop, has loaded the kernels; what first use leaves to this thread
+    (its tensor map) runs under the capture, which the card allows."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(torch.cuda.Stream(acc_t.device)):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            out = run(acc_t, bara_t)
+        finally:
+            graph.capture_end()
+    return graph, out
