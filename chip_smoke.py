@@ -68,8 +68,11 @@ prints no result line:
    bits.  Then a whole B=1024 bootstrap under each step mode against
    the plain path; under ``IEACHE_PALLAS`` = 0 and interpret (no kernel
    may launch) and 1 (the mode's kernels must launch), each under split
-   and tr; the compat gadget's blind rotation (no kernel; the plain
-   step on the card) at B=8 against ``plain=True``; and the blind
+   and tr; the compat gadget's blind rotation (split's kernels at two
+   digit rows a digit) at B=8 against ``plain=True``, and NAND at the
+   compat gadget under split on 1024 random bit pairs from keys the
+   device keygen made: ``decrypt_errors`` 0, 500 + 500 launches a wave,
+   the NAND rate; and the blind
    rotation at N=32, which every mode's kernels refuse (each runs its
    products on the tensor-core tile), under every step mode (and under
    ``IEACHE_PALLAS=interpret``) against ``plain=True``: each must take
@@ -965,8 +968,9 @@ def routes_vs_plain(key, cx, want, device):
 
 def compat_vs_plain(p, device, batch, seed=3):
     """Phase 4: the compat gadget's blind rotation on random inputs,
-    under the default step mode, against ``plain=True``; neither has a
-    kernel, and the default path must not refuse it."""
+    under the default step mode (split's kernels, two digit rows a
+    digit), against ``plain=True``; the default path must not refuse
+    it."""
     rng = np.random.RandomState(seed)
     acc0 = _rand(rng, (batch, p.k + 1, p.N), -2**31, 2**31, np.int32,
                  device)
@@ -979,6 +983,27 @@ def compat_vs_plain(p, device, batch, seed=3):
     if not torch.equal(got, want):
         raise AssertionError(f"{p.name} blind rotation differs from "
                              f"plain=True")
+
+
+def compat_nand(p, device, batch, seed_words=(0xC0, 0x3A7)):
+    """Phase 4: NAND at the two-limb gadget ``p`` under split on ``batch``
+    random bit pairs, its keys from the device keygen; returns
+    (decrypt_errors, seconds of the first call, launch counts, NAND
+    bootstraps/s over three more calls)."""
+    ks = keygen_device.generate_secret_keyset_device(p, device, seed_words)
+    key = bootstrap.pack_cloud_key(ks.cloud, device)
+    inputs = nand_inputs(ks, batch, device)
+    kernels.reset_launch_counts()
+    with step_mode("split"):
+        errors, secs = run_nand(ks, key, inputs, device)
+        counts = kernels.launch_counts()
+        rates = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            gates.NAND(inputs[2], inputs[3], key)
+            sync(device)
+            rates.append(batch / (time.perf_counter() - t0))
+    return errors, secs, counts, rates
 
 
 def small_n_vs_plain(p, device, batch=1, seed=4):
@@ -2188,6 +2213,17 @@ def main() -> int:
     compat_vs_plain(P.IEACHE_110_TFHE_COMPAT, device, 8)
     log(f"phase 4 {P.IEACHE_110_TFHE_COMPAT.name} blind rotation B=8: "
         f"runs, equal to plain=True")
+    errors, secs, counts, rates = compat_nand(P.IEACHE_110_TFHE_COMPAT,
+                                              device, batch)
+    log(f"phase 4 NAND B={batch} {P.IEACHE_110_TFHE_COMPAT.name} split: "
+        f"decrypt_errors={errors} on the host and on the device ({secs:.3f} "
+        f"s, first call); launches "
+        f"{ {k: counts[k] for k in MODES['split']} }; bootstraps/s "
+        f"{', '.join(f'{r:.1f}' for r in rates)}")
+    if errors or any(counts[k] != P.IEACHE_110_TFHE_COMPAT.n
+                     * (k in MODES["split"]) for k in counts):
+        raise AssertionError(f"compat NAND: decrypt_errors={errors}, "
+                             f"launches {counts}")
     small_n_vs_plain(SMALL_N_PARAMS, device)
     log(f"phase 4 blind rotation at N={SMALL_N_PARAMS.N} B=1: every step "
         f"mode, under IEACHE_PALLAS unset and interpret, equal to "

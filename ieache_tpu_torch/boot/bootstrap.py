@@ -22,6 +22,7 @@ from ieache_tpu_torch.lwe.types import (
     TrlweKey,
 )
 from ieache_tpu_torch.ops.blind_rotate import blind_rotate
+from ieache_tpu_torch.ops.kernels import limb_key
 from ieache_tpu_torch.ops.keyswitch import keyswitch, pack_ks_limbs, pad_ks_limbs
 from ieache_tpu_torch.params import TFHEParams
 from ieache_tpu_torch.utils import trace
@@ -34,8 +35,11 @@ MU = 1 << 29
 class DeviceCloudKey(nn.Module):
     """Evaluation keys on one device.
 
-    Buffers: ``bk`` int32 (n, rows, k+1, N) and ``ks_limbs`` int8
-    (TORUS_LIMBS, kN*t, M), M = n+1 padded to a multiple of 8.
+    Buffers: ``bk`` int32 (n, rows, k+1, N), ``ks_limbs`` int8
+    (TORUS_LIMBS, kN*t, M), M = n+1 padded to a multiple of 8, and
+    ``bk_limbs``: where a gadget digit takes two int8 limbs, the key the
+    split kernels read, int32 (n, 2 rows, k+1, N) with (2^8·b) mod 2^32
+    beside each row b (``kernels.limb_key``), made once here; else None.
     """
 
     def __init__(self, bk: torch.Tensor, ks_limbs: torch.Tensor,
@@ -44,6 +48,8 @@ class DeviceCloudKey(nn.Module):
         self.params = params
         self.register_buffer("bk", bk)
         self.register_buffer("ks_limbs", ks_limbs)
+        self.register_buffer("bk_limbs", limb_key(bk, params)
+                             if params.digit_limbs != 1 else None)
 
 
 def pack_cloud_key(cloud: CloudKeySet, device) -> DeviceCloudKey:
@@ -149,7 +155,8 @@ def bootstrap_no_ks(lwe: torch.Tensor, key: DeviceCloudKey, mu: int = MU,
     # one wave: its lanes are the ciphertexts bootstrapped
     with trace.span("bootstrap", lanes=lwe.shape[0]):
         acc0, bara = initial_accumulator(lwe, p, mu)
-        acc = blind_rotate(acc0, bara, key.bk, p, plain=plain)
+        acc = blind_rotate(acc0, bara, key.bk, p, plain=plain,
+                           bk_limbs=key.bk_limbs)
         return sample_extract(acc, p)
 
 

@@ -279,6 +279,26 @@ def _chain_exec(dck, vals, comps, sexts, plan, amode, mmode):
     return outs[-1]
 
 
+def _chained_product_code(n1: np.ndarray, n2: np.ndarray) -> np.ndarray:
+    """The negativity code a multiply step hands its in-job consumers,
+    per lane, from its operands' signs n1, n2 (0/1): the product's exact
+    sign n1 ^ n2, as code 2 (negative) or 0.  The answer table's code 4
+    (both operands negative, a positive product) is the final answer's,
+    for its decoding alone; the JAX package hands that code on, and a
+    later step of the chain reads it as negative."""
+    return 2 * (n1 ^ n2)
+
+
+def _signed_products(steps) -> int:
+    """The multiply steps of ``steps`` whose product a later step of the
+    same job consumes: each hands it on with the sign taken from its
+    operands (:meth:`CloudEvaluator._plan_steps`)."""
+    used = {ref[1] for _, lhs, rhs in steps for ref in (lhs, rhs)
+            if ref[0] == "step"}
+    return sum(op in (3, OP_MUL) and k in used
+               for k, (op, _, _) in enumerate(steps))
+
+
 def _result_width(plan, mmode) -> int:
     """Bits of the value word :func:`_chain_exec` returns for ``plan``:
     the width-asymmetric multiply gives wl + wr bits, which is less than
@@ -479,7 +499,8 @@ class CloudEvaluator:
         """
         # the host's planning: metadata decrypted, masks uploaded
         with trace.span("evaluator.plan", lanes=operands[0].batch,
-                        steps=len(steps)):
+                        steps=len(steps),
+                        signed_products=_signed_products(steps)):
             args, planned = self._chain_args(steps, operands, True)
         plan, _, _, answer_codes, combined, step_w = planned
         result = _chain_exec(*args)
@@ -508,7 +529,8 @@ class CloudEvaluator:
         use_kogge = self.adder == "kogge_stone"
 
         # Side descriptors: operands and MUL results are ("coded",
-        # code_vec), a magnitude plus the reference's negativity code;
+        # code_vec), a magnitude plus the reference's negativity code (a
+        # MUL result's code 2 or 0: its exact sign);
         # ADD/SUB intermediates are ("twos", negflag_vec, pure_vec), raw
         # two's-complement bits whose lane value is (-1)^negflag *
         # signed(bits), with `pure` marking lanes whose bits are a
@@ -543,8 +565,7 @@ class CloudEvaluator:
                 def _mul_code(side):
                     # the multiplier consumes magnitudes; a two's-
                     # complement intermediate is taken at its negflag
-                    # sign (as the JAX package does: a code-4 multiply
-                    # intermediate reads as negative inside a chain)
+                    # sign
                     if side[0] == "coded":
                         return _normalized_neg(side[1])
                     return side[1].astype(np.int64)
@@ -579,7 +600,8 @@ class CloudEvaluator:
                 comp = zeros.astype(bool)
                 sext = zeros          # mul outputs are magnitudes
                 kinds = ("coded", "coded")
-                step_kind.append(("coded", answer_codes, None))
+                step_kind.append(("coded", _chained_product_code(n1, n2),
+                                  None))
             elif op in (OP_ADD, OP_SUB):
                 kl = side_of(lhs)
                 kr = side_of(rhs)
@@ -661,7 +683,8 @@ class CloudEvaluator:
         """
         args, _ = self._chain_args(steps, operands, False)
         dck, vals, comps, sexts, plan, _, mmode = args
-        tensors = (dck.bk, dck.ks_limbs, *vals, *comps, *sexts)
+        tensors = (dck.bk, dck.ks_limbs, *vals, *comps, *sexts) + (
+            () if dck.bk_limbs is None else (dck.bk_limbs,))
         out = {
             "temp_size_in_bytes": -1,
             "argument_size_in_bytes": sum(t.numel() * t.element_size()

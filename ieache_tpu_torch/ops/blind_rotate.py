@@ -8,7 +8,8 @@ LWE mask coefficient:
 :func:`blind_rotate` reads two variables at each call, as the JAX
 package reads them.  ``IEACHE_PALLAS_STEP`` names the step mode
 (:func:`step_mode`); with the single-limb gadget (``digit_limbs == 1``)
-each mode runs the n steps through its own kernels:
+each mode runs the n steps through its own kernels, and ``split`` also
+with two int8 limbs a digit (the compat gadget Bg = 2^10):
 
 * ``split`` (the default, also for ``auto`` or unset): per step,
   :func:`~ieache_tpu_torch.ops.kernels.rot_diff_decompose` then
@@ -46,9 +47,12 @@ the mode's kernels refuse the parameter set's shape
 below 64 under every kernel mode, all on the tensor-core tile), ``auto``
 and ``interpret`` take :func:`external_product_step`, as the JAX package
 takes its XLA step where its kernels cannot run, and ``1`` raises.  The
-two-limb compat gadget has no kernel, as on the TPU: it takes
-:func:`external_product_step`, the plain form of the JAX package's XLA
-branch (Toeplitz operand + int8 limb products), on any device, as does
+two-limb compat gadget runs on ``split``'s kernels (the digits as two
+int8 rows each, the key as :func:`~ieache_tpu_torch.ops.kernels.limb_key`
+gives it: ``bk_limbs`` where the caller holds it, made once when the key
+is packed, else made at the call); the other kernel modes refuse it and
+take :func:`external_product_step`, the plain form of the JAX package's
+XLA branch (Toeplitz operand + int8 limb products), as does
 ``plain=True`` whatever the mode: the reference the kernel paths are
 compared with.  Under ``ntt`` the compat gadget warns, as in the JAX
 package, before it takes that step.
@@ -329,12 +333,17 @@ def _blind_rotate_ntt(acc0: torch.Tensor, bara: torch.Tensor,
 def blind_rotate(
     acc0: torch.Tensor, bara: torch.Tensor, bk: torch.Tensor,
     params: TFHEParams, plain: bool = False,
+    bk_limbs: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Full blind rotation over all n LWE coefficients.
 
     acc0: (B, k+1, N) int32 — rotated test-vector accumulator.
     bara: (B, n) int32 in [0, 2N) — mod-switched mask coefficients.
     bk:   (n, rows, k+1, N) int32 — bootstrapping key.
+    bk_limbs: ``kernels.limb_key(bk, params)``, read by the split kernels
+    where a digit takes two limbs; made here when None (a key held by
+    the caller keeps the rotation's CUDA graph from one call to the
+    next).
 
     Under a per-step kernel mode on CUDA tensors, a key's second call
     captures a CUDA graph: while it does, another thread's draw from
@@ -350,12 +359,13 @@ def blind_rotate(
                 f"IEACHE_PALLAS_STEP=ntt needs digit_limbs == 1 (got "
                 f"{params.digit_limbs}); taking the plain step",
                 stacklevel=2)
-        plain = mode == "ntt" or route == "0" or params.digit_limbs != 1
+        plain = mode == "ntt" or route == "0"
     if not plain:
         # kernels.py builds its plain twins from this module's functions
         from ieache_tpu_torch.ops import kernels
 
-        why = kernels.kernels_refusal(mode, params.trgsw_rows, params.N)
+        why = kernels.kernels_refusal(mode, params.trgsw_rows, params.N,
+                                      params.digit_limbs)
         if why is not None:
             if route == "1":
                 raise ValueError(f"IEACHE_PALLAS=1 asks for the kernels of "
@@ -370,9 +380,12 @@ def blind_rotate(
         raise RuntimeError(
             f"IEACHE_PALLAS=1 asks for the CUDA kernels, but the tensors "
             f"are on {acc0.device}, where no kernel runs")
+    # the key the kernels read: with two limbs a digit, limb_key's rows
+    bk = kernels.limb_key(bk, params) if bk_limbs is None else bk_limbs
     # the host's dispatch of the rotation, with the launches it made
     with trace.span("blind_rotate", mode=mode, lanes=acc0.shape[0],
-                    steps=bk.shape[0]) as rec:
+                    steps=bk.shape[0], digit_limbs=params.digit_limbs,
+                    rows=bk.shape[1]) as rec:
         before = kernels.mode_launches(mode) if rec is not None else 0
         acc, how = _rotate_by_mode(acc0, bara, bk, params, mode, route)
         with _graph_lock:

@@ -74,8 +74,17 @@ launches its kernel when the tensors lie on a CUDA device, or runs its
 plain twin (``*_plain``) when they lie on the CPU; it never falls back
 from one to the other.  Each wrapper's ``launches`` attribute counts
 its kernel launches (the plain twins count nothing);
-:func:`recording_batches` also notes the batch of each call.  Only the
-single-limb gadget (``digit_limbs == 1``) is taken, as on the TPU.
+:func:`recording_batches` also notes the batch of each call.
+
+A gadget whose digits need two int8 limbs (``digit_limbs == 2``: the
+compat gadget Bg = 2^10) runs under ``split`` alone: the rotation writes
+each digit d as two digit rows, its signed low byte d_lo and
+d_hi = (d - d_lo) / 2^8 (:func:`digit_limb_rows`), and the external
+product runs unchanged at those :func:`digit_rows`, against the key with
+(2^8·b) mod 2^32 beside each row b (:func:`limb_key`, made once when
+the key is packed): d_hi times that row is the plain step's limb
+products at shifts 8 to 24, those at 32 and above vanishing mod 2^32.
+The other modes' wrappers refuse it (``ValueError``).
 :func:`kernels_take` says whether a step mode's kernels accept a
 parameter set's shape; the wrappers refuse what it refuses
 (``ValueError``, CUDA tensors only), and ``blind_rotate`` asks it before
@@ -95,6 +104,7 @@ from ieache_tpu_torch.core.poly import (
     TORUS_LIMBS,
     _dot_i8,
     negacyclic_extend,
+    split_i8_limbs,
 )
 from ieache_tpu_torch.ops import _build
 from ieache_tpu_torch.ops import blind_rotate as br
@@ -105,9 +115,41 @@ from ieache_tpu_torch.params import TFHEParams
 def _require_single_limb(params: TFHEParams) -> None:
     if params.digit_limbs != 1:
         raise ValueError(
-            "the blind-rotation kernels require single-limb digits "
-            f"(bg_bit <= 8); got bg_bit={params.bg_bit}"
+            "this step mode's kernels require single-limb digits "
+            f"(bg_bit <= 8; split takes two limbs); got bg_bit={params.bg_bit}"
         )
+
+
+def digit_rows(params: TFHEParams) -> int:
+    """The digit rows the split kernels run: the TRGSW rows (k+1)·l,
+    twice that where a digit takes two int8 limbs."""
+    return params.trgsw_rows * params.digit_limbs
+
+
+def digit_limb_rows(d: torch.Tensor, params: TFHEParams) -> torch.Tensor:
+    """Digits int32 (B, rows, N) -> the split kernels' int8 digit rows
+    (B, rows·limbs, N): the digits themselves, or with two limbs
+    row 2p + h limb h of row p's digits (``split_i8_limbs``: d_lo the
+    signed low byte, d_hi = (d - d_lo) / 2^8)."""
+    if params.digit_limbs == 1:
+        return d.to(torch.int8)
+    b, rows, n = d.shape
+    limbs = split_i8_limbs(d, params.digit_limbs)            # (B, rows, N, 2)
+    return torch.movedim(limbs, -1, 2).reshape(b, rows * params.digit_limbs,
+                                                n)
+
+
+def limb_key(bk: torch.Tensor, params: TFHEParams) -> torch.Tensor:
+    """The key the split product reads: int32 (..., rows, k+1, N) ->
+    (..., :func:`digit_rows`, k+1, N), row 2p + h being
+    (2^(8h)·bk[..., p]) mod 2^32 where a digit takes two limbs; ``bk``
+    itself with one."""
+    if params.digit_limbs == 1:
+        return bk
+    shifted = torch.stack([bk << (8 * h) for h in range(params.digit_limbs)],
+                          dim=-3)                      # (..., rows, 2, k+1, N)
+    return shifted.reshape(*bk.shape[:-3], digit_rows(params),
+                           *bk.shape[-2:]).contiguous()
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
@@ -140,9 +182,10 @@ def _launch_context(t: torch.Tensor):
 def rot_diff_decompose_plain(acc: torch.Tensor, bara: torch.Tensor,
                              params: TFHEParams) -> torch.Tensor:
     """Plain twin: acc (k+1, B, N) int32, bara (B,) int32 -> digits of
-    (X^bara·acc - acc) as (rows, B, N) int8, row p = u*l + j."""
+    (X^bara·acc - acc) as (rows, B, N) int8, row p = u*l + j; with two
+    limbs a digit (2 rows, B, N), row 2p + h (:func:`digit_limb_rows`)."""
     d = br._step_digits(acc.transpose(0, 1), bara, params)   # (B, rows, N)
-    return d.transpose(0, 1).to(torch.int8).contiguous()
+    return digit_limb_rows(d, params).transpose(0, 1).contiguous()
 
 
 @functools.cache
@@ -158,8 +201,10 @@ def _rot_diff_decompose_launch(wrapper, entry: str, plain, policy,
     """Both rotation wrappers' body: the digits, (rows, N, B) when ``tr``
     else (rows, B, N), from the C entry point ``entry`` launched as
     ``policy(B, k+1, N, SMs)`` says on CUDA tensors, counted on
-    ``wrapper``, or from ``plain`` on CPU tensors."""
-    _require_single_limb(params)
+    ``wrapper``, or from ``plain`` on CPU tensors.  Two-limb digits are
+    taken only in the (rows, B, N) layout."""
+    if tr:
+        _require_single_limb(params)
     kp1, b, n = params.k + 1, bara.numel(), params.N
     _check(acc, "acc", torch.int32, (kp1, n, b) if tr else (kp1, b, n),
            acc.device)
@@ -183,7 +228,7 @@ def _rot_diff_decompose_entry(entry: str, acc: torch.Tensor,
     after the offset), uncounted: the wrappers' launch, and the one
     ``tools/tile_bench.py`` times other shapes through."""
     kp1, b, n = params.k + 1, bara.numel(), params.N
-    rows = params.trgsw_rows
+    rows = digit_rows(params)
     out = torch.empty((rows, n, b) if tr else (rows, b, n), dtype=torch.int8,
                       device=acc.device)
     if b == 0:
@@ -201,7 +246,8 @@ def _rot_diff_decompose_entry(entry: str, acc: torch.Tensor,
 def rot_diff_decompose(acc: torch.Tensor, bara: torch.Tensor,
                        params: TFHEParams) -> torch.Tensor:
     """acc (k+1, B, N) int32, bara (B,) int32 in [0, 2N) -> (rows, B, N)
-    int8 digits; the kernel on CUDA tensors, the plain twin on CPU."""
+    int8 digits (:func:`digit_rows` rows: two a digit where it takes two
+    limbs); the kernel on CUDA tensors, the plain twin on CPU."""
     return _rot_diff_decompose_launch(
         rot_diff_decompose, "ieache_rot_diff_decompose",
         rot_diff_decompose_plain, _split_launch, acc, bara, params, tr=False)
@@ -277,18 +323,25 @@ def scan_add_tile_fits(rows: int, n: int) -> bool:
             + SCAN_EXTRA_BYTES + add <= SMEM_BLOCK_BYTES)
 
 
-def kernels_refusal(mode: str, rows: int, n: int) -> str | None:
+def kernels_refusal(mode: str, rows: int, n: int,
+                    limbs: int = 1) -> str | None:
     """Why the kernels of step mode ``mode`` refuse ``rows`` TRGSW rows
-    at ring degree ``n``, or None where they take the shape.  Every mode
-    with kernels runs its products on the tensor-core tile, which needs N
-    a power of two of at least 64 and rows * N below
-    :data:`MMA_MAX_TERMS`; where a block keeps digit tiles in shared
-    memory (fused2, scan, overlap) it needs room for them (scan also for
-    :data:`SCAN_EXTRA_BYTES`), and under ``tr`` the rotation's slab
-    (:func:`rot_tr_slab_bytes`) must fit a block; ``ntt`` runs no
-    kernel."""
+    at ring degree ``n`` with ``limbs`` int8 limbs a digit, or None where
+    they take the shape.  Two limbs run under ``split`` alone, at
+    ``rows * limbs`` digit rows.  Every mode with kernels runs its
+    products on the tensor-core tile, which needs N a power of two of at
+    least 64 and rows * N below :data:`MMA_MAX_TERMS`; where a block
+    keeps digit tiles in shared memory (fused2, scan, overlap) it needs
+    room for them (scan also for :data:`SCAN_EXTRA_BYTES`), and under
+    ``tr`` the rotation's slab (:func:`rot_tr_slab_bytes`) must fit a
+    block; ``ntt`` runs no kernel."""
     if mode == "ntt":
         return None
+    if limbs != 1:
+        if mode != "split":
+            return (f"the kernels of {mode} take single-limb digits "
+                    f"(bg_bit <= 8); two int8 limbs a digit run under split")
+        rows *= limbs
     tiles = _DIGIT_TILES[mode]
     if n < 64 or n & (n - 1):
         return (f"the tensor-core external product needs N a power of two "
@@ -377,6 +430,20 @@ def digit_word_model(v: torch.Tensor, jl: int, bg_bit: int) -> torch.Tensor:
     return sum((digit[..., s] & 0xFF) << (8 * s) for s in range(4))
 
 
+def digit_limb_words_model(v: torch.Tensor, jl: int,
+                           bg_bit: int) -> tuple:
+    """``digit_limb_words`` of ``rot_diff_decompose.cu``: v (..., 4)
+    words as int64 in [0, 2^32) -> (lo, hi) words, byte s of lo the
+    sign-extended low byte d_lo of digit jl of v[..., s] and byte s of hi
+    (d - d_lo) / 2^8."""
+    shift = 32 - (jl + 1) * bg_bit
+    d = ((v >> shift) & ((1 << bg_bit) - 1)) - (1 << (bg_bit - 1))
+    d_lo = ((d & 0xFF) ^ 0x80) - 0x80
+    d_hi = torch.div(d - d_lo, 256, rounding_mode="trunc")
+    return tuple(sum((x[..., s] & 0xFF) << (8 * s) for s in range(4))
+                 for x in (d_lo, d_hi))
+
+
 def rot_diff_decompose_run_model(acc: torch.Tensor, bara: torch.Tensor,
                                  params: TFHEParams, sms: int = 132,
                                  run: int | None = None
@@ -390,9 +457,11 @@ def rot_diff_decompose_run_model(acc: torch.Tensor, bara: torch.Tensor,
     i0 & ~3 (i0 = (j0 - bara) mod 2N; the last one read only when
     s = i0 & 3 is not 0), each negated whole, shifted down by s in two
     selects (by 2, then by 1); each digit row's R bytes are packed by
-    :func:`digit_word_model` and stored as one run.  Same arguments and
-    result as :func:`rot_diff_decompose_plain`; every output byte is
-    written once."""
+    :func:`digit_word_model` and stored as one run, or with two limbs a
+    digit (bg_bit > 8) the two rows' by :func:`digit_limb_words_model`, in
+    rows 2p and 2p + 1.  Same arguments and result as
+    :func:`rot_diff_decompose_plain`; every output byte is written
+    once."""
     kp1, b, n = acc.shape
     run = rot_launch(b, kp1, n, sms) if run is None else run
     if run not in ROT_RUNS or run > n:
@@ -426,18 +495,22 @@ def rot_diff_decompose_run_model(acc: torch.Tensor, bara: torch.Tensor,
     cols = j0[:, None] + k
     v = (w - c[poly[:, None], cols] + _offset(params.bg_bit, params.l)) \
         & 0xFFFFFFFF                                            # (t, R)
-    out = torch.zeros((params.trgsw_rows, b, n), dtype=torch.int8,
+    two = params.bg_bit > 8
+    out = torch.zeros((digit_rows(params), b, n), dtype=torch.int8,
                       device=dev)
     written = torch.zeros(out.shape, dtype=torch.int32, device=dev)
     shifts = 8 * torch.arange(4, device=dev)
+    vq = v.reshape(len(t), run // 4, 4)
     for jl in range(params.l):
-        words = digit_word_model(v.reshape(len(t), run // 4, 4), jl,
-                                 params.bg_bit)                 # (t, R/4)
-        digits = ((words[..., None] >> shifts) & 0xFF).reshape(len(t), run)
-        p = (u * params.l + jl)[:, None]
-        out[p, lane[:, None], cols] = \
-            (digits - ((digits & 0x80) << 1)).to(torch.int8)
-        written[p, lane[:, None], cols] += 1
+        rows = (digit_limb_words_model(vq, jl, params.bg_bit) if two
+                else (digit_word_model(vq, jl, params.bg_bit),))
+        for h, words in enumerate(rows):                        # (t, R/4)
+            digits = ((words[..., None] >> shifts) & 0xFF).reshape(len(t),
+                                                                   run)
+            p = ((u * params.l + jl) * len(rows) + h)[:, None]
+            out[p, lane[:, None], cols] = \
+                (digits - ((digits & 0x80) << 1)).to(torch.int8)
+            written[p, lane[:, None], cols] += 1
     if not bool((written == 1).all()):
         raise AssertionError("the rotation's runs do not write every digit "
                              "once")
@@ -448,7 +521,8 @@ def kernels_take(mode: str, params: TFHEParams) -> bool:
     """Whether the kernels of step mode ``mode`` accept ``params``'
     shape (:func:`kernels_refusal`); ``blind_rotate`` takes the plain
     step where they do not."""
-    return kernels_refusal(mode, params.trgsw_rows, params.N) is None
+    return kernels_refusal(mode, params.trgsw_rows, params.N,
+                           params.digit_limbs) is None
 
 
 def _refuse(why: str | None) -> None:
@@ -1161,9 +1235,13 @@ def _external_product_launch(wrapper, entry: str, plain, d: torch.Tensor,
                              tr: bool) -> torch.Tensor:
     """Both external-product wrappers' body, in the (k+1, N, B) layout
     when ``tr`` else (k+1, B, N): the C entry point ``entry`` on CUDA
-    tensors, counted on ``wrapper``, or ``plain`` on CPU tensors."""
-    _require_single_limb(params)
-    rows, kp1, n = params.trgsw_rows, params.k + 1, params.N
+    tensors, counted on ``wrapper``, or ``plain`` on CPU tensors.  Two-limb
+    digits are taken only in the (k+1, B, N) layout, at
+    :func:`digit_rows` rows of ``d`` and of the :func:`limb_key` row
+    ``bk_i``."""
+    if tr:
+        _require_single_limb(params)
+    rows, kp1, n = digit_rows(params), params.k + 1, params.N
     b = d.shape[2 if tr else 1] if d.dim() == 3 else -1
     shape = (n, b) if tr else (b, n)
     # both stagings read 16-byte pieces of the digits
@@ -1201,7 +1279,7 @@ def _external_product_entry(d: torch.Tensor, bk_i: torch.Tensor,
     with the launch shape ``launch``, uncounted: the wrapper's launch, and
     the one chip_smoke and ``tools/tile_bench.py`` give every form, batch
     tile and split by."""
-    rows, kp1, n = params.trgsw_rows, params.k + 1, params.N
+    rows, kp1, n = digit_rows(params), params.k + 1, params.N
     b = d.shape[1]
     out = torch.empty((kp1, b, n), dtype=torch.int32, device=d.device)
     lib, stream = _launch_context(d)
@@ -1235,9 +1313,11 @@ def external_product(d: torch.Tensor, bk_i: torch.Tensor, params: TFHEParams,
                      acc: torch.Tensor | None = None) -> torch.Tensor:
     """acc + sum_p d[p] ⊛ bk_i[p, o], negacyclic, exact mod 2^32:
     d (rows, B, N) int8, bk_i (rows, k+1, N) int32, acc (k+1, B, N)
-    int32 or None -> (k+1, B, N) int32; the kernel on CUDA tensors (which
-    raises ``ValueError`` for a shape :func:`mma_tile_check` refuses),
-    launched as :func:`product_launch` says, the plain twin on CPU."""
+    int32 or None -> (k+1, B, N) int32, rows :func:`digit_rows` (with two
+    limbs a digit, ``bk_i`` a step of :func:`limb_key`); the kernel on CUDA
+    tensors (which raises ``ValueError`` for a shape :func:`mma_tile_check`
+    refuses), launched as :func:`product_launch` says, the plain twin on
+    CPU."""
     return _external_product_launch(
         external_product, "ieache_external_product", external_product_plain,
         d, bk_i, params, acc, tr=False)

@@ -18,7 +18,8 @@ from ieache_tpu_torch.ops.blind_rotate import step_mode
 from ieache_tpu_torch.utils.trace import sync  # noqa: F401  (the tools' fence)
 
 #: the full-size parameter sets the tools take by name (``*_PARAMS``)
-PARAMS = {"ieache_110": P.IEACHE_110, "ieache_110_l2": P.IEACHE_110_FAST}
+PARAMS = {"ieache_110": P.IEACHE_110, "ieache_110_l2": P.IEACHE_110_FAST,
+          "ieache_110_tfhe_compat": P.IEACHE_110_TFHE_COMPAT}
 
 
 def require_cuda(what: str) -> torch.device:

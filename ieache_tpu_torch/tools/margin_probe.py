@@ -14,7 +14,8 @@ from the root of a checkout, on a CUDA device:
     python -m ieache_tpu_torch.tools.margin_probe
 
 Env: MP_PARAMS (ieache_110_l2, the default; ieache_110;
-test_small_noisy), MP_BATCH (2048), MP_ROUNDS (4).
+ieache_110_tfhe_compat, tfhe-lib's gadget Bg = 2^10, l = 2, on split's
+two-limb kernels; test_small_noisy), MP_BATCH (2048), MP_ROUNDS (4).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from ieache_tpu_torch.tools._common import line_fields, require_cuda
 
 #: MP_PARAMS names
 PARAMS = {"ieache_110": P.IEACHE_110, "ieache_110_l2": P.IEACHE_110_FAST,
+          "ieache_110_tfhe_compat": P.IEACHE_110_TFHE_COMPAT,
           "test_small_noisy": P.TEST_SMALL_NOISY}
 
 

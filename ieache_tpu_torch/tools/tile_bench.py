@@ -41,7 +41,10 @@ of a checkout, on a CUDA device:
 Env: TB_PRODUCT_B (comma list, default ``8,16,1024``), TB_STEP_B (the
 two fused steps, the tr pair and the two rotations, ``8,16,1024``),
 TB_SCAN_B (``8,1024``),
-TB_PARAMS (ieache_110_l2, or ieache_110), TB_CHECK (1).
+TB_PARAMS (ieache_110_l2, ieache_110, or ieache_110_tfhe_compat: the
+two-limb gadget, which only split's pair takes, so at it the step
+batches time ``rot_diff_decompose`` alone and no scan runs),
+TB_CHECK (1).
 """
 
 from __future__ import annotations
@@ -73,10 +76,16 @@ def _rand(rng, shape, lo, hi, dtype, device):
 
 
 def product_inputs(p, b: int, device, rng):
-    """d (rows, B, N) int8, bk_i (rows, k+1, N), acc (k+1, B, N)."""
-    return (_rand(rng, (p.trgsw_rows, b, p.N), -128, 128, np.int8, device),
-            _rand(rng, (p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31, np.int32,
-                  device),
+    """d (rows, B, N) int8, bk_i (rows, k+1, N), acc (k+1, B, N), rows
+    the split kernels' ``kernels.digit_rows`` (a two-limb digit's high
+    limb in [-2, 2], its key row ``kernels.limb_key``'s)."""
+    rows = kernels.digit_rows(p)
+    d = _rand(rng, (rows, b, p.N), -128, 128, np.int8, device)
+    if p.digit_limbs != 1:
+        d[1::2] = _rand(rng, (rows // 2, b, p.N), -2, 3, np.int8, device)
+    bk_i = _rand(rng, (p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31, np.int32,
+                 device)
+    return (d, kernels.limb_key(bk_i, p),
             _rand(rng, (p.k + 1, b, p.N), -2**31, 2**31, np.int32, device))
 
 
@@ -135,7 +144,7 @@ def product_launch_variants(p, b: int, sms: int = 132) -> dict:
     """The product's launch shapes :func:`run` times beside the policy's
     pick (``kernels.product_launch``) at batch ``b``: every shape of
     ``kernels.product_launch_shapes`` but the pick's."""
-    args = (b, p.k + 1, p.N, p.trgsw_rows, sms)
+    args = (b, p.k + 1, p.N, kernels.digit_rows(p), sms)
     pick = kernels.product_launch(*args)
     return {name: launch
             for name, launch in kernels.product_launch_shapes(*args).items()
@@ -201,7 +210,9 @@ def run(p, product_b, scan_b, device, check: bool = True,
     of :func:`scan_launch_variants` (``blind_rotate_scan_launch_ms``;
     on CPU tensors their schedule models are checked).
     ``check`` holds each kernel against its twin first and raises where
-    they differ; ``timed=False`` (the CPU rehearsal) only checks."""
+    they differ; ``timed=False`` (the CPU rehearsal) only checks.  Where
+    ``p``'s digits take two limbs, only split's pair runs:
+    ``rot_diff_decompose`` at the step batches, no scan."""
     rng = np.random.RandomState(0)
     rec = {"params": p.name, "external_product_ms": {}, "cmux_step_ms": {},
            "cmux_step_launch_ms": {},
@@ -233,8 +244,19 @@ def run(p, product_b, scan_b, device, check: bool = True,
             if timed:
                 rec["external_product_launch_ms"].setdefault(b, {})[name] = \
                     statistics.median(graph_ms(call, 50) for _ in range(3))
+    single = p.digit_limbs == 1
     for b in step_b:
         acc, bara, bk_i = step_inputs(p, b, device, rng)
+        if not single:
+            kern = (lambda: kernels.rot_diff_decompose(acc, bara, p))
+            if check and not torch.equal(
+                    kern(), kernels.rot_diff_decompose_plain(acc, bara, p)):
+                raise AssertionError(f"rot_diff_decompose differs from its "
+                                     f"twin at B={b}")
+            if timed:
+                rec["rot_diff_decompose_ms"][b] = statistics.median(
+                    graph_ms(kern, 50) for _ in range(3))
+            continue
         acc_tr = acc.transpose(1, 2).contiguous()            # (k+1, N, B)
         d_tr = kernels.rot_diff_decompose_tr_plain(acc_tr, bara, p)
         calls = {
@@ -285,7 +307,7 @@ def run(p, product_b, scan_b, device, check: bool = True,
                        "cmux_step": "cmux_step_launch_ms",
                        "rotate_sublane": "rotate_sublane_route_ms"}[kernel]
                 rec[key].setdefault(b, {})[shape] = ms
-    for b in scan_b:
+    for b in scan_b if single else ():
         acc, bara, bk = scan_inputs(p, b, device, rng)
         calls = {None: lambda: kernels.blind_rotate_scan(acc, bara, bk, p)}
         cuda = device.type == "cuda"

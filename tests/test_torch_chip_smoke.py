@@ -377,7 +377,8 @@ def test_tile_bench_checks_on_cpu_twins():
     acc, bara, bk = tile_bench.scan_inputs(p, 3, dev, rng)
     assert bara.shape == (3, p.n) and int(bara.max()) < 2 * p.N
     assert bk.shape == (p.n, p.trgsw_rows, p.k + 1, p.N)
-    assert set(tile_bench.PARAMS) == {"ieache_110", "ieache_110_l2"}
+    assert set(tile_bench.PARAMS) == {"ieache_110", "ieache_110_l2",
+                                      "ieache_110_tfhe_compat"}
     # the product's launch shapes it times beside the pick: all but the
     # pick's, each held against the twin on its plain model above
     q = P.IEACHE_110_FAST
@@ -394,6 +395,15 @@ def test_tile_bench_checks_on_cpu_twins():
         shapes = kernels.step_launch_shapes(b, q.k + 1, q.N, q.trgsw_rows)
         assert set(variants) == {k for k, s in shapes.items() if s != pick}
         assert len(variants) == len(shapes) - 1
+
+
+def test_compat_nand_phase_decrypts_on_cpu_twins():
+    """Phase 4's NAND at a two-limb gadget under split: no error, and no
+    launch on CPU tensors (the twins run)."""
+    cs = _chip_smoke()
+    p = dataclasses.replace(P.TEST_TINY, bg_bit=10, name="tiny_compat")
+    errors, _, counts, rates = cs.compat_nand(p, torch.device("cpu"), 16)
+    assert errors == 0 and not any(counts.values()) and len(rates) == 3
 
 
 def test_step_mode_phases_pass_on_cpu_twins():

@@ -163,20 +163,25 @@ def test_pallas_routes_on_the_card(cuda, route, mode):
 
 
 def test_compat_gadget_refused_on_cuda(cuda):
-    """The kernel wrappers refuse the two-limb compat gadget; the
-    blind rotation takes the plain step for it on the card, as the JAX
-    package takes its XLA step on any device, and equals plain=True."""
+    """The kernel wrappers of every mode but split refuse the two-limb
+    compat gadget; split's take it.  The blind rotation runs split's
+    kernels for it and the plain step under every other mode, as the
+    JAX package takes its XLA step, and equals plain=True."""
     p = dataclasses.replace(P.TEST_TINY, bg_bit=10, name="tiny_compat")
     rng = np.random.RandomState(5)
     acc = _rand(rng, (p.k + 1, 3, p.N), -2**31, 2**31, np.int32, cuda)
     bara = _rand(rng, (3,), 0, 2 * p.N, np.int32, cuda)
     bk_i = _rand(rng, (p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31, np.int32,
                  cuda)
-    with pytest.raises(ValueError, match="single-limb"):
-        kernels.rot_diff_decompose(acc, bara, p)
+    d = kernels.rot_diff_decompose(acc, bara, p)
+    assert d.shape == (2 * p.trgsw_rows, 3, p.N)
+    assert torch.equal(d, kernels.rot_diff_decompose_plain(acc, bara, p))
     for step in (kernels.cmux_step, kernels.cmux_step_overlap):
         with pytest.raises(ValueError, match="single-limb"):
             step(acc, bara, bk_i, p)
+    with pytest.raises(ValueError, match="single-limb"):
+        kernels.rot_diff_decompose_tr(acc.transpose(1, 2).contiguous(), bara,
+                                      p)
     from ieache_tpu_torch.ops.blind_rotate import blind_rotate
 
     bk = _rand(rng, (p.n, p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
@@ -185,10 +190,103 @@ def test_compat_gadget_refused_on_cuda(cuda):
     acc0 = acc.transpose(0, 1).contiguous()
     want = blind_rotate(acc0, bara_n, bk, p, plain=True)
     for mode in MODES:
-        with _step_mode(mode):
+        counts = [w.launches for w in WRAPPERS.values()]
+        with _step_mode(mode), (pytest.warns(UserWarning)
+                                if mode == "ntt"
+                                else contextlib.nullcontext()):
             got = blind_rotate(acc0, bara_n, bk, p)
         torch.cuda.synchronize()
         assert torch.equal(got, want), mode
+        assert _launched(counts) == (set(MODES[mode]) if mode == "split"
+                                     else set()), mode
+
+
+#: the compat gadget (Bg = 2^10, l = 2: two int8 limbs a digit) at N=1024
+COMPAT = P.IEACHE_110_TFHE_COMPAT
+
+
+@pytest.mark.parametrize("b", [1, 5, 64, 1056])
+def test_compat_split_kernels_match_their_twins(cuda, b):
+    """The two-limb rotation (8 digit rows) and the product at 8 rows,
+    under the launch the policy picks and every other launch shape, equal
+    their twins; an accumulator whose digits reach -512 and 511."""
+    p = COMPAT
+    rng = np.random.RandomState(900 + b)
+    acc = _rand(rng, (p.k + 1, b, p.N), -2**31, 2**31, np.int32, cuda)
+    acc[:, :, ::7] = -2**31
+    acc[:, :, 1::7] = 2**31 - 1
+    for bara in (_rand(rng, (b,), 0, 2 * p.N, np.int32, cuda),
+                 torch.full((b,), p.N, dtype=torch.int32, device=cuda)):
+        got = kernels.rot_diff_decompose(acc, bara, p)
+        want = kernels.rot_diff_decompose_plain(acc, bara, p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert int(want.min()) == -128 and int(want.max()) == 127
+    bk_i = kernels.limb_key(_edge_key((p.trgsw_rows, p.k + 1, p.N), cuda), p)
+    want = kernels.external_product_plain(got, bk_i, p, acc)
+    before = kernels.external_product.launches
+    assert torch.equal(kernels.external_product(got, bk_i, p, acc=acc), want)
+    assert kernels.external_product.launches == before + 1
+    for launch in kernels.product_launch_shapes(
+            b, p.k + 1, p.N, kernels.digit_rows(p)).values():
+        out = kernels.external_product_as(got, bk_i, p, acc, launch)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), launch
+
+
+@pytest.mark.parametrize("b", [1, 1024])
+def test_compat_kernel_path_equals_the_reference(cuda, graphs, monkeypatch,
+                                                 b):
+    """At N=1024, a few CMux steps on the kernels (the loop, the capture,
+    a replay), the plain step and ``fhe_bench/reference/cmux.py`` (plain
+    int64, nothing of the program) agree bit for bit; the key holds the
+    edge words INT32_MIN, -1 and 2^31-1."""
+    from fhe_bench.reference import cmux
+
+    br = graphs
+    p = COMPAT
+    acc0, bara, bk = _rotation_case(p, b, 950 + b, cuda, steps=4)
+    bk[1] = _edge_key(bk[1].shape, cuda)
+    want = cmux.blind_rotate(acc0, bara, bk, p.bg_bit, p.l)
+    assert torch.equal(br.blind_rotate(acc0, bara, bk, p, plain=True), want)
+    monkeypatch.setenv("IEACHE_PALLAS_STEP", "split")
+    limbs = kernels.limb_key(bk, p)
+    gots = [br.blind_rotate(acc0, bara, bk, p, bk_limbs=limbs)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, want) for g in gots)
+
+
+@pytest.mark.parametrize("b", [1, 8, 33, 272, 1024])
+def test_compat_bootstrap_graphed_equals_the_plain_path(cuda, graphs, b):
+    """A bootstrap at the compat gadget through a packed key: the
+    rotation on split's kernels, as the loop, then a graph captured and
+    replayed, 500 + 500 launches each, every answer equal to the plain
+    path's; the key packs its two-limb layout once."""
+    br = graphs
+    p = COMPAT
+    rng = np.random.RandomState(990 + b)
+    bk = _rand(rng, (p.n, p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
+               np.int32, cuda)
+    ks = _rand(rng, (p.kN * p.ks_t, p.n + 1), -2**31, 2**31, np.int32,
+               "cpu")
+    from ieache_tpu_torch.ops.keyswitch import pack_ks_limbs
+
+    key = bootstrap.DeviceCloudKey(bk, pack_ks_limbs(ks.numpy(), cuda), p)
+    assert torch.equal(key.bk_limbs, kernels.limb_key(bk, p))
+    ct = _rand(rng, (b, p.n + 1), -2**31, 2**31, np.int32, cuda)
+    want = bootstrap.bootstrap(ct, key, plain=True)
+    before = br.graph_counts()
+    counts = [w.launches for w in WRAPPERS.values()]
+    for how in ({"eager": 1}, {"eager": 1, "captures": 1},
+                {"eager": 1, "captures": 1, "replays": 1}):
+        with _step_mode("split"):
+            got = bootstrap.bootstrap(ct, key)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert _graph_delta(before) == how
+    assert [w.launches - c for w, c in zip(WRAPPERS.values(), counts)
+            if w.launches != c] == [3 * p.n, 3 * p.n]
 
 
 @pytest.mark.parametrize("p", PARAMS, ids=lambda p: p.name)

@@ -204,11 +204,18 @@ def test_wrappers_reject_bad_inputs():
         kernels.external_product(d, bk_i[:, :1], p)
     with pytest.raises(ValueError):
         kernels.external_product(d, bk_i, p, acc=acc_t[:1])
-    # the compat gadget has no kernel, on any device
-    with pytest.raises(ValueError, match="single-limb"):
-        kernels.rot_diff_decompose(acc_t, bara, TINY_COMPAT)
-    with pytest.raises(ValueError, match="single-limb"):
+    # the compat gadget's split pair takes two digit rows a digit, and
+    # refuses the single-limb rows; the tr pair refuses it outright
+    assert kernels.rot_diff_decompose(acc_t, bara, TINY_COMPAT).shape == \
+        (2 * p.trgsw_rows, b, p.N)
+    with pytest.raises(ValueError):
         kernels.external_product(d, bk_i, TINY_COMPAT)
+    with pytest.raises(ValueError, match="single-limb"):
+        kernels.rot_diff_decompose_tr(acc_t.transpose(1, 2).contiguous(),
+                                      bara, TINY_COMPAT)
+    with pytest.raises(ValueError, match="single-limb"):
+        kernels.external_product_tr(d.transpose(1, 2).contiguous(), bk_i,
+                                    TINY_COMPAT)
 
 
 @pytest.mark.parametrize("p", [P.TEST_TINY, TINY_COMPAT],
@@ -216,8 +223,8 @@ def test_wrappers_reject_bad_inputs():
 def test_blind_rotate_matches_jax(p, monkeypatch):
     """Every step mode's loop (plain twins on CPU; ntt's transforms) and
     the plain step loop equal JAX's blind_rotate at a ragged batch; the
-    compat gadget takes the plain step in every mode, as JAX takes its
-    XLA step."""
+    compat gadget takes split's two-limb twins under split and the plain
+    step in every other mode, as JAX takes its XLA step."""
     rng = np.random.RandomState(8)
     b = 5
     acc0 = _rand_i32(rng, (b, p.k + 1, p.N))
