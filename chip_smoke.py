@@ -55,7 +55,12 @@ prints no result line:
    and its gather); the split rotation at every run length and block
    size and the sublane rotation by slab and by gather, whatever their
    launch policies pick, at B in {8, 256, 1024}, and both on an
-   accumulator that is only 4-byte aligned; mm_s8 (exact) and mm_bf16 at the
+   accumulator that is only 4-byte aligned; the keyswitch kernel
+   (``csrc/keyswitch.cu``) at TEST_SMALL_NOISY and IEACHE_110, B in {1,
+   32, 33, 1024, 1025}, under the policy's launch and every tile of
+   ``keyswitch_launch_shapes``, on random words and on masks and keys of
+   the extreme words, equal to ``keyswitch_plain``; mm_s8 (exact) and
+   mm_bf16 at the
    matmul probe's (1024, 1024, 1024) with g in {1, 512} (the int32 sum
    wraps with extreme operands) and at four smaller shapes with k up
    to 4096, so that each type runs its three kernels, mm_bf16 to within
@@ -107,7 +112,10 @@ prints no result line:
    kernels' own path), the matmul probe (``mosaic_mm_probe``, counted
    the same way) with each mm kernel beside its twin and beside
    ``torch._int_mm`` / bf16 ``torch.matmul`` on the same operands g
-   times, and ``step_bench`` over all seven modes, each printing the
+   times; the keyswitch kernel's ms per call at B = 1, 33 and 1024
+   beside its plain chain (the four ``torch._int_mm`` products it
+   replaced: the library path) and its bound; and ``step_bench`` over
+   all seven modes, each printing the
    tool's JSON line; the device keygen's seconds beside the host's;
    ``mul32`` at 32 lanes under split, once;
 8. the evaluator (``circuits/evaluator.py``), the slice's own main path,
@@ -184,7 +192,8 @@ B=2048 for the rotation probe's kernels, (1024, 1024, 1024) with g=512
 for the matmul probe's; the least time the card could take for the
 call, from its bytes over 3.35 TB/s or its operations over the
 tensor-core peak, whichever is larger; and the ms of the one PyTorch
-call that computes the same function, where there is one); the last
+call that computes the same function, where there is one), and a
+``keyswitch`` entry (its error and its times by batch); the last
 line is ``{"ok": true, "device": {...}}``.  The secret keyset is cached
 in ``.keycache/`` (the JAX package's bench writes the same file).
 """
@@ -215,6 +224,7 @@ from ieache_tpu_torch.dist import shard as dshard
 from ieache_tpu_torch.lwe import encrypt, keygen_device
 from ieache_tpu_torch.mp import sim
 from ieache_tpu_torch.ops import _build, kernels
+from ieache_tpu_torch.ops import keyswitch as ksw
 from ieache_tpu_torch.ops.blind_rotate import STEP_MODES, blind_rotate
 from ieache_tpu_torch.tools import (
     bench,
@@ -325,6 +335,12 @@ MMA_SPLIT_EDGE = (256, 257)
 #: external_product to its twin under every launch shape: inside a 32-row
 #: wgmma tile, and one 64-row tile
 PRODUCT_BATCHES = (24, 64)
+
+#: the batches at which phase 3 holds the keyswitch kernel to its twin:
+#: one lane, the multiply's waves of 32 and 33, a batch wave and one past
+#: it; and those at which phase 7 times it
+KS_CHECK_BATCHES = (1, 32, 33, 1024, 1025)
+KS_TIMED_BATCHES = (1, 33, 1024)
 
 #: the batches and step counts at which phase 3 holds the scan kernel to
 #: its twin once more: either side of where its launch stops splitting a
@@ -813,6 +829,55 @@ def check_product_launches(p, device, batches, seed=23):
             f"equal under {', '.join(shapes)} (the pick: {pick.form} "
             f"{pick.tile} x {pick.cols}, split {pick.split}) on random and "
             f"{len(cases) - 1} extreme operand sets, with and without acc")
+    return errs
+
+
+def keyswitch_operands(p, b, device, rng):
+    """(name, lwe_ext (B, kN+1) int32, packed key limbs): random words
+    with the words of :data:`EDGE_KEY_WORDS` first, then masks and keys
+    each all one edge word (a different one for the two), where every
+    digit and every limb sum is at an extreme and the sums wrap."""
+    shape_x, shape_k = (b, p.kN + 1), (p.kN * p.ks_t, p.n + 1)
+    x = rng.randint(-2**31, 2**31, shape_x, dtype=np.int64).astype(np.int32)
+    ks = rng.randint(-2**31, 2**31, shape_k, dtype=np.int64).astype(np.int32)
+    x.reshape(-1)[: len(EDGE_KEY_WORDS)] = EDGE_KEY_WORDS
+    ks.reshape(-1)[: len(EDGE_KEY_WORDS)] = EDGE_KEY_WORDS
+    yield "random", torch.from_numpy(x).to(device), \
+        ksw.pack_ks_limbs(ks, device)
+    for i, word in enumerate(EDGE_KEY_WORDS):
+        key_word = EDGE_KEY_WORDS[(i + 1) % len(EDGE_KEY_WORDS)]
+        yield (f"mask {word:#x} key {key_word:#x}",
+               torch.full(shape_x, word, dtype=torch.int32, device=device),
+               ksw.pack_ks_limbs(np.full(shape_k, key_word, np.int32),
+                                 device))
+
+
+def check_keyswitch(p, device, batches=KS_CHECK_BATCHES, seed=43):
+    """Phase 3: the keyswitch kernel (``ops/keyswitch.keyswitch``, launched
+    as ``kernels.keyswitch_launch`` says) and every tile of
+    ``kernels.keyswitch_launch_shapes`` through the uncounted entry, at
+    ``p`` and each of ``batches``, on the operands of
+    :func:`keyswitch_operands`, each equal to ``keyswitch_plain`` (on CPU
+    tensors the wrapper is the twin and the tiles run the plain model).
+    Returns max abs error."""
+    rng = np.random.RandomState(seed)
+    errs = {}
+    sms = _card_sms(device)
+    for b in batches:
+        shapes = kernels.keyswitch_launch_shapes(b, p, sms)
+        cases = list(keyswitch_operands(p, b, device, rng))
+        for name, x, limbs in cases:
+            want = ksw.keyswitch_plain(x, limbs, p)
+            _compare("keyswitch", ksw.keyswitch(x, limbs, p), want, errs,
+                     device, f"{p.name} B={b} {name}")
+            for shape, launch in shapes.items():
+                _compare("keyswitch",
+                         kernels.keyswitch_as(x, limbs, p, launch), want,
+                         errs, device, f"{p.name} B={b} {name} {shape}")
+        log(f"phase 3 keyswitch: {p.name} B={b} equal to keyswitch_plain "
+            f"under the pick ({kernels.keyswitch_launch(b, p, sms).form}) "
+            f"and {', '.join(shapes)}, on random and {len(cases) - 1} "
+            f"extreme operand sets")
     return errs
 
 
@@ -2036,6 +2101,40 @@ def scan_times(p, device, batch, reps):
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
+def keyswitch_ops(p, batch, m):
+    """The keyswitch's int8 operations at B=``batch`` against the packed
+    key of ``m`` columns: four limbs, 2 a multiply-add."""
+    return 2 * TORUS_LIMBS * batch * p.kN * p.ks_t * m
+
+
+def keyswitch_times(p, device, batches=KS_TIMED_BATCHES, reps=50):
+    """Phase 7: ms per call of the keyswitch at each of ``batches`` (a CUDA
+    graph of ``reps`` calls replayed between CUDA events, the median of
+    three): the kernel, the plain chain ``keyswitch_plain`` (the four
+    ``torch._int_mm`` products and their elementwise ops: the library
+    path the kernel replaced, so also ``library_ms``), and the bound
+    (the packed key, the ciphertexts in and the answers out over
+    3.35 TB/s, or :func:`keyswitch_ops` over the int8 peak)."""
+    rng = np.random.RandomState(47)
+    out = {}
+    sms = _card_sms(device)
+    for b in batches:
+        _, x, limbs = next(keyswitch_operands(p, b, device, rng))
+        kern = statistics.median(
+            graph_ms(lambda: ksw.keyswitch(x, limbs, p), reps)
+            for _ in range(3))
+        plain = statistics.median(
+            graph_ms(lambda: ksw.keyswitch_plain(x, limbs, p), reps)
+            for _ in range(3))
+        ans = torch.empty((b, p.n + 1), dtype=torch.int32, device=device)
+        bound, by = bound_ms([limbs, x, ans],
+                             keyswitch_ops(p, b, limbs.shape[-1]), "int8")
+        out[b] = {"ms": kern, "plain_ms": plain, "library_ms": plain,
+                  "bound_ms": bound, "bound_by": by,
+                  "form": kernels.keyswitch_launch(b, p, sms).form}
+    return out
+
+
 def mm_times(device, reps, case=MM_CASES[0]):
     """Phase 7: ms per call of mm_s8 and mm_bf16 at the probe's shape
     (the sum of g products), each beside its twin, its bound, and the
@@ -2167,6 +2266,10 @@ def main() -> int:
                                          for d in (-1, 0, 1))})).items():
             errs[name] = max(errs[name], err)
     errs.update(check_mm_kernels(device))
+    ks_errs = {}
+    for ks_p in (P.TEST_SMALL_NOISY, P.IEACHE_110):
+        for name, err in check_keyswitch(ks_p, device).items():
+            ks_errs[name] = max(ks_errs.get(name, 0), err)
 
     # keys and operands (set-up), and the keygen phase: the device
     # keygen and encryption against the host's
@@ -2345,6 +2448,12 @@ def main() -> int:
             f"ms/call (graph replay), plain twin {t['plain_ms']:.4f} ms, "
             f"the library call {g} times {t['library_ms']:.4f} ms (graph "
             f"replay), bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    ks_times = keyswitch_times(p, device)
+    for b, t in ks_times.items():
+        log(f"phase 7 keyswitch B={b} ({t['form']}): kernel {t['ms']:.4f} "
+            f"ms/call (graph replay), plain chain (four torch._int_mm and "
+            f"their ops: the library path) {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
     log(f"phase 7 keygen {p.name}: device {device_keygen_s:.2f} s, host "
         + (f"{keygen_s:.2f} s" if keygen_s else "not timed (cached)"))
     with step_mode("split"):
@@ -2422,7 +2531,10 @@ def main() -> int:
          "library_ms": steps[name]["library_ms"],
          **({"by_batch": by_batch[name]} if name in by_batch else {})}
         for name, src, rep in KERNELS
-    ]}
+    ], "keyswitch": {
+        "route": "cuda", "source": "ieache_tpu_torch/csrc/keyswitch.cu",
+        "replaces": "ieache_tpu/ops/keyswitch.py (XLA; no Pallas kernel)",
+        "max_abs_err": ks_errs["keyswitch"], "by_batch": ks_times}}
     device_rec = {"platform": "gpu", "kind": kind,
                   "count": torch.cuda.device_count()}
     print(json.dumps(record), flush=True)

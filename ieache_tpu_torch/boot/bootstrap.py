@@ -23,7 +23,12 @@ from ieache_tpu_torch.lwe.types import (
 )
 from ieache_tpu_torch.ops.blind_rotate import blind_rotate
 from ieache_tpu_torch.ops.kernels import limb_key
-from ieache_tpu_torch.ops.keyswitch import keyswitch, pack_ks_limbs, pad_ks_limbs
+from ieache_tpu_torch.ops.keyswitch import (
+    keyswitch,
+    keyswitch_plain,
+    pack_ks_limbs,
+    pad_ks_limbs,
+)
 from ieache_tpu_torch.params import TFHEParams
 from ieache_tpu_torch.utils import trace
 
@@ -162,6 +167,12 @@ def bootstrap_no_ks(lwe: torch.Tensor, key: DeviceCloudKey, mu: int = MU,
 
 def bootstrap(lwe: torch.Tensor, key: DeviceCloudKey, mu: int = MU,
               plain: bool = False) -> torch.Tensor:
-    """Full gate bootstrap: (B, n+1) -> (B, n+1), result ≈ LWE(±mu)."""
+    """Full gate bootstrap: (B, n+1) -> (B, n+1), result ≈ LWE(±mu).
+
+    ``plain=True`` runs the plain blind rotation and the plain keyswitch
+    (``keyswitch_plain``) on any device: the reference both kernels'
+    paths are compared with.
+    """
     ext = bootstrap_no_ks(lwe, key, mu, plain=plain)
-    return keyswitch(ext, key.ks_limbs, key.params)
+    return (keyswitch_plain if plain else keyswitch)(ext, key.ks_limbs,
+                                                     key.params)

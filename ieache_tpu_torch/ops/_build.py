@@ -162,6 +162,12 @@ def _load() -> ctypes.CDLL:
                lib.ieache_blind_rotate_scan_clusters,
                lib.ieache_cmux_step_clusters):
         fn.restype = i32
+    # the keyswitch's launch (ops/kernels.py:keyswitch_launch) comes last
+    # but for the stream: lanes a tile, K-slices
+    lib.ieache_keyswitch.argtypes = [
+        vp, vp, vp, i32, i32, i32, i32, ctypes.c_uint32, i32, i32, i32, i32,
+        vp]
+    lib.ieache_keyswitch.restype = i32
     for fn in (lib.ieache_mm_s8, lib.ieache_mm_bf16):
         fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
         fn.restype = i32

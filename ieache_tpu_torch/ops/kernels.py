@@ -69,6 +69,12 @@ inline kernel of ``tools/mosaic_mm_probe.py``) are a bare tensor-core
 matrix product repeated g times into one accumulator, timed by
 :mod:`ieache_tpu_torch.tools.mosaic_mm_probe`.
 
+The keyswitch of every bootstrap wave (``csrc/keyswitch.cu``, which
+replaces no Pallas kernel: the JAX package leaves it to XLA) is launched
+by ``ops/keyswitch.keyswitch`` as :func:`keyswitch_launch` says, and
+runs any launch through :func:`keyswitch_as`;
+:func:`keyswitch_kernel_model` is its plain model.
+
 A wrapper checks device, dtype, shape, contiguity and alignment, then
 launches its kernel when the tensors lie on a CUDA device, or runs its
 plain twin (``*_plain``) when they lie on the CPU; it never falls back
@@ -1324,6 +1330,362 @@ def external_product(d: torch.Tensor, bk_i: torch.Tensor, params: TFHEParams,
 
 
 external_product.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the keyswitch: csrc/keyswitch.cu, its launch and a plain model of it
+# ---------------------------------------------------------------------------
+
+#: key rows a stage of the keyswitch kernel holds: the unit of its K split
+KS_UNIT_ROWS = 64
+#: stages of a block's ring, each one bulk copy in flight
+KS_STAGES = 4
+#: bytes past a stage's rows that the last column strip reads (M < 32 w)
+KS_STAGE_PAD = 32
+#: columns of a warp's strip: four 8-column MMA tiles
+KS_STRIP_COLS = 32
+#: warps of a block, one strip each, so M <= 512
+KS_MAX_STRIPS = 16
+#: lanes of a block's tile: one, two or four 16-row MMA tiles
+KS_TILE_LANES = (16, 32, 64)
+#: words a row of a warp's epilogue tile: 32 columns and 4 of padding
+KS_EPI_PITCH = 36
+#: the stages' mbarriers at the start of shared memory, then alignment
+KS_BAR_BYTES = 128
+
+
+class KeyswitchLaunch(NamedTuple):
+    """The keyswitch kernel's launch (:func:`keyswitch_launch`): the last
+    arguments of ``ieache_keyswitch`` before the stream, and the blocks
+    they make."""
+
+    lanes: int   # lanes of a block's tile: 16, 32 or 64
+    split: int   # K-slices: parts of each output's sum, added atomically
+    grid: int    # blocks: lane tiles x K-slices
+
+    @property
+    def form(self) -> str:
+        """The launch as the ``keyswitch`` span's ``form`` names it."""
+        return f"{self.lanes} lanes x {self.split} slices"
+
+
+def keyswitch_cols(params: TFHEParams) -> int:
+    """M, the columns of the packed key: n+1 rounded up to 8."""
+    return -(-(params.n + 1) // 8) * 8
+
+
+def keyswitch_units(params: TFHEParams) -> int:
+    """The key's kN·t rows in units of :data:`KS_UNIT_ROWS` (the last
+    may be short)."""
+    return -(-(params.kN * params.ks_t) // KS_UNIT_ROWS)
+
+
+def keyswitch_refusal(params: TFHEParams, m: int) -> str | None:
+    """Why ``csrc/keyswitch.cu`` refuses ``params`` with a key of ``m``
+    columns, or None: digits of more than 8 bits (no int8), an odd
+    number of key rows (a unit's bulk copy moves 16-byte pieces), or M
+    not a multiple of 8 in [n+1, 512] (a warp's strip a column group)."""
+    if params.ks_basebit > 8:
+        return (f"keyswitch kernel: digits of {params.ks_basebit} bits do "
+                f"not fit int8")
+    if (params.kN * params.ks_t) % 2:
+        return "keyswitch kernel: an odd number of key rows"
+    if m % 8 or not params.n + 1 <= m <= KS_STRIP_COLS * KS_MAX_STRIPS:
+        return (f"keyswitch kernel: M = {m} columns, wants a multiple of 8 "
+                f"in [n+1, {KS_STRIP_COLS * KS_MAX_STRIPS}]")
+    return None
+
+
+def keyswitch_slice(units: int, split: int, s: int) -> tuple:
+    """Units [u0, u1) of K-slice ``s`` of ``split``."""
+    return s * units // split, (s + 1) * units // split
+
+
+def keyswitch_smem_bytes(m: int, lanes: int, units: int) -> int:
+    """Shared memory of a block whose K-slice holds ``units`` units: the
+    mbarriers, then the ring of staged key rows and the slice's digits,
+    which the warps' epilogue tiles reuse at the end."""
+    ring = KS_STAGES * (KS_UNIT_ROWS * m + KS_STAGE_PAD)
+    digits = units * KS_UNIT_ROWS * lanes
+    epi = -(-m // KS_STRIP_COLS) * 16 * KS_EPI_PITCH * 4
+    return KS_BAR_BYTES + max(ring + digits, epi)
+
+
+def keyswitch_shape(batch: int, params: TFHEParams, lanes: int,
+                    split: int | None = None,
+                    sms: int = 132) -> KeyswitchLaunch:
+    """The keyswitch's launch with ``lanes`` lanes a tile and the key's
+    rows cut in ``split`` K-slices.  By default the most slices that keep
+    the grid within one block an SM (a block's ring holds 129 KB of
+    shared memory at λ=110: one block an SM), at most one a unit; where
+    the fewest slices whose digits fit a block's shared memory already
+    make more blocks than SMs, the most that fill whole waves of them."""
+    units = keyswitch_units(params)
+    tiles = max(-(-batch // lanes), 1)
+    if split is None:
+        ring = keyswitch_smem_bytes(keyswitch_cols(params), lanes, 0)
+        least = -(-units // ((SMEM_BLOCK_BYTES - ring)
+                             // (KS_UNIT_ROWS * lanes)))
+        split = sms // tiles
+        if split < least:
+            split = -(-tiles * least // sms) * sms // tiles
+        split = min(units, max(split, least, 1))
+    return KeyswitchLaunch(lanes, split, -(-batch // lanes) * split)
+
+
+def keyswitch_launch_shapes(batch: int, params: TFHEParams,
+                            sms: int = 132) -> dict:
+    """The launches :func:`keyswitch_launch` picks from: "L lanes" for each
+    tile of :data:`KS_TILE_LANES`, each with its default split."""
+    return {f"{t} lanes": keyswitch_shape(batch, params, t, sms=sms)
+            for t in KS_TILE_LANES}
+
+
+#: the most lanes a wave has for which :func:`keyswitch_launch` takes the
+#: 16-lane tile, and the 32-lane one (tile_bench's sweep, PERF.md §6)
+KS_LANES_16_UP_TO = 64
+KS_LANES_32_UP_TO = 128
+
+
+@functools.cache
+def keyswitch_launch(batch: int, params: TFHEParams,
+                     sms: int = 132) -> KeyswitchLaunch:
+    """The launch of ``csrc/keyswitch.cu`` for a wave of ``batch`` lanes on
+    a card of ``sms`` SMs: the 16-lane tile up to
+    :data:`KS_LANES_16_UP_TO` lanes, the 32-lane tile up to
+    :data:`KS_LANES_32_UP_TO`, the 64-lane tile beyond; the split as
+    :func:`keyswitch_shape` says.  A block's time follows its slice's
+    units times its tile's MMAs, which is about the batch over the SMs
+    whatever the tile; what differs is that a wider tile reads the key
+    fewer times (from L2) and makes its digits in fewer, larger blocks.
+    At small batches the narrow tile's lighter blocks win, at large ones
+    the fewer reads.  Set from tools/tile_bench.py's sweep of B = 1 ..
+    2048 at λ=110: it picks the fastest tile or one within 8% of it (B =
+    17), 16 lanes x 128 slices at one lane, 64 lanes x 8 slices at 1024
+    lanes."""
+    lanes = (16 if batch <= KS_LANES_16_UP_TO
+             else 32 if batch <= KS_LANES_32_UP_TO else 64)
+    return keyswitch_shape(batch, params, lanes, sms=sms)
+
+
+def keyswitch_digit_words(lwe_ext: torch.Tensor, params: TFHEParams,
+                          b0: int, lanes: int, k0: int, rows: int,
+                          ksteps: int) -> torch.Tensor:
+    """The digits a block writes to shared memory before its MMAs, as
+    words held as int64 in [0, 2^32): (ksteps, lanes / 16, 32, 4), word
+    [kk, mt, lane, r] register r of the A fragment of thread ``lane`` for
+    k-step kk of the slice and the 16 lanes b0 + 16 mt ..: byte i the
+    digit of lane b0 + 16 mt + lane / 4 + 8 (r & 1) at key row
+    k0 + 32 kk + 4 (lane % 4) + 16 (r >> 1) + i, decomposed from its
+    mask word as ``ops/decompose.gadget_decompose`` does (offset
+    included); 0 past the batch and past the slice's ``rows``."""
+    p = params
+    batch, t, bb = lwe_ext.shape[0], p.ks_t, p.ks_basebit
+    kk, mt, ln, r, i = (torch.arange(x).view(
+        [-1 if a == j else 1 for j in range(5)])
+        for a, x in enumerate((ksteps, lanes // 16, 32, 4, 4)))
+    b = b0 + 16 * mt + ln // 4 + 8 * (r % 2)
+    k = 32 * kk + 4 * (ln % 4) + 16 * (r // 2) + i
+    valid = (b < batch) & (k < rows)
+    kg = k0 + k
+    x = lwe_ext[b.clamp(max=max(batch - 1, 0)), (kg // t).clamp(max=p.kN - 1)]
+    v = (_u32(x) + _offset(bb, t)) & 0xFFFFFFFF
+    d = ((v >> (32 - (kg % t + 1) * bb)) & ((1 << bb) - 1)) - (1 << (bb - 1))
+    d = torch.where(valid, d, 0)
+    return ((d & 0xFF) << (8 * i)).sum(-1)
+
+
+def keyswitch_stage_model(ks_limbs: torch.Tensor, v: int, row0: int,
+                          rows: int, fill: int = 0x5A) -> torch.Tensor:
+    """A stage's bytes after its bulk copy, as int64 in [0, 256):
+    (KS_UNIT_ROWS · M + KS_STAGE_PAD,), key rows row0 .. row0 + rows - 1
+    of limb v as they lie in memory (M bytes a row), the rest what the
+    stage held before, ``fill`` here: the kernel reads it only against
+    zero digits (rows past the slice) or into columns past M, which it
+    never writes."""
+    m = ks_limbs.shape[-1]
+    stage = torch.full((KS_UNIT_ROWS * m + KS_STAGE_PAD,), fill,
+                       dtype=torch.int64)
+    stage[: rows * m] = ks_limbs[v, row0:row0 + rows].reshape(-1).to(
+        torch.int64) & 0xFF
+    return stage
+
+
+def keyswitch_key_words(stage: torch.Tensor, m: int,
+                        strips: int) -> torch.Tensor:
+    """The B fragments the warps build from a stage, words held as int64
+    in [0, 2^32): (2, strips, 32, 4, 2), [ks, w, lane, c, h] register h
+    of 8-column tile c at k-step ks of warp w.  Thread lane = 4 g + q
+    loads the word at bytes 32 w + 4 g of each of the rows
+    32 ks + 16 h + 4 q + i (i = 0..3) and transposes the four by four
+    byte permutes in two rounds: byte i of tile c's register is byte c of
+    row i's word, the key at that row and column 32 w + 4 g + c.  So a
+    tile's fragment column g is the strip's column 4 g + c: the tiles
+    interleave, and the epilogue puts the columns back in order."""
+    ks, w, ln, h, i = (torch.arange(x).view(
+        [-1 if a == j else 1 for j in range(5)])
+        for a, x in enumerate((2, strips, 32, 2, 4)))
+    off = (32 * ks + 16 * h + 4 * (ln % 4) + i) * m + 32 * w + 4 * (ln // 4)
+    word = sum(stage[off + e] << (8 * e) for e in range(4))
+    w0, w1, w2, w3 = word.unbind(-1)                       # (2, strips, 32, 2)
+    x, y = byte_perm(w0, w1, 0x5140), byte_perm(w0, w1, 0x7362)
+    z, u = byte_perm(w2, w3, 0x5140), byte_perm(w2, w3, 0x7362)
+    return torch.stack([byte_perm(x, z, 0x5410), byte_perm(x, z, 0x7632),
+                        byte_perm(y, u, 0x5410), byte_perm(y, u, 0x7632)],
+                       dim=3)
+
+
+def _signed_bytes(w: torch.Tensor) -> torch.Tensor:
+    """Words as int64 in [0, 2^32) -> their four bytes as int8 values,
+    a new last axis."""
+    b = (w.unsqueeze(-1) >> (8 * torch.arange(4))) & 0xFF
+    return (b ^ 0x80) - 0x80
+
+
+def mma_s8_model(a: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor) -> torch.Tensor:
+    """``mma.sync.m16n8k32.row.col.s32.s8.s8.s32`` on a warp's fragments,
+    words held as int64 in [0, 2^32): a (..., 32, 4), b (..., 32, 2), c
+    (..., 32, 4) -> d = A·B + C (..., 32, 4), wrapping mod 2^32 (no
+    .satfinite).  Thread 4 g + q holds A[g + 8 (r & 1), 4 q + 16 (r >> 1)
+    + i] in byte i of a[r], B[4 q + 16 h + i, g] in byte i of b[h] and
+    C[g + 8 (r >> 1), 2 q + (r & 1)] in c[r] (PTX's fragment layout, as
+    ``csrc/mma_tile.cuh`` uses it)."""
+    ln, r, i = torch.arange(32).view(32, 1, 1), torch.arange(4).view(
+        1, 4, 1), torch.arange(4).view(1, 1, 4)
+    g, q = ln // 4, ln % 4
+    lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2], c.shape[:-2])
+    am = torch.zeros((*lead, 16, 32), dtype=torch.int64)
+    am[..., g + 8 * (r % 2), 4 * q + 16 * (r // 2) + i] = _signed_bytes(a)
+    h = torch.arange(2).view(1, 2, 1)
+    bm = torch.zeros((*lead, 32, 8), dtype=torch.int64)
+    bm[..., 4 * q + 16 * h + i, g.expand(32, 2, 4)] = _signed_bytes(b)
+    d = am @ bm
+    rr = torch.arange(4).view(1, 4)
+    return (c + d[..., ln.view(32, 1) // 4 + 8 * (rr // 2),
+                  2 * (ln.view(32, 1) % 4) + rr % 2]) & 0xFFFFFFFF
+
+
+def keyswitch_epilogue_model(acc: torch.Tensor) -> torch.Tensor:
+    """The warps' epilogue: accumulators (lanes / 16, strips, 4, 32, 4),
+    [mt, w, c, lane, r] register r of tile c, through each warp's 16 x
+    :data:`KS_EPI_PITCH` words of shared memory one 16-lane tile at a
+    time: thread 4 g + q stores register r of its four tiles as one
+    16-byte word at row g + 8 (r >> 1), word 8 q + 4 (r & 1), which is
+    the columns 8 q + 4 (r & 1) + c in order (:func:`keyswitch_key_words`);
+    then lane l reads word l of each row.  Returns the block's
+    (lanes, 32 strips) sums, column 32 w + l."""
+    mts, strips = acc.shape[:2]
+    ln, r, c = (torch.arange(x).view([-1 if a == j else 1 for j in range(3)])
+                for a, x in enumerate((32, 4, 4)))
+    epi = torch.zeros((mts, strips, 16, KS_EPI_PITCH), dtype=torch.int64)
+    epi[..., ln // 4 + 8 * (r // 2), 8 * (ln % 4) + 4 * (r % 2) + c] = \
+        acc.permute(0, 1, 3, 4, 2)
+    return epi[..., :KS_STRIP_COLS].permute(0, 2, 1, 3).reshape(
+        16 * mts, strips * KS_STRIP_COLS)
+
+
+def keyswitch_part_model(lwe_ext: torch.Tensor, ks_limbs: torch.Tensor,
+                         params: TFHEParams, launch: KeyswitchLaunch,
+                         s: int, tile: int, fill: int = 0x5A
+                         ) -> torch.Tensor:
+    """What block (K-slice ``s``, lane tile ``tile``) of ``launch`` adds to
+    the output, modelled at the level of the warps' fragments: the
+    slice's digits (:func:`keyswitch_digit_words`); the ring's chunks,
+    limb 3 first, each unit's rows of one limb staged as the bulk copy
+    leaves them (:func:`keyswitch_stage_model`); at each new limb the
+    accumulators shifted left by 8 (Horner: ((S3·2^8 + S2)·2^8 + S1)·2^8
+    + S0 = Σ_v S_v·2^(8v) mod 2^32, S_v the limb's sum), then the
+    stage's two k-steps of MMAs (:func:`keyswitch_key_words`,
+    :func:`mma_s8_model`); the epilogue (:func:`keyswitch_epilogue_model`)
+    and its atomic add of minus the sum, the body added at column n by
+    slice 0 alone.  Returns (lanes of the tile within the batch, n+1)
+    words as int64 in [0, 2^32)."""
+    p = params
+    batch, m = lwe_ext.shape[0], ks_limbs.shape[-1]
+    krows, units = p.kN * p.ks_t, keyswitch_units(p)
+    u0, u1 = keyswitch_slice(units, launch.split, s)
+    nu, strips = u1 - u0, -(-m // KS_STRIP_COLS)
+    k0, b0 = u0 * KS_UNIT_ROWS, tile * launch.lanes
+    a = keyswitch_digit_words(lwe_ext, p, b0, launch.lanes, k0,
+                              min(u1 * KS_UNIT_ROWS, krows) - k0, 2 * nu)
+    acc = torch.zeros((launch.lanes // 16, strips, 4, 32, 4),
+                      dtype=torch.int64)
+    for c in range(4 * nu):
+        v, u = 3 - c // nu, u0 + c % nu
+        if c and c % nu == 0:
+            acc = (acc << 8) & 0xFFFFFFFF
+        row0 = u * KS_UNIT_ROWS
+        stage = keyswitch_stage_model(ks_limbs, v, row0,
+                                      min(KS_UNIT_ROWS, krows - row0), fill)
+        bw = keyswitch_key_words(stage, m, strips).transpose(2, 3)
+        for ks in range(2):
+            acc = mma_s8_model(a[2 * (c % nu) + ks][:, None, None],
+                               bw[ks][None], acc)
+    nb = min(launch.lanes, batch - b0)
+    part = -keyswitch_epilogue_model(acc)[:nb, : p.n + 1] & 0xFFFFFFFF
+    if s == 0:
+        part[:, p.n] = (part[:, p.n] + _u32(lwe_ext[b0:b0 + nb, p.kN])) \
+            & 0xFFFFFFFF
+    return part
+
+
+def keyswitch_kernel_model(lwe_ext: torch.Tensor, ks_limbs: torch.Tensor,
+                           params: TFHEParams,
+                           launch: KeyswitchLaunch | None = None,
+                           sms: int = 132, order=None) -> torch.Tensor:
+    """``csrc/keyswitch.cu`` in plain ops on CPU tensors under ``launch``
+    (by default :func:`keyswitch_launch`'s on ``sms`` SMs): the zeroed
+    output, then every block's part (:func:`keyswitch_part_model`) added
+    wrapping, in ``order`` (a sequence of the grid's (slice, tile) pairs;
+    by default slice-major), as the atomic adds land in any order.  Same
+    arguments and result as ``ops/keyswitch.keyswitch_plain``."""
+    p = params
+    batch = lwe_ext.shape[0]
+    _refuse(keyswitch_refusal(p, ks_limbs.shape[-1]))
+    launch = launch or keyswitch_launch(batch, p, sms)
+    tiles = -(-batch // launch.lanes)
+    out = torch.zeros((batch, p.n + 1), dtype=torch.int64)
+    for s, tile in order or [(s, t) for s in range(launch.split)
+                             for t in range(tiles)]:
+        b0 = tile * launch.lanes
+        part = keyswitch_part_model(lwe_ext, ks_limbs, p, launch, s, tile)
+        out[b0:b0 + part.shape[0]] = (out[b0:b0 + part.shape[0]] + part) \
+            & 0xFFFFFFFF
+    return ((out ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def _keyswitch_entry(lwe_ext: torch.Tensor, ks_limbs: torch.Tensor,
+                     params: TFHEParams,
+                     launch: KeyswitchLaunch) -> torch.Tensor:
+    """One launch of ``ieache_keyswitch`` (after its zeroing of the
+    output) on checked CUDA tensors with the launch shape ``launch``,
+    uncounted: ``ops/keyswitch.keyswitch``'s launch, and the one
+    chip_smoke and ``tools/tile_bench.py`` give every tile by."""
+    p = params
+    b = lwe_ext.shape[0]
+    out = torch.empty((b, p.n + 1), dtype=torch.int32, device=lwe_ext.device)
+    if b == 0:
+        return out
+    lib, stream = _launch_context(lwe_ext)
+    code = lib.ieache_keyswitch(
+        lwe_ext.data_ptr(), ks_limbs.data_ptr(), out.data_ptr(), b, p.kN,
+        p.ks_t, p.ks_basebit, _offset(p.ks_basebit, p.ks_t),
+        ks_limbs.shape[-1], p.n, launch.lanes, launch.split, stream)
+    _build.check(lib, code, "keyswitch")
+    return out
+
+
+def keyswitch_as(lwe_ext: torch.Tensor, ks_limbs: torch.Tensor,
+                 params: TFHEParams,
+                 launch: KeyswitchLaunch) -> torch.Tensor:
+    """The keyswitch under ``launch``, uncounted, whatever the policy
+    picks: :func:`_keyswitch_entry` on CUDA tensors, the plain model
+    (:func:`keyswitch_kernel_model`) on CPU tensors.  chip_smoke and
+    ``tools/tile_bench.py`` hold every tile to the twin by it."""
+    if lwe_ext.is_cuda:
+        return _keyswitch_entry(lwe_ext, ks_limbs, params, launch)
+    return keyswitch_kernel_model(lwe_ext, ks_limbs, params, launch)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,16 @@
-"""LWE-to-LWE keyswitch as int8 matrix products.
+"""LWE-to-LWE keyswitch: one CUDA kernel on the card, int8 matrix
+products on the CPU.
 
 Counterpart of :mod:`ieache_tpu.ops.keyswitch` (the *linear*
-keyswitch: ``out = (0, ..., b) - Digits(a) @ KS``), computed per int8
-torus limb of KS with ``torch._int_mm`` and recombined with wrapping
-shifts, exact mod 2^32.  The JAX package leaves this product to XLA,
-outside any Pallas kernel, so it stays a plain PyTorch op here.
+keyswitch: ``out = (0, ..., b) - Digits(a) @ KS``).  The JAX package
+leaves this product to XLA, outside any Pallas kernel.  On CUDA tensors
+:func:`keyswitch` launches ``csrc/keyswitch.cu``, which makes the digits,
+sums the four int8 limbs of KS and finishes in one launch (its launch
+from ``kernels.keyswitch_launch``, its plain model
+``kernels.keyswitch_kernel_model``); on CPU tensors it runs
+:func:`keyswitch_plain`: the digits, one ``torch._int_mm`` product per
+int8 torus limb of KS, recombined with wrapping shifts, exact mod 2^32.
+The pieces stay for ``dist/shard.py``'s tensor-parallel K-slices.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ import numpy as np
 import torch
 
 from ieache_tpu_torch.core.poly import TORUS_LIMBS, _dot_i8, split_i8_limbs
+from ieache_tpu_torch.ops import kernels
 from ieache_tpu_torch.ops.decompose import gadget_decompose
 from ieache_tpu_torch.params import TFHEParams
 from ieache_tpu_torch.utils import trace
@@ -20,9 +27,9 @@ from ieache_tpu_torch.utils import trace
 
 def pad_ks_limbs(limbs: torch.Tensor, device) -> torch.Tensor:
     """(TORUS_LIMBS, K, n+1) int8 -> (TORUS_LIMBS, K, M) on ``device``,
-    M = n+1 rounded up to a multiple of 8 with zero columns: the CUDA
-    int8 matmul's shape rule, met once here instead of by a copy per
-    keyswitch."""
+    M = n+1 rounded up to a multiple of 8 with zero columns: the shape
+    rule of the keyswitch kernel and of the CUDA int8 matmul, met once
+    here instead of by a copy per keyswitch."""
     pad = (-limbs.shape[-1]) % 8
     return torch.nn.functional.pad(limbs, (0, pad)).contiguous().to(device)
 
@@ -62,14 +69,49 @@ def keyswitch_finish(acc: torch.Tensor, body: torch.Tensor,
     return out
 
 
+def keyswitch_plain(lwe_ext: torch.Tensor, ks_limbs: torch.Tensor,
+                    params: TFHEParams) -> torch.Tensor:
+    """The kernel's plain twin, on any device: :func:`keyswitch_digits`,
+    :func:`keyswitch_products` (``torch._int_mm`` on the card) and
+    :func:`keyswitch_finish`.  Same arguments and result as
+    :func:`keyswitch`."""
+    d8, body = keyswitch_digits(lwe_ext, params)
+    return keyswitch_finish(keyswitch_products(d8, ks_limbs), body, params)
+
+
 def keyswitch(lwe_ext: torch.Tensor, ks_limbs: torch.Tensor,
               params: TFHEParams) -> torch.Tensor:
     """(B, kN+1) int32 -> (B, n+1) int32 under the small LWE key.
 
     ``ks_limbs`` is (TORUS_LIMBS, kN*t, M) int8 with M >= n+1; columns
-    past n+1 are padding and are dropped.
+    past n+1 are padding and are dropped.  Both are contiguous, on one
+    device.  On CUDA tensors one launch of ``csrc/keyswitch.cu`` (after
+    a zeroing of the output) as ``kernels.keyswitch_launch`` says,
+    counted on ``keyswitch.launches``, or ``ValueError`` where the
+    kernel refuses the shape (``kernels.keyswitch_refusal``); on CPU
+    tensors :func:`keyswitch_plain`.  The ``keyswitch`` span's ``form``
+    names the launch, or ``plain``.
     """
-    with trace.span("keyswitch", lanes=lwe_ext.shape[0]):
-        d8, body = keyswitch_digits(lwe_ext, params)
-        return keyswitch_finish(keyswitch_products(d8, ks_limbs), body,
-                                params)
+    p = params
+    b = lwe_ext.shape[0] if lwe_ext.dim() == 2 else -1
+    m = ks_limbs.shape[-1] if ks_limbs.dim() == 3 else -1
+    kernels._check(lwe_ext, "lwe_ext", torch.int32, (b, p.kN + 1),
+                   lwe_ext.device)
+    # a unit's bulk copy reads 16-byte pieces of the key
+    kernels._check(ks_limbs, "ks_limbs", torch.int8,
+                   (TORUS_LIMBS, p.kN * p.ks_t, max(m, p.n + 1)),
+                   lwe_ext.device, align=16)
+    if not lwe_ext.is_cuda:
+        with trace.span("keyswitch", lanes=b, form="plain"):
+            return keyswitch_plain(lwe_ext, ks_limbs, p)
+
+    kernels._refuse(kernels.keyswitch_refusal(p, m))
+    launch = kernels.keyswitch_launch(b, p,
+                                      kernels._sm_count(lwe_ext.device))
+    with trace.span("keyswitch", lanes=b, form=launch.form):
+        out = kernels._keyswitch_entry(lwe_ext, ks_limbs, p, launch)
+    keyswitch.launches += 1
+    return out
+
+
+keyswitch.launches = 0

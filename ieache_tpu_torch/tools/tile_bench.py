@@ -32,15 +32,18 @@ and batch tile ``product_launch`` picks from, at its default split
 ``product_launch``); at each step batch ``cmux_step`` in every form, tile
 and cluster ``step_launch`` picks from (``cmux_step_launch_ms``, "mma" and
 "wgmma BN x T, cluster c"), and at each scan batch the scan kernel in the
-other form too ("mma", "wgmma BN x T, cluster c"); each held against its
-twin first.  Run from the root
+other form too ("mma", "wgmma BN x T, cluster c"); and at each
+keyswitch batch the keyswitch kernel (``csrc/keyswitch.cu``,
+``keyswitch_ms``) and every other tile of ``keyswitch_launch_shapes`` at
+its default split (``keyswitch_launch_ms``, "L lanes"; the pick is
+``keyswitch_launch``); each held against its twin first.  Run from the root
 of a checkout, on a CUDA device:
 
     python -m ieache_tpu_torch.tools.tile_bench
 
 Env: TB_PRODUCT_B (comma list, default ``8,16,1024``), TB_STEP_B (the
 two fused steps, the tr pair and the two rotations, ``8,16,1024``),
-TB_SCAN_B (``8,1024``),
+TB_SCAN_B (``8,1024``), TB_KS_B (the keyswitch, ``1,33,1024``),
 TB_PARAMS (ieache_110_l2, ieache_110, or ieache_110_tfhe_compat: the
 two-limb gadget, which only split's pair takes, so at it the step
 batches time ``rot_diff_decompose`` alone and no scan runs),
@@ -58,6 +61,7 @@ import numpy as np
 import torch
 
 from ieache_tpu_torch.ops import kernels
+from ieache_tpu_torch.ops import keyswitch as ksw
 from ieache_tpu_torch.tools._common import (
     PARAMS,
     card_line,
@@ -195,8 +199,27 @@ def scan_launch_variants(p, b: int, sms: int = 132, per_sm: int = 2,
     return shapes
 
 
+def keyswitch_inputs(p, b: int, device, rng):
+    """A wave's sample-extracted ciphertexts (B, kN+1) int32 and a random
+    key's packed limbs (4, kN·t, M) int8."""
+    x = _rand(rng, (b, p.kN + 1), -2**31, 2**31, np.int32, device)
+    ks = rng.randint(-2**31, 2**31, (p.kN * p.ks_t, p.n + 1),
+                     dtype=np.int64).astype(np.int32)
+    return x, ksw.pack_ks_limbs(ks, device)
+
+
+def keyswitch_launch_variants(p, b: int, sms: int = 132) -> dict:
+    """The keyswitch's launch shapes :func:`run` times beside the policy's
+    pick (``kernels.keyswitch_launch``) at batch ``b``: every tile of
+    ``kernels.keyswitch_launch_shapes`` but the pick's."""
+    pick = kernels.keyswitch_launch(b, p, sms)
+    return {name: launch
+            for name, launch in kernels.keyswitch_launch_shapes(
+                b, p, sms).items() if launch != pick}
+
+
 def run(p, product_b, scan_b, device, check: bool = True,
-        timed: bool = True, step_b=()) -> dict:
+        timed: bool = True, step_b=(), ks_b=()) -> dict:
     """The record: ``external_product_ms`` and its launch variants
     (:func:`product_launch_variants`, ``external_product_launch_ms``;
     on CPU tensors through each form's plain model),
@@ -208,7 +231,10 @@ def run(p, product_b, scan_b, device, check: bool = True,
     the launch variants of :func:`rotation_variants`
     (``rot_diff_decompose_launch_ms``, ``rotate_sublane_route_ms``) and
     of :func:`scan_launch_variants` (``blind_rotate_scan_launch_ms``;
-    on CPU tensors their schedule models are checked).
+    on CPU tensors their schedule models are checked), and the keyswitch
+    at ``ks_b`` (``keyswitch_ms``) and its launch variants
+    (:func:`keyswitch_launch_variants`, ``keyswitch_launch_ms``; on CPU
+    tensors its plain model).
     ``check`` holds each kernel against its twin first and raises where
     they differ; ``timed=False`` (the CPU rehearsal) only checks.  Where
     ``p``'s digits take two limbs, only split's pair runs:
@@ -220,7 +246,8 @@ def run(p, product_b, scan_b, device, check: bool = True,
            "rot_diff_decompose_ms": {}, "rot_diff_decompose_tr_ms": {},
            "external_product_tr_ms": {}, "rotate_sublane_ms": {},
            "rot_diff_decompose_launch_ms": {}, "rotate_sublane_route_ms": {},
-           "blind_rotate_scan_launch_ms": {}, "external_product_launch_ms": {}}
+           "blind_rotate_scan_launch_ms": {}, "external_product_launch_ms": {},
+           "keyswitch_ms": {}, "keyswitch_launch_ms": {}}
     for b in product_b:
         d, bk_i, acc = product_inputs(p, b, device, rng)
         if check and not torch.equal(
@@ -334,6 +361,25 @@ def run(p, product_b, scan_b, device, check: bool = True,
                 rec["blind_rotate_scan_ms"][b] = ms
             else:
                 rec["blind_rotate_scan_launch_ms"].setdefault(b, {})[name] = ms
+    for b in ks_b:
+        x, limbs = keyswitch_inputs(p, b, device, rng)
+        sms = kernels._sm_count(device) if device.type == "cuda" else 132
+        want = ksw.keyswitch_plain(x, limbs, p) if check else None
+        calls = {None: lambda: ksw.keyswitch(x, limbs, p)}
+        for name, launch in keyswitch_launch_variants(p, b, sms).items():
+            calls[name] = (lambda launch=launch: kernels.keyswitch_as(
+                x, limbs, p, launch))
+        for name, call in calls.items():
+            if check and not torch.equal(call(), want):
+                raise AssertionError(f"keyswitch ({name or 'policy'}) "
+                                     f"differs from its twin at B={b}")
+            if not timed:
+                continue
+            ms = statistics.median(graph_ms(call, 50) for _ in range(3))
+            if name is None:
+                rec["keyswitch_ms"][b] = ms
+            else:
+                rec["keyswitch_launch_ms"].setdefault(b, {})[name] = ms
     return rec
 
 
@@ -349,7 +395,8 @@ def main() -> int:
     rec = run(PARAMS[env("PARAMS", "ieache_110_l2")],
               batches("PRODUCT_B", "8,16,1024"), batches("SCAN_B", "8,1024"),
               device, check=env("CHECK", "1") != "0",
-              step_b=batches("STEP_B", "8,16,1024"))
+              step_b=batches("STEP_B", "8,16,1024"),
+              ks_b=batches("KS_B", "1,33,1024"))
     print(json.dumps({**rec, "device": torch.cuda.get_device_name(device),
                       "card": card_line(), "card_state": card_state()}),
           flush=True)

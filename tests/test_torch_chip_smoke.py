@@ -243,6 +243,20 @@ def test_product_launch_phase_passes_on_cpu_models(rows):
     assert cs.PRODUCT_BATCHES == (24, 64)
 
 
+def test_keyswitch_phase_passes_on_cpu_models():
+    """Phase 3's keyswitch check (the wrapper, the plain chain on CPU
+    tensors, and every tile of ``keyswitch_launch_shapes`` on the
+    kernel's plain model, random and extreme operands) at TEST_TINY, and
+    the operations phase 7's bound counts."""
+    cs = _chip_smoke()
+    errs = cs.check_keyswitch(P.TEST_TINY, torch.device("cpu"), (1, 17, 33))
+    assert errs == {"keyswitch": 0}
+    assert cs.KS_CHECK_BATCHES == (1, 32, 33, 1024, 1025)
+    # 4 limbs x 2 x 1024 x 8192 x 504: 33.8 GOP at λ=110
+    assert cs.keyswitch_ops(P.IEACHE_110, 1024, 504) == \
+        4 * 2 * 1024 * 8192 * 504
+
+
 @pytest.mark.parametrize("rows", [4, 6])
 def test_step_launch_phase_passes_on_cpu_models(rows):
     """Phase 3's pass over every launch shape of cmux_step (the mma.sync
@@ -346,7 +360,7 @@ def test_tile_bench_checks_on_cpu_twins():
     dev = torch.device("cpu")
     p = P.TEST_TINY
     rec = tile_bench.run(p, [1, 8], [5], dev, check=True, timed=False,
-                         step_b=[3, 16, 17])
+                         step_b=[3, 16, 17], ks_b=[1, 33])
     assert rec == {"params": p.name, "external_product_ms": {},
                    "cmux_step_ms": {}, "cmux_step_overlap_ms": {},
                    "blind_rotate_scan_ms": {}, "rot_diff_decompose_ms": {},
@@ -356,7 +370,8 @@ def test_tile_bench_checks_on_cpu_twins():
                    "rotate_sublane_route_ms": {},
                    "blind_rotate_scan_launch_ms": {},
                    "external_product_launch_ms": {},
-                   "cmux_step_launch_ms": {}}
+                   "cmux_step_launch_ms": {}, "keyswitch_ms": {},
+                   "keyswitch_launch_ms": {}}
     # the launch variants it times: both run lengths of the split
     # rotation, the sublane rotation's slab and gather
     acc, bara, _ = tile_bench.step_inputs(p, 5, dev, np.random.RandomState(1))
@@ -395,6 +410,11 @@ def test_tile_bench_checks_on_cpu_twins():
         shapes = kernels.step_launch_shapes(b, q.k + 1, q.N, q.trgsw_rows)
         assert set(variants) == {k for k, s in shapes.items() if s != pick}
         assert len(variants) == len(shapes) - 1
+        # the keyswitch's: every tile but the pick's
+        pick = kernels.keyswitch_launch(b, q)
+        variants = tile_bench.keyswitch_launch_variants(q, b)
+        assert set(variants) == {f"{t} lanes" for t in kernels.KS_TILE_LANES
+                                 if t != pick.lanes}
 
 
 def test_compat_nand_phase_decrypts_on_cpu_twins():

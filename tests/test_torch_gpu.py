@@ -1939,3 +1939,154 @@ def test_a_fresh_process_runs_the_loop_then_captures(cuda, tmp_path):
                            capture_output=True, text=True, timeout=600)
         assert r.returncode == 0 and f"ok {mode}" in r.stdout, \
             r.stdout + r.stderr
+
+
+# ---------------------------------------------------------------------------
+# the keyswitch (csrc/keyswitch.cu) against its plain twin
+# ---------------------------------------------------------------------------
+
+KS_BATCHES = [1, 32, 33, 1024, 1025]
+
+
+def _ks_operands(p, b, kind, device, seed=0):
+    """(lwe_ext (B, kN+1) int32, packed key limbs) on ``device``: random
+    words with the edge words first, or every word one edge word (mask
+    and key a different one)."""
+    from ieache_tpu_torch.ops.keyswitch import pack_ks_limbs
+
+    rng = np.random.RandomState(seed + b)
+    shape_x, shape_k = (b, p.kN + 1), (p.kN * p.ks_t, p.n + 1)
+    if kind == "random":
+        x = rng.randint(-2**31, 2**31, shape_x, dtype=np.int64).astype(
+            np.int32)
+        ks = rng.randint(-2**31, 2**31, shape_k, dtype=np.int64).astype(
+            np.int32)
+        x.reshape(-1)[: len(EDGE_KEY_WORDS)] = EDGE_KEY_WORDS
+        ks.reshape(-1)[: len(EDGE_KEY_WORDS)] = EDGE_KEY_WORDS
+    else:
+        i = int(kind)
+        x = np.full(shape_x, EDGE_KEY_WORDS[i], np.int32)
+        ks = np.full(shape_k, EDGE_KEY_WORDS[(i + 1) % len(EDGE_KEY_WORDS)],
+                     np.int32)
+    return torch.from_numpy(x).to(device), pack_ks_limbs(ks, device)
+
+
+@pytest.mark.parametrize("kind", ["random", "0", "1", "2", "3", "4"])
+@pytest.mark.parametrize("b", KS_BATCHES)
+@pytest.mark.parametrize("p", [P.TEST_SMALL_NOISY, P.IEACHE_110],
+                         ids=lambda p: p.name)
+def test_keyswitch_kernel_matches_its_twin(cuda, p, b, kind):
+    """The kernel under the policy's launch and under every tile of
+    ``keyswitch_launch_shapes`` equals ``keyswitch_plain`` bit for bit,
+    on random words and on masks and keys of extreme words (INT32_MIN,
+    -1, 2^31 - 1, limbs all -128 or +127): sums that wrap mod 2^32."""
+    from ieache_tpu_torch.ops import keyswitch as ks
+
+    x, limbs = _ks_operands(p, b, kind, cuda)
+    want = ks.keyswitch_plain(x, limbs, p)
+    got = ks.keyswitch(x, limbs, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for name, launch in kernels.keyswitch_launch_shapes(
+            b, p, kernels._sm_count(cuda)).items():
+        assert torch.equal(kernels.keyswitch_as(x, limbs, p, launch), want), \
+            name
+    for split in (1, 3):
+        launch = kernels.keyswitch_shape(b, p, 64, split)
+        if kernels.keyswitch_smem_bytes(
+                kernels.keyswitch_cols(p), 64,
+                -(-kernels.keyswitch_units(p) // split)) <= \
+                kernels.SMEM_BLOCK_BYTES:
+            assert torch.equal(kernels.keyswitch_as(x, limbs, p, launch),
+                               want), split
+
+
+def test_keyswitch_counts_its_launches_and_names_its_form(cuda):
+    """One launch a call on ``keyswitch.launches``, none on the step
+    wrappers that ``kernel_launches_per_job`` sums; the span's ``form``
+    names the policy's launch."""
+    from ieache_tpu_torch.ops import keyswitch as ks
+    from ieache_tpu_torch.utils import trace
+
+    p = P.IEACHE_110
+    counts = [w.launches for w in WRAPPERS.values()]
+    before = ks.keyswitch.launches
+    tracer = trace.enable()
+    try:
+        for b in (1, 33, 1024):
+            x, limbs = _ks_operands(p, b, "random", cuda)
+            ks.keyswitch(x, limbs, p)
+    finally:
+        trace.disable()
+    torch.cuda.synchronize()
+    assert ks.keyswitch.launches == before + 3
+    assert _launched(counts) == set()
+    spans = [s for s in tracer.spans if s["name"] == "keyswitch"]
+    assert [(s["lanes"], s["form"]) for s in spans] == [
+        (b, kernels.keyswitch_launch(b, p, kernels._sm_count(cuda)).form)
+        for b in (1, 33, 1024)]
+    assert all(s["form"] != "plain" for s in spans)
+
+
+def test_keyswitch_refuses_bad_operands_on_the_card(cuda):
+    """Wrong dtype, shape, device, contiguity or alignment, or a shape
+    the kernel refuses, raises; nothing falls back to the plain chain
+    and nothing is launched."""
+    from ieache_tpu_torch.ops import keyswitch as ks
+
+    p = P.TEST_SMALL_NOISY
+    x, limbs = _ks_operands(p, 3, "random", cuda)
+    before = ks.keyswitch.launches
+    bad = [
+        (TypeError, x.to(torch.int64), limbs, p),
+        (TypeError, x, limbs.to(torch.int32), p),
+        (ValueError, x[:, :-1].contiguous(), limbs, p),
+        (ValueError, x, limbs[:, :-2].contiguous(), p),
+        (ValueError, x.cpu(), limbs, p),
+        (ValueError, x, limbs.cpu(), p),
+        (ValueError, torch.cat([x, x], 1)[:, ::2], limbs, p),
+        (ValueError, x,
+         limbs.transpose(1, 2).contiguous().transpose(1, 2), p),
+    ]
+    raw = torch.empty(limbs.numel() + 8, dtype=torch.int8, device=cuda)
+    shifted = raw[8:].view(limbs.shape)
+    shifted.copy_(limbs)
+    bad.append((ValueError, x, shifted, p))
+    wide = dataclasses.replace(p, ks_basebit=9, ks_t=3, name="ks9")
+    xw, lw = _ks_operands(wide, 3, "random", cuda)
+    bad.append((ValueError, xw, lw, wide))
+    for err, *args in bad:
+        with pytest.raises(err):
+            ks.keyswitch(*args)
+    assert ks.keyswitch.launches == before
+
+
+@pytest.mark.parametrize("p", [P.TEST_SMALL_NOISY, P.IEACHE_110_FAST],
+                         ids=lambda p: p.name)
+def test_nand_wave_through_the_keyswitch_kernel_decrypts(cuda, p):
+    """A whole NAND wave through ``boot/gates`` with keys from the device
+    keygen: one keyswitch launch, its output equal to the plain path's
+    (``plain=True``: plain rotation, plain keyswitch), 0 errors."""
+    from ieache_tpu_torch.boot import gates
+    from ieache_tpu_torch.ops import keyswitch as ks
+
+    sk = keygen_device.generate_secret_keyset_device(p, cuda)
+    key = bootstrap.pack_cloud_key(sk.cloud, cuda)
+    b = 1024
+    x = prng.uniform_bits01(prng.key_from_seed_words([15]), b)
+    y = prng.uniform_bits01(prng.key_from_seed_words([16]), b)
+    cx = encrypt.encrypt_bits_device(sk, x, prng.key_from_seed_words([17]),
+                                     cuda)
+    cy = encrypt.encrypt_bits_device(sk, y, prng.key_from_seed_words([18]),
+                                     cuda)
+    before = ks.keyswitch.launches
+    out = gates.NAND(cx, cy, key)
+    torch.cuda.synchronize()
+    assert ks.keyswitch.launches == before + 1
+    errors = int((encrypt.decrypt_bits_device(sk, out).cpu().numpy()
+                  != 1 - (x & y)).sum())
+    assert errors == 0
+    a1, a2, beta = gates.GATE_TABLE["NAND"]
+    pre = a1 * cx + a2 * cy
+    pre[:, p.n] += beta
+    assert torch.equal(out, bootstrap.bootstrap(pre, key, plain=True))
