@@ -223,7 +223,7 @@ from ieache_tpu_torch.dist import pipeline as ppl
 from ieache_tpu_torch.dist import shard as dshard
 from ieache_tpu_torch.lwe import encrypt, keygen_device
 from ieache_tpu_torch.mp import sim
-from ieache_tpu_torch.ops import _build, kernels
+from ieache_tpu_torch.ops import _build, kernels, tile_models
 from ieache_tpu_torch.ops import keyswitch as ksw
 from ieache_tpu_torch.ops.blind_rotate import STEP_MODES, blind_rotate
 from ieache_tpu_torch.tools import (
@@ -542,7 +542,7 @@ def check_rotation_launches(p, device, batches=(8, 256, 1024), seed=6):
                      plain(x, bara, *args), errs, device,
                      f"B={b} acc 4-byte aligned")
         log(f"phase 3 rotation launches: B={b} equal (rot_diff_decompose at "
-            f"runs {kernels.ROT_RUNS}, rotate_sublane by "
+            f"runs {tile_models.ROT_RUNS}, rotate_sublane by "
             f"slab and gather, amounts random/0/1/2/3/N/N+1/2N-1; both on "
             f"a 4-byte aligned accumulator)")
     return errs
@@ -590,7 +590,7 @@ def extreme_accumulators(p, b, device, rng):
     lo, hi = 0x80808080 - 2**32, 0x7F7F7F7F
     for digit, limbs, limb in ((-128, lo, -128), (127, hi, 127),
                                (-128, hi, 127)):
-        acc = kernels.accumulator_for_digits(p, digit, shape_a, device)
+        acc = tile_models.accumulator_for_digits(p, digit, shape_a, device)
         d = kernels.rot_diff_decompose_plain(acc, at_n, p)
         if int(d.min()) != digit or int(d.max()) != digit:
             raise AssertionError(f"the accumulator for digits {digit} "
@@ -641,7 +641,7 @@ def check_scan_turns(p, device, batches=SCAN_TURN_BATCHES,
         bara = _rand(rng, (b, most), 0, 2 * p.N, np.int32, device)
         bara[:, :3] = torch.tensor([0, p.N, 2 * p.N - 1], dtype=torch.int32,
                                    device=device)
-        shapes = kernels.scan_launch_shapes(
+        shapes = tile_models.scan_launch_shapes(
             b, p.k + 1, p.N, p.trgsw_rows, sms, per_sm,
             _resident(p, device, "blind_rotate_scan"))
         for n in steps:
@@ -651,9 +651,9 @@ def check_scan_turns(p, device, batches=SCAN_TURN_BATCHES,
             _compare("blind_rotate_scan", kernels.blind_rotate_scan(*args, p),
                      want, errs, device, f"{p.name} B={b} steps={n}")
             for shape, launch in shapes.items():
-                _compare("blind_rotate_scan",
-                         kernels.blind_rotate_scan_as(*args, p, launch), want,
-                         errs, device, f"{p.name} B={b} steps={n} {shape}")
+                got = tile_models.blind_rotate_scan_as(*args, p, launch)
+                _compare("blind_rotate_scan", got, want, errs, device,
+                         f"{p.name} B={b} steps={n} {shape}")
             if not torch.equal(acc, before):
                 raise AssertionError(f"blind_rotate_scan wrote its input "
                                      f"accumulator at B={b} steps={n}")
@@ -699,13 +699,13 @@ def check_step_launches(p, device, batches, seed=41):
                   _rand(rng, (p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
                         np.int32, device)),
                  *extreme_accumulators(p, b, device, rng)]
-        shapes = kernels.step_launch_shapes(b, p.k + 1, p.N, p.trgsw_rows,
-                                            sms, per_sm)
+        shapes = tile_models.step_launch_shapes(b, p.k + 1, p.N, p.trgsw_rows,
+                                                sms, per_sm)
         for name, a, bara_c, bk_i in cases:
             want = kernels.cmux_step_plain(a, bara_c, bk_i, p)
             for shape, launch in shapes.items():
                 _compare("cmux_step",
-                         kernels.cmux_step_as(a, bara_c, bk_i, p, launch),
+                         tile_models.cmux_step_as(a, bara_c, bk_i, p, launch),
                          want, errs, device, f"{p.name} B={b} {name} {shape}")
         pick = kernels.step_launch(b, p.k + 1, p.N, p.trgsw_rows, sms, per_sm,
                                    _resident(p, device, "cmux_step"))
@@ -812,18 +812,17 @@ def check_product_launches(p, device, batches, seed=23):
                   _rand(rng, (p.trgsw_rows, p.k + 1, p.N), -2**31, 2**31,
                         np.int32, device)),
                  *extreme_operands(p, b, device, rng)]
-        shapes = kernels.product_launch_shapes(b, p.k + 1, p.N, p.trgsw_rows,
-                                               sms)
+        shapes = tile_models.product_launch_shapes(b, p.k + 1, p.N,
+                                                   p.trgsw_rows, sms)
         for name, d, bk_i in cases:
             for a in (None, acc):
                 want = kernels.external_product_plain(d, bk_i, p, a)
                 for shape, launch in shapes.items():
-                    _compare("external_product",
-                             kernels.external_product_as(d, bk_i, p, a,
-                                                         launch), want, errs,
-                             device, f"{p.name} B={b} {name} "
-                             f"acc={a is not None} {shape} split "
-                             f"{launch.split}")
+                    got = tile_models.external_product_as(d, bk_i, p, a,
+                                                          launch)
+                    _compare("external_product", got, want, errs, device,
+                             f"{p.name} B={b} {name} acc={a is not None} "
+                             f"{shape} split {launch.split}")
         pick = kernels.product_launch(b, p.k + 1, p.N, p.trgsw_rows, sms)
         log(f"phase 3 product launches: {p.name} B={b} external_product "
             f"equal under {', '.join(shapes)} (the pick: {pick.form} "
@@ -855,7 +854,7 @@ def keyswitch_operands(p, b, device, rng):
 def check_keyswitch(p, device, batches=KS_CHECK_BATCHES, seed=43):
     """Phase 3: the keyswitch kernel (``ops/keyswitch.keyswitch``, launched
     as ``kernels.keyswitch_launch`` says) and every tile of
-    ``kernels.keyswitch_launch_shapes`` through the uncounted entry, at
+    ``tile_models.keyswitch_launch_shapes`` through the uncounted entry, at
     ``p`` and each of ``batches``, on the operands of
     :func:`keyswitch_operands`, each equal to ``keyswitch_plain`` (on CPU
     tensors the wrapper is the twin and the tiles run the plain model).
@@ -864,7 +863,7 @@ def check_keyswitch(p, device, batches=KS_CHECK_BATCHES, seed=43):
     errs = {}
     sms = _card_sms(device)
     for b in batches:
-        shapes = kernels.keyswitch_launch_shapes(b, p, sms)
+        shapes = tile_models.keyswitch_launch_shapes(b, p, sms)
         cases = list(keyswitch_operands(p, b, device, rng))
         for name, x, limbs in cases:
             want = ksw.keyswitch_plain(x, limbs, p)
@@ -872,7 +871,7 @@ def check_keyswitch(p, device, batches=KS_CHECK_BATCHES, seed=43):
                      device, f"{p.name} B={b} {name}")
             for shape, launch in shapes.items():
                 _compare("keyswitch",
-                         kernels.keyswitch_as(x, limbs, p, launch), want,
+                         tile_models.keyswitch_as(x, limbs, p, launch), want,
                          errs, device, f"{p.name} B={b} {name} {shape}")
         log(f"phase 3 keyswitch: {p.name} B={b} equal to keyswitch_plain "
             f"under the pick ({kernels.keyswitch_launch(b, p, sms).form}) "

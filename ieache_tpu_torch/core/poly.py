@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from ieache_tpu_torch.params import TFHEParams
+
 #: number of signed int8 limbs covering a torus32 coefficient
 TORUS_LIMBS = 4
 
@@ -53,6 +55,32 @@ def toeplitz_negacyclic(g: torch.Tensor) -> torch.Tensor:
     return negacyclic_extend(g)[..., toeplitz_index(n, g.device)]
 
 
+def make_step_gmatrix(bk_step: torch.Tensor, params: TFHEParams) -> torch.Tensor:
+    """TRGSW step -> negacyclic matmul operand (Toeplitz tensor).
+
+    bk_step: int32 (rows, k+1, N) -> int8 (TORUS_LIMBS, rows, k+1, N, N)
+    with G[v, p, o, m, j] = limb_v( e_{p,o}[N + j - m] ), e = concat(-g, g).
+    """
+    e = negacyclic_extend(bk_step)                     # (rows, k+1, 2N)
+    el = torch.movedim(split_i8_limbs(e), -1, 0)       # (L, rows, k+1, 2N)
+    return el[..., toeplitz_index(params.N, bk_step.device)]
+
+
+def negacyclic_rotate_batch(acc: torch.Tensor,
+                            amount: torch.Tensor) -> torch.Tensor:
+    """X^amount · acc for per-batch amounts in [0, 2N).
+
+    acc: (B, k+1, N) int32; amount: (B,) int32 -> (B, k+1, N).
+    Coefficient j of X^a·c is c_i with i = (j - a) mod 2N when i < N,
+    else -c_{i-N}: one gather from concat(c, -c).
+    """
+    b, kp1, n = acc.shape
+    ext = torch.cat([acc, -acc], dim=-1)               # (B, k+1, 2N)
+    j = torch.arange(n, device=acc.device)
+    idx = (j[None, :] - amount.to(torch.int64)[:, None]) % (2 * n)
+    return torch.gather(ext, 2, idx[:, None, :].expand(b, kp1, n))
+
+
 def _dot_i8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """int8 (..., K) x int8 (K, M) -> int32 (..., M), exact.
 
@@ -73,6 +101,14 @@ def _dot_i8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         b = torch.nn.functional.pad(b, (0, pad_m, 0, pad_k))
     out = torch._int_mm(a2.contiguous(), b.contiguous())
     return out[:rows, :m].reshape(*lead, m)
+
+
+def _dot_digits_g(d8: torch.Tensor, gv: torch.Tensor) -> torch.Tensor:
+    """(B, rows, m) x (rows, kp1, m, j) -> (B, kp1, j), s8 x s8 -> s32."""
+    b, rows, m = d8.shape
+    kp1, j = gv.shape[1], gv.shape[-1]
+    g2 = gv.permute(0, 2, 1, 3).reshape(rows * m, kp1 * j)
+    return _dot_i8(d8.reshape(b, rows * m), g2).reshape(b, kp1, j)
 
 
 def negacyclic_mul_small(d: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -32,6 +32,11 @@ import torch.distributed as dist
 #: seconds a rank waits on a collective, and the parent on all ranks
 TIMEOUT = 600.0
 
+#: seconds the parent waits, after a rank reports a failure, for the
+#: other ranks to exit: a rank that died shows in its peers as a broken
+#: connection, and the run names the death, not that symptom
+DEATH_WAIT = 5.0
+
 
 def free_port() -> int:
     """A TCP port of this host that is free now."""
@@ -68,6 +73,19 @@ def _rank_main(rank, world, port, device, timeout, fn, args, results):
         results.put((rank, False, traceback.format_exc()))
 
 
+def _dead(procs: list, reported, wait: float = 0.0) -> dict:
+    """{rank: exit code} of the ranks not in ``reported`` that exited
+    with a failure; where ``wait`` > 0, once every such rank has exited
+    or ``wait`` seconds have passed."""
+    deadline = time.monotonic() + wait
+    while (time.monotonic() < deadline
+           and any(p.exitcode is None for r, p in enumerate(procs)
+                   if r not in reported)):
+        time.sleep(0.05)
+    return {r: p.exitcode for r, p in enumerate(procs)
+            if r not in reported and p.exitcode not in (None, 0)}
+
+
 def run(fn, world: int, *args, device="cuda", timeout: float = TIMEOUT) -> list:
     """``fn(device, *args)`` on each of ``world`` ranks; their results in
     rank order."""
@@ -94,8 +112,7 @@ def run(fn, world: int, *args, device="cuda", timeout: float = TIMEOUT) -> list:
             except queue.Empty:
                 # a rank that died before it could report (killed, or
                 # failed while its process started) fails the run now
-                dead = {r: p.exitcode for r, p in enumerate(procs)
-                        if p.exitcode not in (None, 0)}
+                dead = _dead(procs, ())
                 if dead:
                     failed.append(f"ranks exited without a result: {dead}")
                 elif time.monotonic() > deadline:
@@ -106,6 +123,9 @@ def run(fn, world: int, *args, device="cuda", timeout: float = TIMEOUT) -> list:
                 got[rank] = value
             else:
                 failed.append(f"rank {rank}:\n{value}")
+                dead = _dead(procs, {*got, rank}, DEATH_WAIT)
+                if dead:
+                    failed.insert(0, f"ranks exited without a result: {dead}")
     finally:
         for proc in procs:
             proc.join(timeout=30 if not failed else 1)

@@ -33,10 +33,10 @@ from ieache_tpu_torch.boot.bootstrap import (
 from ieache_tpu_torch.dist.mesh import Mesh, all_gather_cat
 from ieache_tpu_torch.ops.blind_rotate import (
     _digit_products,
-    _step_digits,
     blind_rotate_sharded,
     make_step_gmatrix_local,
 )
+from ieache_tpu_torch.ops.decompose import _step_digits
 from ieache_tpu_torch.ops.keyswitch import (
     keyswitch,
     keyswitch_digits,

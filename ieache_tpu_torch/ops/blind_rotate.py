@@ -89,25 +89,15 @@ import torch.distributed as dist
 
 from ieache_tpu_torch.core.poly import (
     TORUS_LIMBS,
-    _dot_i8,
+    _dot_digits_g,
+    make_step_gmatrix,
     negacyclic_extend,
     split_i8_limbs,
-    toeplitz_index,
 )
-from ieache_tpu_torch.ops.decompose import gadget_decompose
+from ieache_tpu_torch.ops import kernels
+from ieache_tpu_torch.ops.decompose import _step_digits
 from ieache_tpu_torch.params import TFHEParams
 from ieache_tpu_torch.utils import trace
-
-
-def make_step_gmatrix(bk_step: torch.Tensor, params: TFHEParams) -> torch.Tensor:
-    """TRGSW step -> negacyclic matmul operand (Toeplitz tensor).
-
-    bk_step: int32 (rows, k+1, N) -> int8 (TORUS_LIMBS, rows, k+1, N, N)
-    with G[v, p, o, m, j] = limb_v( e_{p,o}[N + j - m] ), e = concat(-g, g).
-    """
-    e = negacyclic_extend(bk_step)                     # (rows, k+1, 2N)
-    el = torch.movedim(split_i8_limbs(e), -1, 0)       # (L, rows, k+1, 2N)
-    return el[..., toeplitz_index(params.N, bk_step.device)]
 
 
 def make_step_gmatrix_local(bk_step: torch.Tensor, params: TFHEParams,
@@ -131,40 +121,6 @@ def make_step_gmatrix_local(bk_step: torch.Tensor, params: TFHEParams,
     m = torch.arange(n, device=bk_step.device)
     j = torch.arange(n_local, device=bk_step.device)
     return el[..., (n - 1) + j[None, :] - m[:, None]]
-
-
-def negacyclic_rotate_batch(acc: torch.Tensor,
-                            amount: torch.Tensor) -> torch.Tensor:
-    """X^amount · acc for per-batch amounts in [0, 2N).
-
-    acc: (B, k+1, N) int32; amount: (B,) int32 -> (B, k+1, N).
-    Coefficient j of X^a·c is c_i with i = (j - a) mod 2N when i < N,
-    else -c_{i-N}: one gather from concat(c, -c).
-    """
-    b, kp1, n = acc.shape
-    ext = torch.cat([acc, -acc], dim=-1)               # (B, k+1, 2N)
-    j = torch.arange(n, device=acc.device)
-    idx = (j[None, :] - amount.to(torch.int64)[:, None]) % (2 * n)
-    return torch.gather(ext, 2, idx[:, None, :].expand(b, kp1, n))
-
-
-def _step_digits(acc: torch.Tensor, bara_i: torch.Tensor,
-                 params: TFHEParams) -> torch.Tensor:
-    """Digits of (X^bara·acc - acc): int32 (B, rows, N)."""
-    b = acc.shape[0]
-    diff = negacyclic_rotate_batch(acc, bara_i) - acc      # (B, k+1, N)
-    digits = gadget_decompose(diff, params.bg_bit, params.l)
-    # (B, k+1, N, l) -> (B, k+1, l, N): row p = u*l + j matches BK layout
-    digits = torch.movedim(digits, -1, 2)
-    return digits.reshape(b, params.trgsw_rows, params.N)
-
-
-def _dot_digits_g(d8: torch.Tensor, gv: torch.Tensor) -> torch.Tensor:
-    """(B, rows, m) x (rows, kp1, m, j) -> (B, kp1, j), s8 x s8 -> s32."""
-    b, rows, m = d8.shape
-    kp1, j = gv.shape[1], gv.shape[-1]
-    g2 = gv.permute(0, 2, 1, 3).reshape(rows * m, kp1 * j)
-    return _dot_i8(d8.reshape(b, rows * m), g2).reshape(b, kp1, j)
 
 
 def _digit_products(d: torch.Tensor, g: torch.Tensor,
@@ -361,9 +317,6 @@ def blind_rotate(
                 stacklevel=2)
         plain = mode == "ntt" or route == "0"
     if not plain:
-        # kernels.py builds its plain twins from this module's functions
-        from ieache_tpu_torch.ops import kernels
-
         why = kernels.kernels_refusal(mode, params.trgsw_rows, params.N,
                                       params.digit_limbs)
         if why is not None:
@@ -402,8 +355,6 @@ def _rotate_by_mode(acc0: torch.Tensor, bara: torch.Tensor,
     """The n steps through step mode ``mode``'s wrappers, or their
     plain twins under ``route`` ``interpret``; with how they ran:
     ``"capture"`` or ``"replay"`` (:func:`_graphed`), else ``"eager"``."""
-    from ieache_tpu_torch.ops import kernels
-
     def pick(name):
         """The wrapper ``name``, or its plain twin under interpret."""
         return getattr(kernels, name + "_plain" if route == "interpret"
@@ -536,8 +487,6 @@ def _graphed(run, acc0: torch.Tensor, bara: torch.Tensor, bk: torch.Tensor,
     recently used graph past :data:`GRAPH_CACHE_SIZE`.  Each replay
     adds the launches the capture made to the wrappers' counts; the
     result is a copy, never the graph's own memory."""
-    from ieache_tpu_torch.ops import kernels
-
     names = kernels.MODE_KERNELS[mode]
     layout, back = _LAYOUTS[mode == "tr"]
     key = (acc0.device, stream, names, params, acc0.shape, acc0.dtype,
@@ -575,8 +524,6 @@ def _capture_rotation(run, acc0: torch.Tensor, bara: torch.Tensor,
     """The graph of ``run`` on new input buffers shaped as the loop's;
     the launches the wrappers ``names`` counted while it was captured
     (none ran) are taken back and kept for the replays to add."""
-    from ieache_tpu_torch.ops import kernels
-
     acc = torch.empty([acc0.shape[i] for i in layout], dtype=acc0.dtype,
                       device=acc0.device)
     bara_t = torch.empty(bara.t().shape, dtype=bara.dtype,

@@ -11,6 +11,9 @@ from __future__ import annotations
 
 import torch
 
+from ieache_tpu_torch.core.poly import negacyclic_rotate_batch
+from ieache_tpu_torch.params import TFHEParams
+
 
 def _offset(base_bit: int, levels: int) -> int:
     # copied from ieache_tpu.ops.decompose._offset, whose module imports
@@ -45,3 +48,14 @@ def gadget_decompose(x: torch.Tensor, base_bit: int,
         shift = 32 - (j + 1) * base_bit
         digits.append(((v >> shift) & mask) - half)
     return torch.stack(digits, dim=-1)
+
+
+def _step_digits(acc: torch.Tensor, bara_i: torch.Tensor,
+                 params: TFHEParams) -> torch.Tensor:
+    """Digits of (X^bara·acc - acc): int32 (B, rows, N)."""
+    b = acc.shape[0]
+    diff = negacyclic_rotate_batch(acc, bara_i) - acc      # (B, k+1, N)
+    digits = gadget_decompose(diff, params.bg_bit, params.l)
+    # (B, k+1, N, l) -> (B, k+1, l, N): row p = u*l + j matches BK layout
+    digits = torch.movedim(digits, -1, 2)
+    return digits.reshape(b, params.trgsw_rows, params.N)

@@ -7,7 +7,7 @@ leaves this product to XLA, outside any Pallas kernel.  On CUDA tensors
 :func:`keyswitch` launches ``csrc/keyswitch.cu``, which makes the digits,
 sums the four int8 limbs of KS and finishes in one launch (its launch
 from ``kernels.keyswitch_launch``, its plain model
-``kernels.keyswitch_kernel_model``); on CPU tensors it runs
+``tile_models.keyswitch_kernel_model``); on CPU tensors it runs
 :func:`keyswitch_plain`: the digits, one ``torch._int_mm`` product per
 int8 torus limb of KS, recombined with wrapping shifts, exact mod 2^32.
 The pieces stay for ``dist/shard.py``'s tensor-parallel K-slices.

@@ -60,7 +60,7 @@ import sys
 import numpy as np
 import torch
 
-from ieache_tpu_torch.ops import kernels
+from ieache_tpu_torch.ops import kernels, tile_models
 from ieache_tpu_torch.ops import keyswitch as ksw
 from ieache_tpu_torch.tools._common import (
     PARAMS,
@@ -121,12 +121,12 @@ def rotation_variants(p, acc, bara, acc_tr) -> dict:
     split = kernels.rot_diff_decompose_plain(acc, bara, p)
     sub = kernels.rotate_sublane_plain(acc_tr, bara)
     calls = {}
-    for run in kernels.ROT_RUNS:
+    for run in tile_models.ROT_RUNS:
         calls[f"rot_diff_decompose run {run}"] = (
             (lambda run=run: kernels._rot_diff_decompose_entry(
                 "ieache_rot_diff_decompose", acc, bara, p, False, (run,)))
             if cuda else
-            (lambda run=run: kernels.rot_diff_decompose_run_model(
+            (lambda run=run: tile_models.rot_diff_decompose_run_model(
                 acc, bara, p, run=run)),
             lambda: split)
     splits = kernels.rot_tr_splits(-(-b // kernels.TR_SLAB_LANES) * kp1, n)
@@ -138,7 +138,7 @@ def rotation_variants(p, acc, bara, acc_tr) -> dict:
             (lambda route=route: kernels._rotate_entry(
                 "ieache_rotate_sublane", acc_tr, bara, n, (route,)))
             if cuda else
-            (lambda route=route: kernels.rot_tr_slab_model(
+            (lambda route=route: tile_models.rot_tr_slab_model(
                 acc_tr, bara, splits=route)),
             lambda: sub)
     return calls
@@ -147,12 +147,11 @@ def rotation_variants(p, acc, bara, acc_tr) -> dict:
 def product_launch_variants(p, b: int, sms: int = 132) -> dict:
     """The product's launch shapes :func:`run` times beside the policy's
     pick (``kernels.product_launch``) at batch ``b``: every shape of
-    ``kernels.product_launch_shapes`` but the pick's."""
+    ``tile_models.product_launch_shapes`` but the pick's."""
     args = (b, p.k + 1, p.N, kernels.digit_rows(p), sms)
     pick = kernels.product_launch(*args)
-    return {name: launch
-            for name, launch in kernels.product_launch_shapes(*args).items()
-            if launch != pick}
+    shapes = tile_models.product_launch_shapes(*args)
+    return {name: launch for name, launch in shapes.items() if launch != pick}
 
 
 def step_launch_variants(p, b: int, sms: int = 132, per_sm: int = 2,
@@ -160,12 +159,12 @@ def step_launch_variants(p, b: int, sms: int = 132, per_sm: int = 2,
     """The fused step's launch shapes :func:`run` times beside the
     policy's pick (``kernels.step_launch`` on ``resident``, the occupancy
     query's clusters on the card) at batch ``b``: every shape of
-    ``kernels.step_launch_shapes`` but the pick's ("mma", "wgmma BN x T,
+    ``tile_models.step_launch_shapes`` but the pick's ("mma", "wgmma BN x T,
     cluster c")."""
     args = (b, p.k + 1, p.N, p.trgsw_rows, sms, per_sm)
     pick = kernels.step_launch(*args, resident)
     return {name: launch
-            for name, launch in kernels.step_launch_shapes(*args).items()
+            for name, launch in tile_models.step_launch_shapes(*args).items()
             if launch != pick}
 
 
@@ -173,7 +172,7 @@ def scan_launch_variants(p, b: int, sms: int = 132, per_sm: int = 2,
                          resident=None) -> dict:
     """The scan kernel's launch shapes :func:`run` times beside the
     policy's pick (``kernels.scan_launch``) at batch ``b``: every shape of
-    ``kernels.scan_launch_shapes`` but the pick ("mma", the mma.sync
+    ``tile_models.scan_launch_shapes`` but the pick ("mma", the mma.sync
     form's own, and "wgmma BN x T, cluster c"), and "split S, per_item P"
     -> ``kernels.scan_shape`` for every split S that divides a tile's (p,
     chunk) pairs and every run of P tiles, P a power of two up to the
@@ -184,7 +183,7 @@ def scan_launch_variants(p, b: int, sms: int = 132, per_sm: int = 2,
     nchunks, group = p.trgsw_rows * (p.N // t), p.N // t * (p.k + 1)
     args = (b, p.k + 1, p.N, p.trgsw_rows, sms, per_sm)
     pick = kernels.scan_launch(*args, resident)
-    forms = kernels.scan_launch_shapes(*args, resident)
+    forms = tile_models.scan_launch_shapes(*args, resident)
     shapes = {name: launch for name, launch in forms.items()
               if launch != pick}
     pick = forms["mma"]
@@ -211,10 +210,10 @@ def keyswitch_inputs(p, b: int, device, rng):
 def keyswitch_launch_variants(p, b: int, sms: int = 132) -> dict:
     """The keyswitch's launch shapes :func:`run` times beside the policy's
     pick (``kernels.keyswitch_launch``) at batch ``b``: every tile of
-    ``kernels.keyswitch_launch_shapes`` but the pick's."""
+    ``tile_models.keyswitch_launch_shapes`` but the pick's."""
     pick = kernels.keyswitch_launch(b, p, sms)
     return {name: launch
-            for name, launch in kernels.keyswitch_launch_shapes(
+            for name, launch in tile_models.keyswitch_launch_shapes(
                 b, p, sms).items() if launch != pick}
 
 
@@ -263,7 +262,7 @@ def run(p, product_b, scan_b, device, check: bool = True,
         sms = kernels._sm_count(device) if device.type == "cuda" else 132
         want = kernels.external_product_plain(d, bk_i, p, acc)
         for name, launch in product_launch_variants(p, b, sms).items():
-            call = (lambda launch=launch: kernels.external_product_as(
+            call = (lambda launch=launch: tile_models.external_product_as(
                 d, bk_i, p, acc, launch))
             if check and not torch.equal(call(), want):
                 raise AssertionError(f"external_product ({name}) differs "
@@ -316,8 +315,8 @@ def run(p, product_b, scan_b, device, check: bool = True,
         for name, launch in step_launch_variants(p, b, sms, per_sm,
                                                  resident).items():
             variants[f"cmux_step {name}"] = (
-                lambda launch=launch: kernels.cmux_step_as(acc, bara, bk_i, p,
-                                                           launch),
+                lambda launch=launch: tile_models.cmux_step_as(
+                    acc, bara, bk_i, p, launch),
                 calls["cmux_step"][1])
         for name, (kern, plain) in {**calls, **variants}.items():
             if check and not torch.equal(kern(), plain()):
@@ -346,8 +345,9 @@ def run(p, product_b, scan_b, device, check: bool = True,
             if cuda else None)
         for name, launch in scan_launch_variants(p, b, sms, per_sm,
                                                  resident).items():
-            calls[name] = (lambda launch=launch: kernels.blind_rotate_scan_as(
-                acc, bara, bk, p, launch))
+            calls[name] = (
+                lambda launch=launch: tile_models.blind_rotate_scan_as(
+                    acc, bara, bk, p, launch))
         want = (kernels.blind_rotate_scan_plain(acc, bara, bk, p)
                 if check and b <= SCAN_CHECK_MAX_B else None)
         for name, call in calls.items():
@@ -367,7 +367,7 @@ def run(p, product_b, scan_b, device, check: bool = True,
         want = ksw.keyswitch_plain(x, limbs, p) if check else None
         calls = {None: lambda: ksw.keyswitch(x, limbs, p)}
         for name, launch in keyswitch_launch_variants(p, b, sms).items():
-            calls[name] = (lambda launch=launch: kernels.keyswitch_as(
+            calls[name] = (lambda launch=launch: tile_models.keyswitch_as(
                 x, limbs, p, launch))
         for name, call in calls.items():
             if check and not torch.equal(call(), want):

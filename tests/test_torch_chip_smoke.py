@@ -20,7 +20,7 @@ from ieache_tpu_torch import keygen
 from ieache_tpu_torch import params as P
 from ieache_tpu_torch.boot import bootstrap
 from ieache_tpu_torch.lwe import keygen_device
-from ieache_tpu_torch.ops import kernels
+from ieache_tpu_torch.ops import kernels, tile_models
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -400,20 +400,21 @@ def test_tile_bench_checks_on_cpu_twins():
     for b in (8, 1024):
         pick = kernels.product_launch(b, q.k + 1, q.N, q.trgsw_rows)
         variants = tile_bench.product_launch_variants(q, b)
-        assert set(variants) == set(kernels.product_launch_shapes(
+        assert set(variants) == set(tile_models.product_launch_shapes(
             b, q.k + 1, q.N, q.trgsw_rows)) - {
                 f"wgmma {pick.tile} x {pick.cols}"
                 if pick.form == "wgmma" else "mma"}
         # the fused step's: every form, tile and cluster but the pick
         pick = kernels.step_launch(b, q.k + 1, q.N, q.trgsw_rows)
         variants = tile_bench.step_launch_variants(q, b)
-        shapes = kernels.step_launch_shapes(b, q.k + 1, q.N, q.trgsw_rows)
+        shapes = tile_models.step_launch_shapes(b, q.k + 1, q.N, q.trgsw_rows)
         assert set(variants) == {k for k, s in shapes.items() if s != pick}
         assert len(variants) == len(shapes) - 1
         # the keyswitch's: every tile but the pick's
         pick = kernels.keyswitch_launch(b, q)
         variants = tile_bench.keyswitch_launch_variants(q, b)
-        assert set(variants) == {f"{t} lanes" for t in kernels.KS_TILE_LANES
+        assert set(variants) == {f"{t} lanes"
+                                 for t in tile_models.KS_TILE_LANES
                                  if t != pick.lanes}
 
 

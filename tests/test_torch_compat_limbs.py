@@ -27,9 +27,10 @@ from fhe_bench.reference import cmux
 from ieache_tpu.ops import blind_rotate as jbr
 from ieache_tpu_torch import params as P
 from ieache_tpu_torch.circuits import evaluator as ev
+from ieache_tpu_torch.core.poly import make_step_gmatrix
 from ieache_tpu_torch.ops import blind_rotate as br
 from ieache_tpu_torch.ops import decompose as tdec
-from ieache_tpu_torch.ops import kernels
+from ieache_tpu_torch.ops import kernels, tile_models
 from ieache_tpu_torch.params import TFHEParams
 from ieache_tpu_torch.utils import prng, trace
 
@@ -100,14 +101,14 @@ def test_one_step_agrees_five_ways(b):
     a = bara[:, 0].contiguous()
     d = kernels.rot_diff_decompose(acc_t, a, p)
     assert d.shape == (kernels.digit_rows(p), b, p.N) == (8, b, p.N)
-    for run in kernels.ROT_RUNS:
-        assert torch.equal(kernels.rot_diff_decompose_run_model(
+    for run in tile_models.ROT_RUNS:
+        assert torch.equal(tile_models.rot_diff_decompose_run_model(
             acc_t, a, p, run=run), d)
     key = kernels.limb_key(bk[0], p)
     got = kernels.external_product(d, key, p, acc=acc_t)
     assert torch.equal(got.transpose(0, 1), want)
-    for model in (kernels.external_product_mma_model,
-                  kernels.external_product_wgmma_model):
+    for model in (tile_models.external_product_mma_model,
+                  tile_models.external_product_wgmma_model):
         assert torch.equal(model(d, key, p, acc_t), got)
 
 
@@ -163,7 +164,7 @@ def test_edge_digits_and_key_words_are_pinned():
     key = words[torch.arange(4 * 2 * 64) % 3].reshape(4, 2, 64)
     want = cmux.as_int32(cmux.negacyclic_products(
         d.to(torch.int64), key.to(torch.int64) % (1 << 32)))
-    g = br.make_step_gmatrix(key, p)
+    g = make_step_gmatrix(key, p)
     assert torch.equal(br._digit_products(d, g, p), want)
     got = kernels.external_product(
         kernels.digit_limb_rows(d, p).transpose(0, 1).contiguous(),

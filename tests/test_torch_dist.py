@@ -18,6 +18,7 @@ that compute the references: a rank imports no JAX.
 
 import dataclasses
 import os
+import time
 
 import numpy as np
 import pytest
@@ -28,6 +29,7 @@ from ieache_tpu_torch import params as P
 from ieache_tpu_torch.boot import bootstrap
 from ieache_tpu_torch.boot.bootstrap import DeviceCloudKey
 from ieache_tpu_torch.circuits import evaluator as tev
+from ieache_tpu_torch.core.poly import make_step_gmatrix
 from ieache_tpu_torch.dist import batch as dbatch
 from ieache_tpu_torch.dist import launch
 from ieache_tpu_torch.dist import mesh as dmesh
@@ -392,7 +394,7 @@ def test_step_gmatrix_local_blocks_match_full(sp):
     rng = np.random.RandomState(21)
     bk_i = rng.randint(-2**31, 2**31,
                        (p.trgsw_rows, p.k + 1, p.N)).astype(np.int32)
-    full = tbr.make_step_gmatrix(torch.from_numpy(bk_i), p).numpy()
+    full = make_step_gmatrix(torch.from_numpy(bk_i), p).numpy()
     nl = p.N // sp
     for s in range(sp):
         got = tbr.make_step_gmatrix_local(torch.from_numpy(bk_i), p, s * nl,
@@ -417,12 +419,22 @@ def _raises_in_rank(device):
     raise ValueError(f"boom on rank {dist.get_rank()}")
 
 
+def _dies_after_a_peer_reports(device):
+    if dist.get_rank() == 1:
+        raise ValueError("a peer's symptom")
+    time.sleep(1.0)
+    os._exit(3)
+
+
 @pytest.mark.parametrize("program,match", [
-    (_dies, "exited without a result"), (_raises_in_rank, "ValueError: boom")],
-    ids=["dies", "raises"])
+    (_dies, "exited without a result"), (_raises_in_rank, "ValueError: boom"),
+    (_dies_after_a_peer_reports, r"exited without a result: \{0: 3\}")],
+    ids=["dies", "raises", "dies-after-a-peer-reports"])
 def test_launch_fails_fast_on_a_failed_rank(program, match):
     """A rank that raises reports its traceback, and one that dies
-    without a result fails the run at once, not at the time limit."""
+    without a result fails the run at once, not at the time limit, and
+    is named with its exit code even where a peer's report of the
+    failure it caused arrives first."""
     with pytest.raises(RuntimeError, match=match):
         launch.run(program, 2, device="cpu", timeout=120)
 

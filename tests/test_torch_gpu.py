@@ -25,7 +25,7 @@ from ieache_tpu_torch import keygen, prng
 from ieache_tpu_torch import params as P
 from ieache_tpu_torch.boot import bootstrap
 from ieache_tpu_torch.lwe import encrypt, keygen_device
-from ieache_tpu_torch.ops import kernels
+from ieache_tpu_torch.ops import kernels, tile_models
 from ieache_tpu_torch.tools import mosaic_mm_probe, tile_bench
 
 pytestmark = pytest.mark.gpu
@@ -227,9 +227,9 @@ def test_compat_split_kernels_match_their_twins(cuda, b):
     before = kernels.external_product.launches
     assert torch.equal(kernels.external_product(got, bk_i, p, acc=acc), want)
     assert kernels.external_product.launches == before + 1
-    for launch in kernels.product_launch_shapes(
+    for launch in tile_models.product_launch_shapes(
             b, p.k + 1, p.N, kernels.digit_rows(p)).values():
-        out = kernels.external_product_as(got, bk_i, p, acc, launch)
+        out = tile_models.external_product_as(got, bk_i, p, acc, launch)
         torch.cuda.synchronize()
         assert torch.equal(out, want), launch
 
@@ -329,7 +329,7 @@ def test_cmux_step_kernels_extreme_accumulators(cuda, p, b, step):
     at_n = torch.full((b,), p.N, dtype=torch.int32, device=cuda)
     cases = []
     for digit, limbs in ((-128, LIMBS_LO), (127, LIMBS_HI), (-128, LIMBS_HI)):
-        acc = kernels.accumulator_for_digits(p, digit, shape_a, cuda)
+        acc = tile_models.accumulator_for_digits(p, digit, shape_a, cuda)
         d = kernels.rot_diff_decompose_plain(acc, at_n, p)
         assert int(d.min()) == int(d.max()) == digit
         cases.append((acc, at_n, torch.full(shape_k, limbs,
@@ -714,7 +714,7 @@ def test_rotation_entries_refuse_bad_launches(cuda):
     for n, run in ((64, 2), (64, 16), (48, 4), (4, 4), (12, 8)):
         assert lib.ieache_rot_diff_decompose(*ptrs, 2, 1, n, 8, 2, 0, run,
                                              stream) != 0
-    for run in kernels.ROT_RUNS:
+    for run in tile_models.ROT_RUNS:
         assert lib.ieache_rot_diff_decompose(*ptrs, 2, 1, 64, 8, 2, 0, run,
                                              stream) == 0
     out = torch.empty_like(acc)
@@ -892,7 +892,7 @@ def test_external_product_every_form_and_launch(cuda, p, b):
     d = _rand(rng, (rows, b, p.N), -128, 128, np.int8, cuda)
     acc = _rand(rng, (kp1, b, p.N), -2**31, 2**31, np.int32, cuda)
     sms = kernels._sm_count(cuda)
-    shapes = dict(kernels.product_launch_shapes(b, kp1, p.N, rows, sms))
+    shapes = dict(tile_models.product_launch_shapes(b, kp1, p.N, rows, sms))
     nchunks = rows * p.N // kernels.wgmma_chunk_cols(p.N)
     for bn, cols in kernels.wgmma_tiles(p.N):
         for split in (1, nchunks):
@@ -1451,8 +1451,8 @@ def test_cmux_step_every_form_and_launch(cuda, p, b):
     bara = _rand(rng, (b,), 0, 2 * p.N, np.int32, cuda)
     bara[:3] = torch.tensor([0, p.N, 2 * p.N - 1], dtype=torch.int32,
                             device=cuda)[:b]
-    shapes = kernels.step_launch_shapes(b, kp1, p.N, rows,
-                                        kernels._sm_count(cuda))
+    shapes = tile_models.step_launch_shapes(b, kp1, p.N, rows,
+                                            kernels._sm_count(cuda))
     assert {launch.form for launch in shapes.values()} == {"mma", "wgmma"}
     counts = [w.launches for w in WRAPPERS.values()]
     for bk_i in (_rand(rng, (rows, kp1, p.N), -2**31, 2**31, np.int32, cuda),
@@ -1987,17 +1987,17 @@ def test_keyswitch_kernel_matches_its_twin(cuda, p, b, kind):
     got = ks.keyswitch(x, limbs, p)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    for name, launch in kernels.keyswitch_launch_shapes(
+    for name, launch in tile_models.keyswitch_launch_shapes(
             b, p, kernels._sm_count(cuda)).items():
-        assert torch.equal(kernels.keyswitch_as(x, limbs, p, launch), want), \
-            name
+        assert torch.equal(tile_models.keyswitch_as(x, limbs, p, launch),
+                           want), name
     for split in (1, 3):
         launch = kernels.keyswitch_shape(b, p, 64, split)
         if kernels.keyswitch_smem_bytes(
                 kernels.keyswitch_cols(p), 64,
                 -(-kernels.keyswitch_units(p) // split)) <= \
                 kernels.SMEM_BLOCK_BYTES:
-            assert torch.equal(kernels.keyswitch_as(x, limbs, p, launch),
+            assert torch.equal(tile_models.keyswitch_as(x, limbs, p, launch),
                                want), split
 
 

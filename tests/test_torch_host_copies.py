@@ -8,6 +8,7 @@ subprocess with ``ieache_tpu``, ``jax`` and ``jaxlib`` refused imports
 every module of the port and runs its main paths.
 """
 
+import ast
 import dataclasses
 import os
 import subprocess
@@ -314,7 +315,7 @@ _SEALED = textwrap.dedent("""
     prod = words.decrypt_word(ks, fused.schoolbook_mul_csa(ca, cb, key))
     assert prod == [u * v for u, v in zip(a, b)], prod
     new = ("circuits.evaluator", "tools.bench", "tools.margin_probe",
-           "tools.width_bench", "tools.expr_bench")
+           "tools.width_bench", "tools.expr_bench", "ops.tile_models")
     assert {"ieache_tpu_torch." + m for m in new} <= set(names), names
     from ieache_tpu_torch.circuits import evaluator as ev
     pair = keygen_device.generate_gate_keypair_device(p, "cpu")
@@ -350,7 +351,7 @@ _SEALED = textwrap.dedent("""
     (report,) = dryrun.dryrun_multichip(1, device="cpu")
     assert report["launches"]["split"] == {"rot_diff_decompose": 0,
                                            "external_product": 0}, report
-    from ieache_tpu_torch.ops import kernels
+    from ieache_tpu_torch.ops import kernels, tile_models
     rng = np.random.RandomState(3)
     acc = torch.from_numpy(rng.randint(-2**31, 2**31, (2, 40, 64),
                                        dtype=np.int64).astype(np.int32))
@@ -359,11 +360,12 @@ _SEALED = textwrap.dedent("""
                                       dtype=np.int64).astype(np.int32))
     step = kernels.step_shape(40, 2, 64, 4, "wgmma", 64, 2)
     one = bara[:, 0].contiguous()
-    assert torch.equal(kernels.cmux_step_as(acc, one, bk[0], p, step),
+    assert torch.equal(tile_models.cmux_step_as(acc, one, bk[0], p, step),
                        kernels.cmux_step_plain(acc, one, bk[0], p))
     scan = kernels.scan_wgmma_shape(40, 2, 64, 64, 2, 1)
-    assert torch.equal(kernels.blind_rotate_scan_as(acc, bara, bk, p, scan),
-                       kernels.blind_rotate_scan_plain(acc, bara, bk, p))
+    assert torch.equal(
+        tile_models.blind_rotate_scan_as(acc, bara, bk, p, scan),
+        kernels.blind_rotate_scan_plain(acc, bara, bk, p))
     assert not any(m.split(".")[0] in REFUSED for m in sys.modules)
     print("SEALED-OK", len(names))
 """)
@@ -383,3 +385,65 @@ def test_port_imports_nothing_of_the_jax_package():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "SEALED-OK" in proc.stdout
+
+
+_BOOTSTRAP_ONLY = textwrap.dedent("""
+    import sys
+    import numpy as np
+    import torch
+    from ieache_tpu_torch import params as P, prng
+    from ieache_tpu_torch.boot import bootstrap
+    from ieache_tpu_torch.lwe import encrypt, keygen_device
+
+    torch.set_num_threads(1)
+    p = P.TEST_TINY
+    ks = keygen_device.generate_secret_keyset_device(p, "cpu")
+    key = bootstrap.pack_cloud_key(ks.cloud, "cpu")
+    bits = np.array([0, 1, 1, 0])
+    ct = encrypt.encrypt_bits_device(ks, bits, prng.key_from_seed_words([7]),
+                                     "cpu")
+    out = encrypt.decrypt_bits_device(ks, bootstrap.bootstrap(ct, key))
+    assert out.tolist() == bits.tolist(), out
+    assert "ieache_tpu_torch.ops.kernels" in sys.modules
+    assert "ieache_tpu_torch.ops.tile_models" not in sys.modules
+    print("BOOTSTRAP-OK")
+""")
+
+
+def _imports(path: str) -> list:
+    """(function, imported module) for each import in ``path``: the
+    function is None for an import at module top; ``from a import b``
+    counts as a and as a.b."""
+    tree = ast.parse(open(os.path.join(ROOT, path)).read())
+    where = [(None, n) for n in tree.body]
+    where += [(fn.name, n) for fn in ast.walk(tree)
+              if isinstance(fn, ast.FunctionDef) for n in ast.walk(fn)]
+    found = []
+    for fn, node in where:
+        if isinstance(node, ast.Import):
+            found += [(fn, a.name) for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            found += [(fn, node.module)]
+            found += [(fn, f"{node.module}.{a.name}") for a in node.names]
+    return found
+
+
+def test_kernel_layer_imports_point_one_way():
+    """bootstrap -> blind_rotate -> kernels -> the plain step math:
+    ``ops/kernels`` imports neither ``ops/blind_rotate`` nor
+    ``ops/tile_models``, ``ops/blind_rotate`` imports ``kernels`` at
+    module top and never inside a function, and a bootstrap in a fresh
+    interpreter loads ``kernels`` but not the tile models."""
+    kernels = {m for _, m in _imports("ieache_tpu_torch/ops/kernels.py")}
+    assert not kernels & {"ieache_tpu_torch.ops.blind_rotate",
+                          "ieache_tpu_torch.ops.tile_models"}, kernels
+    rotation = _imports("ieache_tpu_torch/ops/blind_rotate.py")
+    assert (None, "ieache_tpu_torch.ops.kernels") in rotation, rotation
+    assert not [(fn, m) for fn, m in rotation
+                if fn is not None and m.endswith("kernels")], rotation
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", _BOOTSTRAP_ONLY], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "BOOTSTRAP-OK" in proc.stdout

@@ -101,7 +101,7 @@ def test_make_step_gmatrix_matches_jax():
     p = P.TEST_TINY
     bk_i = _rand_i32(np.random.RandomState(3), (p.trgsw_rows, p.k + 1, p.N))
     np.testing.assert_array_equal(
-        tbr.make_step_gmatrix(_t(bk_i), p).numpy(),
+        tpoly.make_step_gmatrix(_t(bk_i), p).numpy(),
         np.asarray(jbr.make_step_gmatrix(jnp.asarray(bk_i), p)))
 
 
@@ -112,7 +112,7 @@ def test_negacyclic_rotate_batch_matches_jax():
     amt = np.array([0, 1, p.N - 1, p.N, p.N + 1, 2 * p.N - 1, 17, 100],
                    np.int32)
     np.testing.assert_array_equal(
-        tbr.negacyclic_rotate_batch(_t(acc), _t(amt)).numpy(),
+        tpoly.negacyclic_rotate_batch(_t(acc), _t(amt)).numpy(),
         np.asarray(jbr.negacyclic_rotate_batch(jnp.asarray(acc),
                                                jnp.asarray(amt))))
 

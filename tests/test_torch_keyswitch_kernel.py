@@ -1,6 +1,6 @@
 """The plain model of ``csrc/keyswitch.cu`` and its launch policy.
 
-``kernels.keyswitch_kernel_model`` walks the kernel's blocks at the
+``tile_models.keyswitch_kernel_model`` walks the kernel's blocks at the
 level of the warps' fragments (the digits in the A fragments' order,
 each stage as its bulk copy leaves it, the byte transpose into B
 fragments, the MMAs, Horner's shift at each limb, the epilogue's
@@ -21,7 +21,7 @@ import torch
 from ieache_tpu import params as P
 from ieache_tpu.ops import keyswitch as jks
 from ieache_tpu_torch import params as TP
-from ieache_tpu_torch.ops import decompose, kernels
+from ieache_tpu_torch.ops import decompose, kernels, tile_models
 from ieache_tpu_torch.ops import keyswitch as tks
 from ieache_tpu_torch.utils import trace
 
@@ -81,7 +81,7 @@ def test_plain_model_equals_the_plain_chain_and_jax(p, b):
     want = tks.keyswitch_plain(x, limbs, tp)
     np.testing.assert_array_equal(want.numpy(), _jax(p, lwe, ks))
     for sms in (132, 8):
-        got = kernels.keyswitch_kernel_model(x, limbs, tp, sms=sms)
+        got = tile_models.keyswitch_kernel_model(x, limbs, tp, sms=sms)
         assert torch.equal(got, want), sms
 
 
@@ -96,7 +96,7 @@ def test_plain_model_under_every_launch_in_any_order(p, b):
     x = torch.from_numpy(lwe)
     want = tks.keyswitch_plain(x, limbs, tp)
     units = kernels.keyswitch_units(tp)
-    launches = list(kernels.keyswitch_launch_shapes(b, tp).values())
+    launches = list(tile_models.keyswitch_launch_shapes(b, tp).values())
     launches += [kernels.keyswitch_shape(b, tp, 16, split)
                  for split in sorted({1, 3, units})]
     rng = random.Random(b)
@@ -104,8 +104,8 @@ def test_plain_model_under_every_launch_in_any_order(p, b):
         tiles = -(-b // launch.lanes)
         order = [(s, t) for s in range(launch.split) for t in range(tiles)]
         rng.shuffle(order)
-        got = kernels.keyswitch_kernel_model(x, limbs, tp, launch,
-                                             order=order)
+        got = tile_models.keyswitch_kernel_model(x, limbs, tp, launch,
+                                                 order=order)
         assert torch.equal(got, want), launch
 
 
@@ -122,7 +122,7 @@ def test_a_block_part_is_its_share_of_the_sum(p):
     d8, body = tks.keyswitch_digits(x, tp)
     units = kernels.keyswitch_units(tp)
     for s in range(3):
-        u0, u1 = kernels.keyswitch_slice(units, 3, s)
+        u0, u1 = tile_models.keyswitch_slice(units, 3, s)
         k0 = u0 * kernels.KS_UNIT_ROWS
         k1 = min(u1 * kernels.KS_UNIT_ROWS, tp.kN * tp.ks_t)
         acc = tks.keyswitch_products(d8[:, k0:k1].contiguous(),
@@ -130,9 +130,9 @@ def test_a_block_part_is_its_share_of_the_sum(p):
         want = -acc[:, : tp.n + 1].to(torch.int64)
         if s == 0:
             want[:, tp.n] += body
-        parts = [kernels.keyswitch_part_model(x, limbs, tp, launch, s, 0,
-                                              fill=fill)
-                 for fill in (0x00, 0x5A, 0xFF)]
+        parts = [tile_models.keyswitch_part_model(x, limbs, tp, launch, s, 0,
+                                                  fill=fill)
+                     for fill in (0x00, 0x5A, 0xFF)]
         for part in parts:
             assert torch.equal(part, want & 0xFFFFFFFF), s
 
@@ -146,7 +146,7 @@ def test_digit_words_decode_to_the_gadget_digits(p):
     b, k0, rows = 21, 64, 96
     lwe, _, _ = _case(p, b, 41)
     x = torch.from_numpy(lwe)
-    words = kernels.keyswitch_digit_words(x, tp, 0, 32, k0, rows, 4)
+    words = tile_models.keyswitch_digit_words(x, tp, 0, 32, k0, rows, 4)
     d = decompose.gadget_decompose(x[:, : tp.kN], tp.ks_basebit, tp.ks_t)
     d = d.reshape(b, -1)
     for kk, mt, ln, r, i in np.ndindex(4, 2, 32, 4, 4):
@@ -165,7 +165,7 @@ def test_key_words_are_the_transposed_key():
     rng = np.random.RandomState(5)
     stage = torch.from_numpy(rng.randint(
         0, 256, kernels.KS_UNIT_ROWS * m + kernels.KS_STAGE_PAD))
-    words = kernels.keyswitch_key_words(stage, m, strips)
+    words = tile_models.keyswitch_key_words(stage, m, strips)
     assert words.shape == (2, strips, 32, 4, 2)
     for ks, w, ln, c, h, i in np.ndindex(2, strips, 32, 4, 2, 4):
         row = 32 * ks + 16 * h + 4 * (ln % 4) + i
@@ -195,7 +195,7 @@ def test_mma_model_is_the_matrix_product_mod_2_32():
         for h in range(2):
             b[ln, h] = sum((int(b8[4 * q + 16 * h + i, g]) & 0xFF) << (8 * i)
                            for i in range(4))
-    d = kernels.mma_s8_model(a, b, c)
+    d = tile_models.mma_s8_model(a, b, c)
     want = (a8 @ b8 + c32) % 2**32
     for ln in range(32):
         g, q = divmod(ln, 4)
@@ -208,7 +208,7 @@ def test_epilogue_puts_the_columns_back_in_order():
     the tile and column 8 q + 4 (r & 1) + c of the warp's strip (tile
     c's fragment column j is the strip's column 4 j + c)."""
     acc = torch.arange(2 * 3 * 4 * 32 * 4).reshape(2, 3, 4, 32, 4)
-    tile = kernels.keyswitch_epilogue_model(acc)
+    tile = tile_models.keyswitch_epilogue_model(acc)
     assert tile.shape == (32, 96)
     for mt, w, c, ln, r in np.ndindex(2, 3, 4, 32, 4):
         g, q = divmod(ln, 4)
@@ -256,8 +256,8 @@ def test_every_launch_fits_a_block(p):
     for sms in (132, 8):
         for b in list(range(1, 130)) + [1023, 1024, 1025, 2048, 4097]:
             for launch in [kernels.keyswitch_launch(b, p, sms),
-                           *kernels.keyswitch_launch_shapes(b, p,
-                                                            sms).values()]:
+                           *tile_models.keyswitch_launch_shapes(b, p,
+                                                                sms).values()]:
                 assert 1 <= launch.split <= units
                 assert kernels.keyswitch_smem_bytes(
                     m, launch.lanes, -(-units // launch.split)) <= \

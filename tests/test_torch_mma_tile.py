@@ -1,6 +1,6 @@
 """The tensor-core tile of ``csrc/mma_tile.cuh``, as far as a CPU can
 hold it: the plain model of its operand construction in
-``ieache_tpu_torch.ops.kernels`` (byte planes, shifted reversed copies,
+``ieache_tpu_torch.ops.tile_models`` (byte planes, shifted reversed copies,
 the fragment map, the per-limb fold) against the port's own references,
 the external product's plain twin, and the JAX package's Pallas kernel
 run in interpret mode on the same numpy inputs; and the plain model of
@@ -28,9 +28,12 @@ from ieache_tpu.ops.pallas_kernels import (
     cmux_step_pallas,
     external_product_pallas_t,
 )
-from ieache_tpu_torch.core.poly import negacyclic_extend, split_i8_limbs
-from ieache_tpu_torch.ops import kernels
-from ieache_tpu_torch.ops.blind_rotate import make_step_gmatrix
+from ieache_tpu_torch.core.poly import (
+    make_step_gmatrix,
+    negacyclic_extend,
+    split_i8_limbs,
+)
+from ieache_tpu_torch.ops import kernels, tile_models
 
 #: where a carry between int8 limbs goes wrong: INT32_MIN, -1, 2^31 - 1,
 #: 0x7F7F7F7F, 0x80808080, and their neighbours
@@ -76,12 +79,13 @@ def test_biased_xor_bytes_are_the_balanced_limbs(n):
     of split_i8_limbs(negacyclic_extend(g)), edge words included."""
     g = _t(_rand_i32(np.random.RandomState(n), (3, n)))
     e = negacyclic_extend(g)
-    got = kernels.mma_limb_bytes(e)
+    got = tile_models.mma_limb_bytes(e)
     assert got.dtype == torch.int8 and got.shape == (3, 2 * n, 4)
     assert torch.equal(got, split_i8_limbs(e))
     # and -e of every edge word, which the extension holds too
     edges = _t(EDGES)
-    assert torch.equal(kernels.mma_limb_bytes(-edges), split_i8_limbs(-edges))
+    assert torch.equal(tile_models.mma_limb_bytes(-edges),
+                       split_i8_limbs(-edges))
 
 
 @pytest.mark.parametrize("n,mcols", [(64, 64), (256, 256), (1024, 256),
@@ -97,9 +101,9 @@ def test_fragment_map_reproduces_the_toeplitz_tile(n, mcols):
     t = min(n, kernels.MMA_TILE_COLS)
     for jb in range(0, n, t):
         for ma in range(0, n, mcols):
-            planes = kernels.mma_planes(bk_i[0, 0], jb, ma, mcols)
+            planes = tile_models.mma_planes(bk_i[0, 0], jb, ma, mcols)
             assert planes.shape == (4, 4, t + mcols)
-            got = kernels.mma_toeplitz_tile(planes, n, mcols)
+            got = tile_models.mma_toeplitz_tile(planes, n, mcols)
             assert torch.equal(got, want[:, ma:ma + mcols, jb:jb + t]), \
                 (jb, ma)
 
@@ -108,7 +112,7 @@ def test_shifted_copies_are_one_plane_shifted():
     """Copy s of a plane is copy 0 moved down by s bytes: an aligned word
     of copy s is the unaligned word of copy 0 at byte offset + s."""
     g = _t(_rand_i32(np.random.RandomState(9), (256,)))
-    planes = kernels.mma_planes(g, 0, 0, 256)
+    planes = tile_models.mma_planes(g, 0, 0, 256)
     for s in range(1, 4):
         assert torch.equal(planes[:, s, :-s], planes[:, 0, s:])
 
@@ -139,7 +143,7 @@ def test_fold_matches_twin_and_pallas(p, case):
     b = 5
     d, bk_i = _extreme_cases(p, b, rng)[case]
     acc = _rand_i32(rng, (p.k + 1, b, p.N))
-    got = kernels.external_product_mma_model(_t(d), _t(bk_i), p, _t(acc))
+    got = tile_models.external_product_mma_model(_t(d), _t(bk_i), p, _t(acc))
     twin = kernels.external_product_plain(_t(d), _t(bk_i), p, _t(acc))
     assert got.dtype == torch.int32 and torch.equal(got, twin)
     want = np.asarray(external_product_pallas_t(
@@ -147,7 +151,7 @@ def test_fold_matches_twin_and_pallas(p, case):
         interpret=True))
     np.testing.assert_array_equal(got.numpy(), want)
     assert torch.equal(
-        kernels.external_product_mma_model(_t(d), _t(bk_i), p),
+        tile_models.external_product_mma_model(_t(d), _t(bk_i), p),
         kernels.external_product_plain(_t(d), _t(bk_i), p))
 
 
@@ -160,7 +164,7 @@ def test_model_matches_twin_over_several_tiles_and_segments(n, rows, b):
     d = _t(rng.randint(-128, 128, (rows, b, n)).astype(np.int8))
     bk_i = _t(_rand_i32(rng, (rows, p.k + 1, n)))
     acc = _t(_rand_i32(rng, (p.k + 1, b, n)))
-    assert torch.equal(kernels.external_product_mma_model(d, bk_i, p, acc),
+    assert torch.equal(tile_models.external_product_mma_model(d, bk_i, p, acc),
                        kernels.external_product_plain(d, bk_i, p, acc))
 
 
@@ -171,9 +175,9 @@ def test_limb_sums_stay_exact_up_to_the_bound():
     assert kernels.MMA_MAX_TERMS * 128 * 128 >= 2**31
     p = TINY_6ROWS
     d = torch.full((p.trgsw_rows, 1, p.N), -128, dtype=torch.int8)
-    tile = kernels.mma_toeplitz_tile(
-        kernels.mma_planes(torch.full((p.N,), LIMBS_LO, dtype=torch.int32),
-                           0, 0, p.N), p.N, p.N)
+    tile = tile_models.mma_toeplitz_tile(
+        tile_models.mma_planes(torch.full((p.N,), LIMBS_LO, dtype=torch.int32),
+                               0, 0, p.N), p.N, p.N)
     # e = concat(-g, g): the upper half of each column is g, limbs -128
     s = torch.einsum("bm,vmj->vbj", d[0].to(torch.int64), tile.to(torch.int64))
     assert int(s.abs().max()) <= p.N * 128 * 128
@@ -186,10 +190,10 @@ def test_limb_sums_stay_exact_up_to_the_bound():
     (4, 1000, False)])
 def test_tile_check_bounds(rows, n, ok):
     if ok:
-        kernels.mma_tile_check(rows, n)
+        tile_models.mma_tile_check(rows, n)
     else:
         with pytest.raises(ValueError, match="tensor-core external product"):
-            kernels.mma_tile_check(rows, n)
+            tile_models.mma_tile_check(rows, n)
 
 
 def test_cpu_tensors_take_the_twin_whatever_the_tile_refuses():
@@ -199,7 +203,7 @@ def test_cpu_tensors_take_the_twin_whatever_the_tile_refuses():
     rng = np.random.RandomState(4)
     rows, kp1, n = p.trgsw_rows, p.k + 1, p.N
     with pytest.raises(ValueError):
-        kernels.mma_tile_check(rows, n)
+        tile_models.mma_tile_check(rows, n)
     d = _t(rng.randint(-128, 128, (rows, 3, n)).astype(np.int8))
     bk = _t(_rand_i32(rng, (2, rows, kp1, n)))
     acc = _t(_rand_i32(rng, (kp1, 3, n)))
@@ -231,7 +235,7 @@ def _extreme_step_cases(p, b, seed):
     shape_k = bk_i.shape
     cases = {"random": (acc, bara, bk_i)}
     for digit, limbs in ((-128, LIMBS_LO), (127, LIMBS_HI)):
-        a = kernels.accumulator_for_digits(p, digit, acc.shape).numpy()
+        a = tile_models.accumulator_for_digits(p, digit, acc.shape).numpy()
         cases[f"digits{digit:+d}"] = (a, at_n,
                                       np.full(shape_k, limbs, np.int32))
     return cases
@@ -241,7 +245,7 @@ def _extreme_step_cases(p, b, seed):
                          ids=lambda p: p.name)
 @pytest.mark.parametrize("digit", [-128, 127, 0, -1])
 def test_accumulator_for_digits_decomposes_to_them(p, digit):
-    acc = kernels.accumulator_for_digits(p, digit, (p.k + 1, 3, p.N))
+    acc = tile_models.accumulator_for_digits(p, digit, (p.k + 1, 3, p.N))
     assert acc.dtype == torch.int32
     d = kernels.rot_diff_decompose_plain(
         acc, torch.full((3,), p.N, dtype=torch.int32), p)
@@ -251,7 +255,7 @@ def test_accumulator_for_digits_decomposes_to_them(p, digit):
 def test_accumulator_for_digits_needs_an_even_diff():
     p = dataclasses.replace(P.TEST_TINY, l=4, name="tiny_32bits")
     with pytest.raises(ValueError, match="l \\* bg_bit == 32"):
-        kernels.accumulator_for_digits(p, -127, (2, 1, p.N))
+        tile_models.accumulator_for_digits(p, -127, (2, 1, p.N))
 
 
 @pytest.mark.parametrize("p", [P.TEST_TINY, P.TEST_SMALL_NOISY],
@@ -266,13 +270,13 @@ def test_digit_tile_is_the_padded_decomposition(p, b):
     rows, n = p.trgsw_rows, p.N
     for b0 in range(0, b, 16):
         nb = min(16, b - b0)
-        tile = kernels.cmux_digit_tile(_t(acc), _t(bara), p, b0)
+        tile = tile_models.cmux_digit_tile(_t(acc), _t(bara), p, b0)
         assert tile.dtype == torch.int8
         assert tile.shape == (rows, 16, n + kernels.DIGIT_ROW_PAD)
         assert torch.equal(tile[:, :nb, :n], want[:, b0:b0 + nb])
         assert not tile[:, nb:].any() and not tile[:, :, n:].any()
-        part = kernels.cmux_digit_tile(_t(acc), _t(bara), p, b0, 1, 2,
-                                       n // 4, n // 2, 0, 8)
+        part = tile_models.cmux_digit_tile(_t(acc), _t(bara), p, b0, 1, 2,
+                                           n // 4, n // 2, 0, 8)
         keep = torch.zeros_like(tile)
         keep[1:3, :8, n // 4:n // 2] = tile[1:3, :8, n // 4:n // 2]
         assert torch.equal(part, keep)
@@ -288,7 +292,7 @@ def test_split_parts_cover_every_pair_once(rows, n):
     nchunk = n // t
     nchunks = rows * nchunk
     for split in (s for s in range(1, nchunks + 1) if nchunks % s == 0):
-        parts = kernels.cmux_part_ranges(rows, n, split)
+        parts = tile_models.cmux_part_ranges(rows, n, split)
         assert len(parts) == split
         seen = []
         for c_begin, c_end, p_lo, p_hi, col_lo, col_hi in parts:
@@ -303,7 +307,7 @@ def test_split_parts_cover_every_pair_once(rows, n):
                 seen.append(c)
         assert seen == list(range(nchunks))
     # one chunk a part, as at B=8 and N=1024: nothing decomposed twice
-    ones = kernels.cmux_part_ranges(rows, n, nchunks)
+    ones = tile_models.cmux_part_ranges(rows, n, nchunks)
     assert all(p_lo == p_hi and col_hi - col_lo == t
                for _, _, p_lo, p_hi, col_lo, col_hi in ones)
 
@@ -325,7 +329,7 @@ def test_work_items_visit_every_tile_once(batch, places):
     block, component) tile in exactly one item, items of a row group side
     by side, and no run longer than what fills the card."""
     n, kp1 = 1024, 2
-    items = kernels.step_work_items(batch, n, kp1, places)
+    items = tile_models.step_work_items(batch, n, kp1, places)
     nbt = -(-batch // 16)
     seen = [(b0, jb, o) for b0, tiles in items for jb, o in tiles]
     assert sorted(seen) == sorted(
@@ -377,14 +381,14 @@ def test_step_models_match_twin_and_pallas(p, case):
                                  jnp.asarray(bk_i), p, interpret=True))
         np.testing.assert_array_equal(twin.numpy(), want)
         # the whole padded tile's digits through the tile's model
-        d = torch.cat([kernels.cmux_digit_tile(_t(acc), _t(bara), p, b0)
+        d = torch.cat([tile_models.cmux_digit_tile(_t(acc), _t(bara), p, b0)
                        [:, :min(16, b - b0), :p.N]
                        for b0 in range(0, b, 16)], dim=1)
-        got = kernels.external_product_mma_model(d, _t(bk_i), p, _t(acc))
+        got = tile_models.external_product_mma_model(d, _t(bk_i), p, _t(acc))
         np.testing.assert_array_equal(got.numpy(), want)
         for sms in ((132, 2) if b == 8 else (1,)):
-            for model in (kernels.cmux_step_mma_model,
-                          kernels.cmux_step_overlap_mma_model):
+            for model in (tile_models.cmux_step_mma_model,
+                          tile_models.cmux_step_overlap_mma_model):
                 got = model(_t(acc), _t(bara), _t(bk_i), p, sms)
                 np.testing.assert_array_equal(got.numpy(), want,
                                               err_msg=f"{model.__name__} "
@@ -398,7 +402,7 @@ def test_step_models_match_twin_at_small_noisy(b):
     acc, bara, bk_i = _step_case(p, b, 90 + b)
     want = kernels.cmux_step_plain(_t(acc), _t(bara), _t(bk_i), p)
     for sms in (132, 4):
-        assert torch.equal(kernels.cmux_step_mma_model(
+        assert torch.equal(tile_models.cmux_step_mma_model(
             _t(acc), _t(bara), _t(bk_i), p, sms), want)
-        assert torch.equal(kernels.cmux_step_overlap_mma_model(
+        assert torch.equal(tile_models.cmux_step_overlap_mma_model(
             _t(acc), _t(bara), _t(bk_i), p, sms), want)

@@ -1,5 +1,5 @@
 """The two rotation kernels of the port as far as a CPU can hold them: the
-plain models in ``ieache_tpu_torch.ops.kernels`` of
+plain models in ``ieache_tpu_torch.ops.tile_models`` of
 ``csrc/rot_diff_decompose.cu`` (a thread's run of coefficients: aligned
 quads shifted by the polynomial's one amount, whole quads negated, each
 digit row packed by byte permutes into one store; and the launch policy
@@ -27,7 +27,7 @@ from hypothesis import strategies as st
 from ieache_tpu import params as P
 from ieache_tpu.ops.blind_rotate import negacyclic_rotate_batch
 from ieache_tpu.ops.pallas_kernels import rot_diff_decompose_pallas
-from ieache_tpu_torch.ops import kernels
+from ieache_tpu_torch.ops import kernels, tile_models
 
 #: compiled once a shape: the amounts of a test share it
 _rotate_batch = jax.jit(negacyclic_rotate_batch)
@@ -70,7 +70,7 @@ def _bara(name, n, b, rng):
 
 def _runs(n):
     """Every run length the split rotation's kernel takes at N."""
-    return [run for run in kernels.ROT_RUNS if run <= n]
+    return [run for run in tile_models.ROT_RUNS if run <= n]
 
 
 def _with_n(p, n):
@@ -91,8 +91,8 @@ def test_run_model_matches_the_twin(p, b, amount):
     bara = _t(_bara(amount, p.N, b, rng))
     want = kernels.rot_diff_decompose_plain(acc, bara, p)
     for run in _runs(p.N):
-        got = kernels.rot_diff_decompose_run_model(acc, bara, p,
-                                                   run=run)
+        got = tile_models.rot_diff_decompose_run_model(acc, bara, p,
+                                                       run=run)
         assert got.dtype == torch.int8
         assert torch.equal(got, want), run
 
@@ -108,7 +108,7 @@ def test_run_model_matches_pallas(p):
         bara = _bara(amount, p.N, 8, rng)
         want = np.asarray(rot_diff_decompose_pallas(
             jnp.asarray(acc), jnp.asarray(bara), p, interpret=True))
-        got = kernels.rot_diff_decompose_run_model(_t(acc), _t(bara), p)
+        got = tile_models.rot_diff_decompose_run_model(_t(acc), _t(bara), p)
         np.testing.assert_array_equal(got.numpy(), want, err_msg=amount)
 
 
@@ -127,8 +127,8 @@ def test_run_model_on_extreme_operands(p, word):
         want = np.asarray(rot_diff_decompose_pallas(
             jnp.asarray(acc), jnp.asarray(bara), p, interpret=True))
         for run in _runs(p.N):
-            got = kernels.rot_diff_decompose_run_model(_t(acc), _t(bara), p,
-                                                       run=run)
+            got = tile_models.rot_diff_decompose_run_model(
+                _t(acc), _t(bara), p, run=run)
             np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -143,7 +143,7 @@ def test_run_model_at_small_degrees(n):
         bara = _t(np.array([a, (a + 5) % (2 * n), 2 * n - 1 - a], np.int32))
         want = kernels.rot_diff_decompose_plain(acc, bara, p)
         for run in _runs(n):
-            assert torch.equal(kernels.rot_diff_decompose_run_model(
+            assert torch.equal(tile_models.rot_diff_decompose_run_model(
                 acc, bara, p, run=run), want), (a, run)
 
 
@@ -159,8 +159,8 @@ def test_run_model_at_other_gadgets(bg_bit, l):
     want = np.asarray(rot_diff_decompose_pallas(
         jnp.asarray(acc), jnp.asarray(bara), p, interpret=True))
     for run in _runs(p.N):
-        got = kernels.rot_diff_decompose_run_model(_t(acc), _t(bara), p,
-                                                   run=run)
+        got = tile_models.rot_diff_decompose_run_model(_t(acc), _t(bara), p,
+                                                       run=run)
         np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -184,7 +184,7 @@ def test_rot_launch_policy_at_small_degrees_and_other_cards():
     assert kernels.rot_launch(16, 2, 1024, sms=1) == 8
     assert kernels.rot_launch(16, 2, 1024, sms=16) == 4
     for b in (1, 3, 8, 16, 100, 1000, 5000):
-        assert kernels.rot_launch(b, 2, 256) in kernels.ROT_RUNS
+        assert kernels.rot_launch(b, 2, 256) in tile_models.ROT_RUNS
 
 
 def test_run_model_refuses_launches_the_kernel_refuses():
@@ -193,16 +193,16 @@ def test_run_model_refuses_launches_the_kernel_refuses():
     bara = torch.zeros((1,), dtype=torch.int32)
     for run in (0, 1, 2, 3, 16):
         with pytest.raises(ValueError):
-            kernels.rot_diff_decompose_run_model(acc, bara, p, run=run)
+            tile_models.rot_diff_decompose_run_model(acc, bara, p, run=run)
 
 
 def test_byte_perm_model():
     """__byte_perm's selector picks bytes of y:x, x the low four."""
     x, y = torch.tensor([0x33221100]), torch.tensor([0x77665544])
-    assert int(kernels.byte_perm(x, y, 0x5410)) == 0x55441100
-    assert int(kernels.byte_perm(x, y, 0x0123)) == 0x00112233
-    assert int(kernels.byte_perm(x, y, 0x7654)) == 0x77665544
-    assert int(kernels.byte_perm(x, y, 0x73)) == 0x00007733
+    assert int(tile_models.byte_perm(x, y, 0x5410)) == 0x55441100
+    assert int(tile_models.byte_perm(x, y, 0x0123)) == 0x00112233
+    assert int(tile_models.byte_perm(x, y, 0x7654)) == 0x77665544
+    assert int(tile_models.byte_perm(x, y, 0x73)) == 0x00007733
 
 
 @settings(max_examples=100, deadline=None)
@@ -212,7 +212,7 @@ def test_digit_word_model_packs_gadget_digits(words, jl):
     """With Bg = 2^8 the byte permutes give what gadget_digit gives,
     digit s in byte s."""
     v = torch.tensor(words, dtype=torch.int64)
-    word = int(kernels.digit_word_model(v, jl, 8))
+    word = int(tile_models.digit_word_model(v, jl, 8))
     for s in range(4):
         digit = ((words[s] >> (24 - 8 * jl)) & 0xFF) - 128
         assert ((word >> (8 * s)) & 0xFF) == digit & 0xFF
@@ -245,11 +245,12 @@ def test_sublane_slab_model_matches_jax(n, b):
         plain = kernels.rotate_sublane_plain(_t(acc), _t(bara))
         np.testing.assert_array_equal(plain.numpy(), want)
         for splits in routes:
-            got = kernels.rot_tr_slab_model(_t(acc), _t(bara), splits=splits)
+            got = tile_models.rot_tr_slab_model(_t(acc), _t(bara),
+                                                splits=splits)
             np.testing.assert_array_equal(got.numpy(), want,
                                           err_msg=f"{amount} {splits}")
         np.testing.assert_array_equal(
-            kernels.rot_tr_slab_model(_t(acc), _t(bara)).numpy(), want)
+            tile_models.rot_tr_slab_model(_t(acc), _t(bara)).numpy(), want)
 
 
 @pytest.mark.parametrize("word", EDGE_WORDS)
@@ -259,7 +260,7 @@ def test_sublane_slab_model_on_extreme_operands(word):
     bara = rng.randint(0, 128, (20,)).astype(np.int32)
     want = kernels.rotate_sublane_plain(_t(acc), _t(bara))
     for splits in (0, 1, 4):
-        assert torch.equal(kernels.rot_tr_slab_model(
+        assert torch.equal(tile_models.rot_tr_slab_model(
             _t(acc), _t(bara), splits=splits), want)
 
 
@@ -287,7 +288,7 @@ def test_slab_reads_are_free_of_bank_conflicts_at_every_degree(logn, j0,
     n = 1 << logn
     j0 = (j0 % n) & ~1
     amounts = torch.tensor(bara) % (2 * n)
-    rot, plain = kernels.rot_tr_slab_banks(j0, amounts, n)
+    rot, plain = tile_models.rot_tr_slab_banks(j0, amounts, n)
     assert len(set(rot.tolist())) == 32
     assert len(set(plain.tolist())) == 32
 
@@ -302,7 +303,8 @@ def test_tr_rotation_takes_the_same_route():
     want = kernels.rot_diff_decompose_tr_plain(acc, bara, p)
     for sms in (1, 4, 132):
         assert torch.equal(
-            kernels.rot_diff_decompose_tr_slab_model(acc, bara, p, sms=sms),
+            tile_models.rot_diff_decompose_tr_slab_model(acc, bara, p,
+                                                         sms=sms),
             want)
     assert kernels.rot_tr_route(24, 2, p.N) == 0
     assert kernels.rot_tr_route(24, 2, p.N, sms=4) == 1

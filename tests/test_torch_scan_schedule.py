@@ -23,7 +23,7 @@ import torch
 from ieache_tpu import params as P
 from ieache_tpu.ops.pallas_kernels import blind_rotate_scan_pallas
 from ieache_tpu_torch import params as TP
-from ieache_tpu_torch.ops import kernels
+from ieache_tpu_torch.ops import kernels, tile_models
 
 #: INT32_MIN, -1 and 2^31-1 and their neighbours
 EDGES = np.array([-2**31, -2**31 + 1, -1, 0, 1, 2**31 - 2, 2**31 - 1],
@@ -96,7 +96,7 @@ def _check_model(p, b, nsteps, order, word=None):
         kernels.blind_rotate_scan_plain(acc_t, _t(bara), _t(bk), tp).numpy(),
         want)
     for sms in SMS:
-        got = kernels.blind_rotate_scan_schedule_model(
+        got = tile_models.blind_rotate_scan_schedule_model(
             acc_t, _t(bara), _t(bk), tp, sms=sms, order=ORDERS[order])
         np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(acc_t.numpy(), acc)   # acc not written
@@ -116,12 +116,12 @@ def test_scan_launch_at_the_full_size(b, split, grid):
     whole, the runs of a row group in clusters of two."""
     pick = kernels.scan_launch(b, 2, 1024, 4, 132, 2)
     assert pick.form == ("wgmma" if 272 <= b <= 512 else "mma")
-    launch = kernels.scan_launch_shapes(b, 2, 1024, 4, 132, 2)["mma"]
+    launch = tile_models.scan_launch_shapes(b, 2, 1024, 4, 132, 2)["mma"]
     assert launch.form == "mma" and (pick.form == "wgmma" or launch == pick)
     assert (launch.split, launch.grid) == (split, grid)
     nbt = -(-b // 16)
     assert launch.cluster == (2 if split == 1 else 1)
-    items = kernels.scan_work_items(launch, b, 1024, 2)
+    items = tile_models.scan_work_items(launch, b, 1024, 2)
     assert len(items) == nbt * 8 * split // launch.per_item
     if b == 8:
         assert launch.per_item == 1 and len(items) == 128
@@ -139,19 +139,20 @@ def test_scan_launch_agrees_with_the_fused_step(b, per_sm):
     block is resident (grid <= SMs x blocks an SM) in whole clusters; the
     work items cover every output tile of every part once."""
     n, kp1, rows, sms = 1024, 2, 4, 132
-    launch = kernels.scan_launch_shapes(b, kp1, n, rows, sms, per_sm)["mma"]
+    launch = tile_models.scan_launch_shapes(b, kp1, n, rows, sms,
+                                            per_sm)["mma"]
     pick = kernels.scan_launch(b, kp1, n, rows, sms, per_sm)
     assert pick.form == (kernels.step_launch(b, kp1, n, rows, sms).form
                          if b >= kernels.SCAN_WGMMA_MIN_BATCH else "mma")
     assert pick == launch or pick.form == "wgmma"
     nbt = -(-b // 16)
     assert launch.split == kernels.mma_split_for(nbt * 8, 16, sms)
-    items = kernels.scan_work_items(launch, b, n, kp1)
+    items = tile_models.scan_work_items(launch, b, n, kp1)
     nper = len(items) // (nbt * launch.split)
     assert launch.cluster == len(kernels.step_cluster_shares(
         nper, launch.split))
     if launch.split == 1:
-        fused = kernels.step_work_items(b, n, kp1, sms * per_sm)
+        fused = tile_models.step_work_items(b, n, kp1, sms * per_sm)
         assert [(b0, tiles) for b0, _, tiles in items] == fused
     assert launch.grid <= sms * per_sm and launch.grid % launch.cluster == 0
     assert launch.grid == min(len(items), sms * per_sm)
@@ -190,7 +191,7 @@ def test_tile_bench_times_the_smaller_splits():
     for b in (8, 256, 1024):
         shapes = tile_bench.scan_launch_variants(p, b, 132)
         pick = kernels.scan_launch(b, 2, 1024, 4, 132, 2)
-        mma = kernels.scan_launch_shapes(b, 2, 1024, 4, 132, 2)["mma"]
+        mma = tile_models.scan_launch_shapes(b, 2, 1024, 4, 132, 2)["mma"]
         splits = {k: s for k, s in shapes.items() if k.startswith("split")}
         assert len(splits) == 19 and mma not in splits.values()
         assert pick not in shapes.values()
@@ -199,9 +200,9 @@ def test_tile_bench_times_the_smaller_splits():
             (s, q) for s in (1, 2, 4, 8, 16) for q in (1, 2, 4, 8)}
         assert all(s.grid <= 264 for s in splits.values())
         others = {k for k in shapes if not k.startswith("split")}
-        assert others == set(kernels.scan_launch_shapes(
+        assert others == set(tile_models.scan_launch_shapes(
             b, 2, 1024, 4, 132, 2)) - {
-            k for k, s in kernels.scan_launch_shapes(
+            k for k, s in tile_models.scan_launch_shapes(
                 b, 2, 1024, 4, 132, 2).items() if s == pick}
     assert "split 16, per_item 2" in tile_bench.scan_launch_variants(p, 8)
 
@@ -223,7 +224,7 @@ def test_schedule_model_under_every_launch_shape(p, split):
         for per_item in (1, group):
             launch = kernels.scan_shape(b, tp.k + 1, tp.N, split, per_item,
                                         264)
-            got = kernels.blind_rotate_scan_schedule_model(
+            got = tile_models.blind_rotate_scan_schedule_model(
                 acc, bara, bk, tp, order=ORDERS["shuffled"], launch=launch)
             assert torch.equal(got, want), (b, launch)
 
@@ -278,7 +279,7 @@ def test_schedule_model_sees_a_missing_part():
     p = TP.TEST_TINY
     acc, bara, bk = (_t(x) for x in _inputs(P.TEST_TINY, 8, 2))
     with pytest.raises(AssertionError, match="cover"):
-        kernels.blind_rotate_scan_schedule_model(
+        tile_models.blind_rotate_scan_schedule_model(
             acc, bara, bk, p, order=lambda items: items[1:])
 
 
@@ -292,5 +293,5 @@ def test_wrapper_on_cpu_is_the_twin():
     assert kernels.blind_rotate_scan.launches == before
     assert torch.equal(got, kernels.blind_rotate_scan_plain(acc, bara, bk,
                                                             p))
-    assert torch.equal(got, kernels.blind_rotate_scan_schedule_model(
+    assert torch.equal(got, tile_models.blind_rotate_scan_schedule_model(
         acc, bara, bk, p))

@@ -20,7 +20,7 @@ import torch
 from ieache_tpu import params as P
 from ieache_tpu.ops import blind_rotate as jbr
 from ieache_tpu_torch.ops import blind_rotate as tbr
-from ieache_tpu_torch.ops import kernels
+from ieache_tpu_torch.ops import kernels, tile_models
 
 #: the smallest input that showed the fault: N below the tile's 64
 N32 = P.TFHEParams(n=8, N=32, k=1, bg_bit=8, l=2, ks_basebit=4, ks_t=4,
@@ -99,10 +99,10 @@ def test_tile_check_is_the_predicate():
     for rows, n in ((4, 1024), (4, 32), (128, 1024), (4, 96)):
         why = kernels.kernels_refusal("split", rows, n)
         if why is None:
-            kernels.mma_tile_check(rows, n)
+            tile_models.mma_tile_check(rows, n)
         else:
             with pytest.raises(ValueError) as err:
-                kernels.mma_tile_check(rows, n)
+                tile_models.mma_tile_check(rows, n)
             assert str(err.value) == why
 
 

@@ -38,7 +38,7 @@ from ieache_tpu.utils import prng
 import ieache_tpu_torch.boot.bootstrap as TB
 from ieache_tpu_torch.lwe import encrypt as tenc
 from ieache_tpu_torch.ops import blind_rotate as tbr
-from ieache_tpu_torch.ops import kernels
+from ieache_tpu_torch.ops import kernels, tile_models
 
 #: INT32_MIN, -1 and 2^31-1 and their neighbours
 EDGES = np.array([-2**31, -2**31 + 1, -1, 0, 1, 2**31 - 2, 2**31 - 1],
@@ -154,8 +154,8 @@ def test_fused_step_models_match_pallas(p, sms):
         want = np.asarray(cmux_step_pallas(
             jnp.asarray(acc_t), jnp.asarray(bara), jnp.asarray(bk_i), p,
             interpret=True))
-        for model in (kernels.cmux_step_mma_model,
-                      kernels.cmux_step_overlap_mma_model):
+        for model in (tile_models.cmux_step_mma_model,
+                      tile_models.cmux_step_overlap_mma_model):
             got = model(_t(acc_t), _t(bara), _t(bk_i), p, sms)
             np.testing.assert_array_equal(got.numpy(), want)
 

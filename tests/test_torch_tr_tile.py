@@ -1,9 +1,10 @@
 """The ``tr`` step pair's kernels as far as a CPU can hold them: the plain
-models in ``ieache_tpu_torch.ops.kernels`` of ``csrc/external_product_tr.cu``
-(the Toeplitz limb tile as the MMA's A operand through its window over
-diagonals, the transposed digit stage, the kernel's arithmetic tile by
-tile) and of ``csrc/rot_diff_decompose_tr.cu`` (the shared-memory slab and
-the banks its reads fall on), against the port's own references, the
+models in ``ieache_tpu_torch.ops.tile_models`` of
+``csrc/external_product_tr.cu`` (the Toeplitz limb tile as the MMA's A
+operand through its window over diagonals, the transposed digit stage,
+the kernel's arithmetic tile by tile) and of
+``csrc/rot_diff_decompose_tr.cu`` (the shared-memory slab and the banks
+its reads fall on), against the port's own references, the
 plain twins and the JAX package's Pallas kernels in interpret mode on the
 same numpy inputs.
 
@@ -26,8 +27,8 @@ from ieache_tpu.ops.pallas_kernels import (
     external_product_pallas_tr,
     rot_diff_decompose_pallas_tr,
 )
-from ieache_tpu_torch.ops import kernels
-from ieache_tpu_torch.ops.blind_rotate import make_step_gmatrix
+from ieache_tpu_torch.core.poly import make_step_gmatrix
+from ieache_tpu_torch.ops import kernels, tile_models
 
 #: where a carry between int8 limbs goes wrong: INT32_MIN, -1, 2^31 - 1,
 #: 0x7F7F7F7F, 0x80808080, 0
@@ -79,8 +80,8 @@ def test_a_operand_map_reproduces_the_toeplitz_tile(n, mcols):
     t = min(n, kernels.MMA_TILE_COLS)
     for jb in range(0, n, t):
         for ma in range(0, n, mcols):
-            got = kernels.mma_toeplitz_tile_a(
-                kernels.mma_planes(bk_i[0, 0], jb, ma, mcols), n, mcols)
+            got = tile_models.mma_toeplitz_tile_a(
+                tile_models.mma_planes(bk_i[0, 0], jb, ma, mcols), n, mcols)
             assert got.shape == (4, t, mcols)
             assert torch.equal(
                 got, want[:, ma:ma + mcols, jb:jb + t].transpose(1, 2)), \
@@ -92,12 +93,12 @@ def test_a_registers_take_every_window_entry(ni):
     """The four A registers of the warp's NI/2 m-tiles read entries of
     the window of NI + 2 diagonals only, and between them all of it:
     a1 one diagonal below a0, a2 two above, a3 one above."""
-    taken = {kernels.mma_a_window_index(ni, mt, r)
+    taken = {tile_models.mma_a_window_index(ni, mt, r)
              for mt in range(ni // 2) for r in range(4)}
     assert taken == set(range(ni + 2))
     for mt in range(ni // 2):
-        a0 = kernels.mma_a_window_index(ni, mt, 0)
-        assert [kernels.mma_a_window_index(ni, mt, r) - a0
+        a0 = tile_models.mma_a_window_index(ni, mt, 0)
+        assert [tile_models.mma_a_window_index(ni, mt, r) - a0
                 for r in range(4)] == [0, -1, 2, 1]
 
 
@@ -109,7 +110,7 @@ def test_stage_is_a_transpose_of_the_digit_chunk(t, b, b0):
     past the batch and the padding zero."""
     rng = np.random.RandomState(t + b)
     d = _t(rng.randint(-128, 128, (2, 2 * t, b)).astype(np.int8))
-    got = kernels.tr_stage_model(d, 1, t, b0, t)
+    got = tile_models.tr_stage_model(d, 1, t, b0, t)
     nb = min(16, b - b0)
     want = torch.zeros((16, t + 16), dtype=torch.int8)
     want[:nb, :t] = d[1, t:2 * t, b0:b0 + nb].transpose(0, 1)
@@ -120,12 +121,12 @@ def test_stage_is_a_transpose_of_the_digit_chunk(t, b, b0):
 def test_transpose_reads_fall_on_32_banks(t):
     """Each warp's four column reads of the raw stage touch 32 distinct
     banks (the 16 bytes of padding after every 8 columns)."""
-    words = kernels.tr_transpose_reads(t)
+    words = tile_models.tr_transpose_reads(t)
     for w0 in range(0, t, 32):
         for mi in range(4):
             banks = words[w0:w0 + 32, mi] % 32
             assert len(set(banks.tolist())) == min(32, t - w0)
-    assert kernels.tr_raw_offset(t) == 18 * t
+    assert tile_models.tr_raw_offset(t) == 18 * t
 
 
 def _operands(p, b, case, rng):
@@ -155,7 +156,7 @@ def test_tr_model_matches_the_twin(p, b, case):
     d, bk_i = _operands(p, b, case, rng)
     acc = _t(_rand_i32(rng, (p.k + 1, p.N, b)))
     for a in (None, acc):
-        got = kernels.external_product_tr_mma_model(_t(d), _t(bk_i), p, a)
+        got = tile_models.external_product_tr_mma_model(_t(d), _t(bk_i), p, a)
         assert got.dtype == torch.int32 and got.shape == (p.k + 1, p.N, b)
         assert torch.equal(
             got, kernels.external_product_tr_plain(_t(d), _t(bk_i), p, a))
@@ -172,7 +173,8 @@ def test_tr_model_over_several_tiles_and_segments():
     want = kernels.external_product_tr_plain(d, bk_i, p, acc)
     for sms in (132, 1):
         assert torch.equal(
-            kernels.external_product_tr_mma_model(d, bk_i, p, acc, sms=sms),
+            tile_models.external_product_tr_mma_model(d, bk_i, p, acc,
+                                                      sms=sms),
             want)
 
 
@@ -187,7 +189,8 @@ def test_tr_model_matches_pallas(case):
     want = np.asarray(external_product_pallas_tr(
         jnp.asarray(d), jnp.asarray(bk_i), p, jnp.asarray(acc),
         interpret=True))
-    got = kernels.external_product_tr_mma_model(_t(d), _t(bk_i), p, _t(acc))
+    got = tile_models.external_product_tr_mma_model(_t(d), _t(bk_i), p,
+                                                    _t(acc))
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -196,7 +199,7 @@ def test_tr_model_refuses_what_the_kernel_refuses():
     d = torch.zeros((p.trgsw_rows, 32, 1), dtype=torch.int8)
     bk_i = torch.zeros((p.trgsw_rows, 2, 32), dtype=torch.int32)
     with pytest.raises(ValueError, match="power of two >= 64"):
-        kernels.external_product_tr_mma_model(d, bk_i, p)
+        tile_models.external_product_tr_mma_model(d, bk_i, p)
 
 
 # ---------------------------------------------------------------------------
@@ -212,7 +215,7 @@ def test_slab_model_matches_the_twin(p, b):
     for bara in (rng.randint(0, 2 * p.N, (b,)),
                  *(np.full((b,), a) for a in (0, p.N, 2 * p.N - 1))):
         bara = _t(bara.astype(np.int32))
-        got = kernels.rot_diff_decompose_tr_slab_model(acc, bara, p)
+        got = tile_models.rot_diff_decompose_tr_slab_model(acc, bara, p)
         assert got.dtype == torch.int8
         assert torch.equal(got,
                            kernels.rot_diff_decompose_tr_plain(acc, bara, p))
@@ -229,7 +232,7 @@ def test_slab_model_at_every_split(sms, splits):
     acc = _t(_rand_i32(rng, (p.k + 1, p.N, 16)))
     bara = _t(np.concatenate([rng.randint(0, 2 * p.N, (13,)),
                               [0, p.N, 2 * p.N - 1]]).astype(np.int32))
-    got = kernels.rot_diff_decompose_tr_slab_model(acc, bara, p, sms=sms)
+    got = tile_models.rot_diff_decompose_tr_slab_model(acc, bara, p, sms=sms)
     assert torch.equal(got, kernels.rot_diff_decompose_tr_plain(acc, bara, p))
 
 
@@ -240,7 +243,7 @@ def test_slab_model_matches_pallas():
     bara = rng.randint(0, 2 * p.N, (8,)).astype(np.int32)
     want = np.asarray(rot_diff_decompose_pallas_tr(
         jnp.asarray(acc), jnp.asarray(bara), p, interpret=True))
-    got = kernels.rot_diff_decompose_tr_slab_model(_t(acc), _t(bara), p)
+    got = tile_models.rot_diff_decompose_tr_slab_model(_t(acc), _t(bara), p)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -270,7 +273,7 @@ def test_slab_or_gather_by_batch(b, gathers):
 def test_slab_reads_are_free_of_bank_conflicts(j0, bara):
     """A warp's two rows x 16 lanes read 32 distinct banks, rotated and
     plain, whatever each lane's amount."""
-    rot, plain = kernels.rot_tr_slab_banks(j0, torch.tensor(bara), 1024)
+    rot, plain = tile_models.rot_tr_slab_banks(j0, torch.tensor(bara), 1024)
     assert len(set(rot.tolist())) == 32
     assert len(set(plain.tolist())) == 32
 
@@ -278,7 +281,7 @@ def test_slab_reads_are_free_of_bank_conflicts(j0, bara):
 @pytest.mark.parametrize("amount", [0, 1024, 2047])
 @pytest.mark.parametrize("j0", [0, 2, 1022])
 def test_slab_reads_at_the_edge_amounts(j0, amount):
-    rot, plain = kernels.rot_tr_slab_banks(
+    rot, plain = tile_models.rot_tr_slab_banks(
         j0, torch.full((16,), amount), 1024)
     assert len(set(rot.tolist())) == 32 and len(set(plain.tolist())) == 32
 

@@ -1,7 +1,7 @@
 """The fused CMux step on the warpgroup tile (``csrc/wgmma_step.cuh``:
 ``cmux_step.cu``'s and ``blind_rotate_scan.cu``'s wgmma forms) and the
 step's launch policy, as far as a CPU can hold them: the plain model in
-``ieache_tpu_torch.ops.kernels`` (each cluster rank's rows of a unit
+``ieache_tpu_torch.ops.tile_models`` (each cluster rank's rows of a unit
 decomposed into its own stages in the swizzled layout the wgmma descriptor
 reads, then copied into every peer's; the consumers' arithmetic of
 ``external_product_wgmma_model``; the scan's clusters walking their work
@@ -29,7 +29,7 @@ from ieache_tpu.ops.pallas_kernels import (
     cmux_step_pallas,
 )
 from ieache_tpu_torch import params as TP
-from ieache_tpu_torch.ops import kernels
+from ieache_tpu_torch.ops import kernels, tile_models
 
 #: key words at which a carry between int8 limbs goes wrong (chip_smoke's
 #: EDGE_KEY_WORDS): INT32_MIN, -1, 2^31 - 1, 0x7F7F7F7F, 0x80808080, 0
@@ -83,8 +83,8 @@ def _step_inputs(p, b, case="random"):
     elif case.startswith("digits"):
         digit, limbs = ((-128, 0x80808080 - 2**32) if case == "digits-128"
                         else (127, 0x7F7F7F7F))
-        acc = kernels.accumulator_for_digits(_tp(p), digit,
-                                             acc.shape).numpy()
+        acc = tile_models.accumulator_for_digits(_tp(p), digit,
+                                                 acc.shape).numpy()
         bara[:] = p.N
         bk_i[...] = limbs
     return acc, bara, bk_i
@@ -100,7 +100,7 @@ def _step_pallas(name, b, case):
 
 
 def _wgmma_shapes(p, b, sms=132):
-    return {name: launch for name, launch in kernels.step_launch_shapes(
+    return {name: launch for name, launch in tile_models.step_launch_shapes(
         b, p.k + 1, p.N, p.trgsw_rows, sms).items()
         if launch.form == "wgmma"}
 
@@ -119,7 +119,7 @@ def test_rank_shares_cover_every_staged_byte_once(bn, kc, cluster):
     every byte of every stage of a unit once; and what a rank decomposes
     is exactly what its copies send."""
     l = 3
-    rows = [kernels.wgmma_step_rank_rows(bn, cluster, r)
+    rows = [tile_models.wgmma_step_rank_rows(bn, cluster, r)
             for r in range(cluster)]
     assert rows[0][0] == 0 and rows[-1][1] == bn
     assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
@@ -130,9 +130,9 @@ def test_rank_shares_cover_every_staged_byte_once(bn, kc, cluster):
                          dtype=np.int64).astype(np.int32))
     bara = _t(rng.randint(0, 2 * p.N, (bn,)).astype(np.int32))
     for rank in range(cluster):
-        ranges = kernels.wgmma_step_copy_ranges(bn, kc, cluster, rank, l)
+        ranges = tile_models.wgmma_step_copy_ranges(bn, kc, cluster, rank, l)
         written = np.zeros_like(count)
-        for jl, (at, _) in enumerate(kernels.wgmma_step_unit_model(
+        for jl, (at, _) in enumerate(tile_models.wgmma_step_unit_model(
                 acc, bara, p, 0, 0, 0, bn, kc, rank, cluster)):
             written[jl * bn * kc + at.numpy()] += 1
         sent = np.zeros_like(count)
@@ -159,14 +159,14 @@ def test_unit_stages_read_as_the_digit_rows(p, b):
     d = kernels.rot_diff_decompose_plain(acc, bara, p)
     kc = kernels.wgmma_chunk_cols(p.N)
     for bn in (kernels.WG_STEP_TILE,):
-        reads = torch.cat([kernels.wgmma_descriptor_reads(bn, kc, ks)
+        reads = torch.cat([tile_models.wgmma_descriptor_reads(bn, kc, ks)
                            for ks in range(kc // 32)])       # (kc, bn)
         for cluster in kernels.WG_STEP_CLUSTERS:
             for b0 in range(0, b, bn):
                 nb = min(bn, b - b0)
                 for u in range(p.k + 1):
                     for ch in range(p.N // kc):
-                        stages = kernels.wgmma_step_stages(
+                        stages = tile_models.wgmma_step_stages(
                             acc, bara, p, u, ch, b0, bn, kc, cluster)
                         for jl in range(p.l):
                             got = stages[jl][reads]          # (kc, bn)
@@ -202,9 +202,9 @@ def test_wgmma_model_matches_twin_and_pallas(p, b):
     shapes = _wgmma_shapes(tp, b)
     assert shapes
     for name, launch in shapes.items():
-        got = kernels.cmux_step_wgmma_model(*args, launch=launch)
+        got = tile_models.cmux_step_wgmma_model(*args, launch=launch)
         np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
-        assert torch.equal(kernels.cmux_step_as(*args, launch), got)
+        assert torch.equal(tile_models.cmux_step_as(*args, launch), got)
     np.testing.assert_array_equal(acc, args[0].numpy())   # acc not written
 
 
@@ -220,8 +220,8 @@ def test_wgmma_model_on_edge_operands(p, case):
     acc, bara, bk_i = _step_inputs(p, 40, case)
     want = _step_pallas(p.name, 40, case)
     for launch in _wgmma_shapes(tp, 40).values():
-        got = kernels.cmux_step_wgmma_model(_t(acc), _t(bara), _t(bk_i), tp,
-                                            launch=launch)
+        got = tile_models.cmux_step_wgmma_model(_t(acc), _t(bara), _t(bk_i),
+                                                tp, launch=launch)
         np.testing.assert_array_equal(got.numpy(), want, err_msg=str(launch))
 
 
@@ -242,7 +242,7 @@ def test_one_tile_at_the_full_size(p):
     want = kernels.cmux_step_plain(acc, bara, bk_i, p)
     o, jb = p.k, p.N - 128
     for cluster in (4, 8):
-        got = acc[o, :, jb:] + kernels._wgmma_step_tile(
+        got = acc[o, :, jb:] + tile_models._wgmma_step_tile(
             acc, bara, bk_i, p, 0, 64, 128, o, jb, cluster)
         assert torch.equal(got, want[o, :, jb:])
 
@@ -256,11 +256,11 @@ def test_model_refuses_what_the_form_refuses():
     bk_i = torch.zeros((4, 2, 64), dtype=torch.int32)
     split = kernels.StepLaunch("wgmma", 64, 64, 2, 1, 1, 4)
     with pytest.raises(ValueError, match="whole tiles"):
-        kernels.cmux_step_wgmma_model(acc, bara, bk_i, p, launch=split)
+        tile_models.cmux_step_wgmma_model(acc, bara, bk_i, p, launch=split)
     deep = dataclasses.replace(TP.TEST_TINY, bg_bit=4, l=5)
     assert kernels.wgmma_step_refusal(deep.trgsw_rows, 2, 64)
     with pytest.raises(ValueError, match="gadget levels"):
-        kernels.cmux_step_wgmma_model(
+        tile_models.cmux_step_wgmma_model(
             torch.zeros((2, 8, 64), dtype=torch.int32), bara,
             torch.zeros((10, 2, 64), dtype=torch.int32), deep)
 
@@ -360,15 +360,15 @@ def test_scan_launch_takes_the_step_form(b, held):
     else:
         assert (launch.form, launch.tile) == (step.form, step.tile)
     if launch.form == "mma":
-        assert launch == kernels.scan_launch_shapes(b, 2, 1024, 4, 132,
-                                                    2)["mma"]
+        assert launch == tile_models.scan_launch_shapes(b, 2, 1024, 4, 132,
+                                                        2)["mma"]
         return
     resident = dict(held or kernels.H100_RESIDENT_CLUSTERS)[step.cluster]
     items = -(-b // step.tile) * (16 // step.cluster)
     assert launch == kernels.ScanLaunch(
         1, 1, min(items, resident) * step.cluster, step.cluster, "wgmma",
         step.tile)
-    assert len(kernels.scan_work_items(launch, b, 1024, 2)) == items
+    assert len(tile_models.scan_work_items(launch, b, 1024, 2)) == items
 
 
 @pytest.mark.parametrize("rows", [4, 6])
@@ -383,8 +383,8 @@ def test_scan_takes_the_wgmma_form_from_its_fewest_lanes(rows, b):
     pick = kernels.scan_launch(b, 2, 1024, rows, 132, 2)
     assert step.form == "wgmma"
     if b < 272:
-        assert pick == kernels.scan_launch_shapes(b, 2, 1024, rows, 132,
-                                                  2)["mma"]
+        assert pick == tile_models.scan_launch_shapes(b, 2, 1024, rows, 132,
+                                                      2)["mma"]
     else:
         assert (pick.form, pick.tile, pick.cluster) == (
             "wgmma", step.tile, step.cluster)
@@ -438,7 +438,7 @@ def test_scan_schedule_under_the_wgmma_form(p, b, nsteps):
                 launch = kernels.scan_wgmma_shape(b, p.k + 1, p.N, bn,
                                                   cluster, resident)
                 for name, order in ORDERS.items():
-                    got = kernels.blind_rotate_scan_schedule_model(
+                    got = tile_models.blind_rotate_scan_schedule_model(
                         *args, launch=launch, order=order)
                     np.testing.assert_array_equal(
                         got.numpy(), want, err_msg=f"{launch} {name}")
@@ -452,6 +452,6 @@ def test_scan_schedule_sees_a_missing_item():
     acc, bara, bk = (_t(x) for x in _scan_inputs(P.TEST_TINY, 8, 2))
     launch = kernels.scan_wgmma_shape(8, 2, 64, 64, 1, 4)
     with pytest.raises(AssertionError, match="cover"):
-        kernels.blind_rotate_scan_schedule_model(acc, bara, bk, p,
-                                                 launch=launch,
-                                                 order=lambda i: i[1:])
+        tile_models.blind_rotate_scan_schedule_model(acc, bara, bk, p,
+                                                     launch=launch,
+                                                     order=lambda i: i[1:])

@@ -1,6 +1,6 @@
 """The warpgroup tile of ``csrc/wgmma_tile.cuh`` and the product's launch
 policy, as far as a CPU can hold them: the plain model in
-``ieache_tpu_torch.ops.kernels`` of each part of the wgmma form (the A
+``ieache_tpu_torch.ops.tile_models`` of each part of the wgmma form (the A
 fragments of each warp from the shifted byte planes, the stage the
 tensor-memory accelerator writes and the address function the B matrix
 descriptor reads it by, the epilogue's transpose through shared memory and
@@ -25,8 +25,8 @@ from hypothesis import strategies as st
 from ieache_tpu import params as P
 from ieache_tpu.ops.pallas_kernels import external_product_pallas_t
 from ieache_tpu_torch import params as TP
-from ieache_tpu_torch.ops import kernels
-from ieache_tpu_torch.ops.blind_rotate import make_step_gmatrix
+from ieache_tpu_torch.core.poly import make_step_gmatrix
+from ieache_tpu_torch.ops import kernels, tile_models
 
 #: where a carry between int8 limbs goes wrong: INT32_MIN, -1, 2^31 - 1,
 #: 0x7F7F7F7F, 0x80808080, and their neighbours
@@ -74,7 +74,7 @@ def _inputs(p, b, seed):
 
 
 def _wgmma_launches(p, b, sms=132):
-    return [launch for launch in kernels.product_launch_shapes(
+    return [launch for launch in tile_models.product_launch_shapes(
         b, p.k + 1, p.N, p.trgsw_rows, sms).values()
         if launch.form == "wgmma"]
 
@@ -98,8 +98,8 @@ def test_a_fragments_reproduce_the_toeplitz_tile(n, mcols):
     t = min(n, 128)
     for jb in range(0, n, t):
         for ma in range(0, n, mcols):
-            planes = kernels.mma_planes(bk_i[0, 0], jb, ma, mcols, t=t)
-            got = kernels.wgmma_toeplitz_tile(planes, t, mcols)
+            planes = tile_models.mma_planes(bk_i[0, 0], jb, ma, mcols, t=t)
+            got = tile_models.wgmma_toeplitz_tile(planes, t, mcols)
             assert got.shape == (4, t, mcols)
             assert torch.equal(got, want[:, ma:ma + mcols, jb:jb + t]
                                .transpose(1, 2)), (jb, ma)
@@ -109,7 +109,7 @@ def test_window_entries_stay_in_the_window_and_slide_by_four():
     """A commit group of 2 k-steps loads 4 x 2 + 2 C - 2 = 14 words: the
     entries chains 0 .. 3 take lie in 0 .. 9 a k-step, and the next k-step
     (4 diagonals on) takes 4 new ones."""
-    entries = {kernels.wgmma_window_index(c, r)
+    entries = {tile_models.wgmma_window_index(c, r)
                for c in range(kernels.WG_CHAINS) for r in range(4)}
     assert entries == set(range(2 * kernels.WG_CHAINS + 2))
     shifted = {e + 4 for e in entries}
@@ -127,25 +127,26 @@ def test_descriptor_reads_every_staged_byte_once(bn, kc):
     """Over a chunk's k-steps the descriptor reads each (row, k) of the
     stage exactly once, at the offset the tensor-memory accelerator wrote
     that digit to."""
-    reads = torch.cat([kernels.wgmma_descriptor_reads(bn, kc, ks).reshape(-1)
-                       for ks in range(kc // 32)])
+    reads = torch.cat([
+        tile_models.wgmma_descriptor_reads(bn, kc, ks).reshape(-1)
+        for ks in range(kc // 32)])
     assert sorted(reads.tolist()) == list(range(bn * kc))
     row = torch.arange(bn)[None, :].expand(32, bn)
     for ks in range(kc // 32):
         col = 32 * ks + torch.arange(32)[:, None].expand(32, bn)
-        assert torch.equal(kernels.wgmma_descriptor_reads(bn, kc, ks),
-                           kernels.wgmma_stage_offset(row, col, bn, kc))
+        assert torch.equal(tile_models.wgmma_descriptor_reads(bn, kc, ks),
+                           tile_models.wgmma_stage_offset(row, col, bn, kc))
 
 
 @pytest.mark.parametrize("kc", [64, 128, 256])
 def test_swizzle_keeps_sixteen_byte_pieces_and_boxes_on_atoms(kc):
     """The swizzle permutes whole 16-byte pieces within a row of the box, and
     every box starts on a swizzle atom (8 rows x SW bytes)."""
-    sw = kernels.wgmma_swizzle(kc)
+    sw = tile_models.wgmma_swizzle(kc)
     for bn in (32, 64):
         row = torch.arange(bn)[:, None]
         col = torch.arange(kc)[None, :]
-        off = kernels.wgmma_stage_offset(row, col, bn, kc)
+        off = tile_models.wgmma_stage_offset(row, col, bn, kc)
         assert torch.equal(off % 16, col.expand(bn, kc) % 16)
         box = (col // sw) * bn * sw
         assert torch.equal((off - box) // sw, row.expand(bn, kc))
@@ -158,9 +159,9 @@ def test_stage_reads_rows_past_the_batch_as_zeros():
     p = _sized(256)
     d = torch.from_numpy(np.random.RandomState(2).randint(
         -128, 128, (p.trgsw_rows, 5, p.N)).astype(np.int8))
-    stage = kernels.wgmma_stage_model(d, 1, 256 - 128, 0, 32, 128)
+    stage = tile_models.wgmma_stage_model(d, 1, 256 - 128, 0, 32, 128)
     for ks in range(4):
-        b = stage[kernels.wgmma_descriptor_reads(32, 128, ks)]   # (32, bn)
+        b = stage[tile_models.wgmma_descriptor_reads(32, 128, ks)]   # (32, bn)
         assert torch.equal(b[:, :5].t(), d[1, :, 128 + 32 * ks:160 + 32 * ks])
         assert not bool(b[:, 5:].any())
 
@@ -175,7 +176,7 @@ def test_epilogue_transposes_and_folds_the_limbs(t, bn):
     coefficient, for sums at the int32 edges."""
     rng = np.random.RandomState(t + bn)
     sums = _t(_rand_i32(rng, (4, t, bn)))
-    got = kernels.wgmma_epilogue_model(sums)
+    got = tile_models.wgmma_epilogue_model(sums)
     want = sum((sums[v].to(torch.int64) << (8 * v)) for v in range(4))
     want = ((want + 2**31) % 2**32 - 2**31).to(torch.int32)
     assert torch.equal(got, want.t())
@@ -185,7 +186,7 @@ def test_epilogue_transposes_and_folds_the_limbs(t, bn):
 def test_slab_stores_of_a_register_fall_on_32_banks(bn):
     """Each fragment register's 32 stores (one a lane) to a warp's slab hit
     32 distinct banks: the 68-word rows."""
-    words = kernels.wgmma_slab_words(bn)                  # (C, 32, bn / 2)
+    words = tile_models.wgmma_slab_words(bn)                  # (C, 32, bn / 2)
     for c in range(words.shape[0]):
         for i in range(words.shape[2]):
             assert len(set((words[c, :, i] % 32).tolist())) == 32
@@ -227,8 +228,8 @@ def test_extreme_operands_match_twin_and_pallas(p, case):
     twin = kernels.external_product_plain(_t(d), _t(bk_i), p, _t(acc))
     np.testing.assert_array_equal(twin.numpy(), want)
     for launch in _wgmma_launches(p, b):
-        got = kernels.external_product_wgmma_model(_t(d), _t(bk_i), p,
-                                                   _t(acc), launch=launch)
+        got = tile_models.external_product_wgmma_model(_t(d), _t(bk_i), p,
+                                                       _t(acc), launch=launch)
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(), want, err_msg=str(launch))
 
@@ -248,10 +249,10 @@ def test_model_matches_twin_and_pallas_at_ragged_batches(p, b):
         jnp.asarray(d), jnp.asarray(bk_i), p, acc_t=jnp.asarray(acc),
         interpret=True))
     for launch in _wgmma_launches(p, b):
-        got = kernels.external_product_wgmma_model(_t(d), _t(bk_i), p,
-                                                   _t(acc), launch=launch)
+        got = tile_models.external_product_wgmma_model(_t(d), _t(bk_i), p,
+                                                       _t(acc), launch=launch)
         np.testing.assert_array_equal(got.numpy(), want, err_msg=str(launch))
-    bare = kernels.external_product_wgmma_model(_t(d), _t(bk_i), p)
+    bare = tile_models.external_product_wgmma_model(_t(d), _t(bk_i), p)
     assert torch.equal(bare, kernels.external_product_plain(_t(d), _t(bk_i),
                                                             p))
 
@@ -266,8 +267,8 @@ def test_parts_of_six_rows_add_into_the_output(split):
     d, bk_i, acc = _inputs(p, 2, seed=split)
     launch = kernels.product_shape(2, p.k + 1, p.N, p.trgsw_rows, "wgmma", 32,
                                    128, split=split)
-    got = kernels.external_product_wgmma_model(_t(d), _t(bk_i), p, _t(acc),
-                                               launch=launch)
+    got = tile_models.external_product_wgmma_model(_t(d), _t(bk_i), p, _t(acc),
+                                                   launch=launch)
     assert torch.equal(got, kernels.external_product_plain(
         _t(d), _t(bk_i), p, _t(acc)))
 
@@ -303,8 +304,8 @@ def test_product_launch_by_batch(rows, p, b):
     assert p.trgsw_rows == rows and p.N == 1024 and p.k == 1
     launch = kernels.product_launch(b, p.k + 1, p.N, rows, 132)
     assert tuple(launch) == PICKS[rows][b]
-    assert launch in kernels.product_launch_shapes(b, p.k + 1, p.N, rows,
-                                                   132).values()
+    assert launch in tile_models.product_launch_shapes(b, p.k + 1, p.N, rows,
+                                                       132).values()
 
 
 @pytest.mark.parametrize("b", [1, 24, 64, 257, 1056])
@@ -313,7 +314,7 @@ def test_launch_shapes_split_to_fill_the_card(b):
     divisor of a tile's (p, chunk) pairs, the fewest that give each SM a
     block; the wgmma tiles cover min(N, 128) coefficients."""
     p = TP.IEACHE_110_FAST
-    for name, launch in kernels.product_launch_shapes(
+    for name, launch in tile_models.product_launch_shapes(
             b, p.k + 1, p.N, p.trgsw_rows, 132).items():
         kc = (min(p.N, kernels.MMA_TILE_COLS) if launch.form == "mma"
               else kernels.wgmma_chunk_cols(p.N))
